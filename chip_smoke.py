@@ -5,20 +5,33 @@ Run it from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``i2vsgg_tpu_torch/csrc`` with nvcc,
-holds the kernel bit-exact against its plain PyTorch version, checks a small
-program on the card against the same program on the CPU, and serves the
-fused det+SGG frame program (``i2vsgg_tpu_torch.serve.make_frame_program``)
-at full width: ResNet-101 with ic+gc context, 16 classes, 26 predicates,
-600x960 frames in bf16, rpn post-NMS 128 / pre-NMS 512, 8 detections with 8
-per class, and the SGG head on RoIPool — with seeded random weights. Every
-phase prints a line with the elapsed seconds before it starts. Any failure
-raises and the script exits non-zero; without a card, or away from the
-package, it exits non-zero before printing any result.
+It builds the port's CUDA kernels from ``i2vsgg_tpu_torch/csrc`` with nvcc
+(RoIPool, the conv1 stem, RoIAlignAvg; one nvcc each, in parallel), holds
+each kernel against its plain PyTorch version, checks a small program on the
+card against the same program on the CPU, and serves the fused det+SGG frame
+program (``i2vsgg_tpu_torch.serve``) at full width: ResNet-101 with ic+gc
+context, 16 classes, 26 predicates, 600x960 frames in bf16, rpn post-NMS 128
+/ pre-NMS 512, 8 detections with 8 per class, with seeded random weights,
+along two paths:
 
-The lines before the last are the kernels' JSON record (launches on the main
-path, error against the plain version, times and bound) and the card's name
-and power limit; the last line is
+* phase 5: f32 images and the SGG head on RoIPool (the first slice's path);
+* phase 6, this slice's path: a 12-frame synthetic video in 3 requests, fed
+  as conv1 parity planes packed on the host (``--host_planes``), the SGG
+  head under ``pooling="align"``; then the same program fed f32 images under
+  ``I2VSGG_PALLAS_CONV1=1`` (bit-equal), the bucketed program with buckets
+  (4, 8), Stage C (per-frame tuples and ``association``) over the video, and
+  the uint8 upload (``dequantize_image_u8``).
+
+Each path's kernel launch counters are set to 0 just before it and read just
+after. Every phase prints a line with the elapsed seconds before it starts.
+Any failure raises and the script exits non-zero; without a card, or away
+from the package, it exits non-zero before printing any result.
+
+The lines before the last are the serving record (ms per 4-frame request of
+each path served) and the kernels' JSON record (launches on the main path,
+error against the plain version; per request: the kernel's time, its plain
+version's, the library call's and the bound), then the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -26,10 +39,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,6 +52,8 @@ import torch
 T0 = time.time()
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12        # bf16 tensor cores, dense
+KERNEL_SOURCES = ("roi_pool.cu", "conv1.cu", "roi_align.cu")
 
 FULL = dict(backbone="res101", num_classes=16, num_rel=26, height=600,
             width=960, frames=4, requests=3, max_det=8, max_per_class=8,
@@ -64,7 +81,8 @@ def smi_name_power() -> str | None:
     return lines[0].strip() if out.returncode == 0 and lines else None
 
 
-def build_models(spec: dict, cfg, generator: torch.Generator):
+def build_models(spec: dict, cfg, generator: torch.Generator,
+                 pooling: str = "pool"):
     """Detector + SGG model of ``spec`` with seeded random weights (on the
     CPU). The RPN and class logits are scaled up so that scores spread out
     and no top-k or NMS decision sits on a float near-tie."""
@@ -74,7 +92,7 @@ def build_models(spec: dict, cfg, generator: torch.Generator):
     det = FasterRCNN_DA(spec["num_classes"], cfg, spec["backbone"], ic=True,
                         gc=True)
     sgg = SGGModel(VRDHead(emb_dim=spec["emb_dim"], fc_dim=spec["fc_dim"],
-                           pooling="pool",
+                           pooling=pooling,
                            dtype=torch_dtype(cfg.COMPUTE_DTYPE)))
     init_weights(det, generator)
     init_weights(sgg, generator)
@@ -157,6 +175,71 @@ def edge_rois(device) -> torch.Tensor:
     return torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1).contiguous()
 
 
+def align_edge_rois(device, n_images: int = 1) -> torch.Tensor:
+    """Rois for RoIAlignAvg's edge cases on a (38, 60) feature map at
+    1/16, repeated for each of ``n_images`` images (grouped, R = B * N):
+    past the right/bottom edge, negative coordinates, a 1-pixel box, one
+    wholly outside (every tap zero), one whose samples fall in the last row
+    and column (start clamped to H-2 / W-2, ratio above 1), the whole map,
+    and detection-like boxes."""
+    boxes = torch.tensor([
+        [900.0, 500.0, 1100.0, 700.0],    # past the right and bottom edges
+        [-40.0, -40.0, 20.0, 20.0],       # negative coordinates
+        [-300.0, -300.0, -100.0, -50.0],  # wholly outside, top-left
+        [1000.0, 700.0, 1200.0, 800.0],   # wholly outside, bottom-right
+        [500.0, 300.0, 501.0, 301.0],     # 1 pixel
+        [300.0, 200.0, 300.0, 200.0],     # a point
+        [880.0, 560.0, 959.0, 599.0],     # last row and column (h-2 clamp)
+        [0.0, 0.0, 959.0, 599.0],         # the whole map
+        [8.0, 24.0, 40.0, 56.0],
+        [120.3, 211.9, 517.2, 468.6],
+        [610.7, 40.1, 955.0, 590.4],
+        [33.3, 450.5, 400.25, 598.9],
+    ], device=device)
+    rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    rois = rois.repeat(n_images, 1)
+    rois[:, 0] = torch.arange(n_images, device=device).repeat_interleave(
+        boxes.shape[0]).float()
+    return rois.contiguous()
+
+
+def held_one_ulp(got: torch.Tensor, ref: torch.Tensor, what: str,
+                 min_equal: float = 0.999) -> float:
+    """Hold a bf16 kernel output to its plain version: at most one bf16 ulp
+    apart (|d| <= 2**-7 |ref|, plus 2**-16 max|ref| where a sum cancels to
+    near zero and its f32 rounding is many ulps of the tiny result), and at
+    least ``min_equal`` of the elements bit-equal. Returns the max abs
+    error."""
+    g, r = got.float(), ref.float()
+    if g.shape != r.shape:
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} != "
+                             f"{tuple(r.shape)}")
+    gap = (g - r).abs()
+    bound = 2.0 ** -7 * r.abs() + 2.0 ** -16 * float(r.abs().max())
+    equal = float((g == r).float().mean()) if g.numel() else 1.0
+    err = float(gap.max()) if g.numel() else 0.0
+    if not bool((gap <= bound).all()) or equal < min_equal:
+        raise AssertionError(f"{what}: max abs err {err}, bit-equal share "
+                             f"{equal:.6f} (needs one ulp and {min_equal})")
+    log(f"{what}: within one bf16 ulp, bit-equal share {equal:.6f}, "
+        f"max abs err {err:.3g}")
+    return err
+
+
+def held_f32(got: torch.Tensor, ref: torch.Tensor, what: str,
+             scale: float) -> float:
+    """f32 kernel vs reference: rtol 1e-5 with atol 1e-5 * ``scale`` (the
+    input's largest magnitude). Returns the max abs error."""
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    ok = bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-5 * scale).all())
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err} (rtol 1e-5, atol "
+                             f"{1e-5 * scale:.3g})")
+    equal = float((got == ref).float().mean()) if got.numel() else 1.0
+    log(f"{what}: max abs err {err:.3g}, bit-equal share {equal:.6f}")
+    return err
+
+
 def check_kernel_vs_plain(fmap, rois, what: str) -> float:
     from i2vsgg_tpu_torch.ops.roi_pool import roi_pool, roi_pool_plain
     got = roi_pool(fmap, rois)
@@ -170,6 +253,153 @@ def check_kernel_vs_plain(fmap, rois, what: str) -> float:
     return err
 
 
+def build_kernels():
+    """Build every kernel source with one nvcc each, all started together;
+    print each build's time and what ptxas reports."""
+    from i2vsgg_tpu_torch.utils import cuda_build
+
+    def one(src):
+        t = time.time()
+        lib = cuda_build.build(src)
+        return src, lib, time.time() - t
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(one, KERNEL_SOURCES))
+    for src, lib, sec in built:
+        log(f"built {lib.name} in {sec:.2f} s")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas ({src}): {line.strip()}")
+
+
+def conv1_work(planes_or_images, b: int, h: int, w: int):
+    """Bytes and flops of the stem on this input: the input read once, the
+    weights and affine read once, the pooled output written once; 2 flops a
+    multiply-add of conv1."""
+    from i2vsgg_tpu_torch.ops.conv1 import conv1_plane_geometry
+    g = conv1_plane_geometry(h, w)
+    hp, wp = (g.ho - 2) // 2 + 1, (g.wo - 2) // 2 + 1
+    nbytes = (planes_or_images.numel() * planes_or_images.element_size()
+              + 147 * 64 * 2 + 2 * 64 * 4 + b * hp * wp * 64 * 2)
+    flops = 2 * b * g.ho * g.wo * 64 * 147
+    return nbytes, flops
+
+
+def roi_align_work(fmap: torch.Tensor, rois: torch.Tensor, grid, p: int = 7):
+    """Bytes and flops the RoIAlignAvg of these inputs needs: every fmap
+    cell that a nonzero tap of some roi reads, once; rois read once; the
+    output written once; 2 flops (an f32 FMA) per tap pair and channel."""
+    from i2vsgg_tpu_torch.ops.roi_align import folded_weights
+    b, h, w, c = fmap.shape
+    ry, rx = folded_weights(rois, h, w, p, p, 1.0 / 16.0, grid, fmap.dtype)
+    rows = (ry != 0).any(dim=1).float().reshape(b, -1, h)     # (B, N, H)
+    cols = (rx != 0).any(dim=1).float().reshape(b, -1, w)
+    covered = int((torch.einsum("bnh,bnw->bhw", rows, cols) > 0).sum())
+    taps = float(((ry != 0).sum(dim=(1, 2)).float()
+                  * (rx != 0).sum(dim=(1, 2)).float()).sum())
+    g = ry.shape[1]
+    esize = fmap.element_size()
+    nbytes = (covered * c * esize + rois.numel() * 4
+              + rois.shape[0] * g * g * c * esize)
+    return nbytes, 2.0 * taps * c
+
+
+def bound_of(nbytes: float, flops: float, ops_per_s: float):
+    t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+    t_ops = 1e3 * flops / ops_per_s
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def synthetic_video(spec: dict, seed: int, n_frames: int = 12):
+    """A seeded video as the loader would ship it: uint8 BGR frames of a
+    random scene seen by a still camera, their f32 transport
+    (mean-subtracted) and im_info, cut into requests of ``spec["frames"]``
+    frames. The frames are identical: with seeded random weights the
+    detector's scores saturate (ties) and its boxes hug the image border, so
+    any change between frames reorders the detections and Stage C would
+    have no tracks to link."""
+    from i2vsgg_tpu_torch.config import Config
+    rs = np.random.RandomState(seed)
+    h, w, b = spec["height"], spec["width"], spec["frames"]
+    scene = rs.randint(0, 256, (1, h, w, 3)).astype(np.uint8)
+    u8 = np.repeat(scene, n_frames, axis=0)
+    f32 = u8.astype(np.float32) - np.asarray(Config().PIXEL_MEANS,
+                                             np.float32)
+    info = np.tile([[h, w, 1.0]], (b, 1)).astype(np.float32)
+    return [(u8[i:i + b], f32[i:i + b], info)
+            for i in range(0, n_frames, b)]
+
+
+def check_outputs(out: dict, spec: dict):
+    b, md, nr = spec["frames"], spec["max_det"], spec["num_rel"]
+    shapes = {"boxes": (b, md, 4), "scores": (b, md), "det_valid": (b, md),
+              "rel_prob": (b, md * (md - 1), nr),
+              "pair_valid": (b, md * (md - 1))}
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
+    rp = out["rel_prob"].float()
+    if not bool(torch.isfinite(rp).all()):
+        raise AssertionError("rel_prob has non-finite values")
+    sums_err = float((rp.sum(-1) - 1.0).abs().max())
+    if not sums_err <= 1e-4:
+        raise AssertionError(f"rel_prob sums off 1 by {sums_err}")
+    if not bool(torch.isfinite(out["boxes"]).all()):
+        raise AssertionError("boxes have non-finite values")
+
+
+class Counters:
+    """The launch counters of the port's kernels."""
+
+    def __init__(self):
+        from i2vsgg_tpu_torch.ops import conv1, roi_align, roi_pool
+        self.mods = {"roi_pool": (roi_pool.roi_pool, "launches"),
+                     "roi_align": (roi_align.roi_align_avg, "launches"),
+                     "conv1": (conv1, "launches")}
+
+    def reset(self):
+        for obj, attr in self.mods.values():
+            setattr(obj, attr, 0)
+
+    def read(self) -> dict:
+        return {k: getattr(obj, attr) for k, (obj, attr) in self.mods.items()}
+
+
+def serve_requests(program, requests, to_input, counters, expect: dict,
+                   what: str):
+    """Serve ``requests`` through ``program`` (``to_input`` builds each
+    request's program input on the host); the launch counters are set to 0
+    just before and read just after, and must equal ``expect`` per
+    request. Returns the outputs and the per-request host ms."""
+    counters.reset()
+    outs, times = [], []
+    for req in requests:
+        t = time.time()
+        outs.append(program(*to_input(req)))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t))
+    got = counters.read()
+    want = {k: v * len(requests) for k, v in expect.items()}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    log(f"{what}: launches {got} in {len(requests)} requests; request ms "
+        f"{', '.join(f'{x:.2f}' for x in times)}")
+    return outs, times
+
+
+def steady_ms(times):
+    return sum(times[1:]) / len(times[1:])
+
+
+def same_outputs(a: dict, b: dict, what: str):
+    for k in ("boxes", "scores", "classes", "det_valid", "rel_prob",
+              "pair_valid"):
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -178,13 +408,20 @@ def main() -> int:
     try:
         from i2vsgg_tpu_torch import serve
         from i2vsgg_tpu_torch.config import Config, cfg_from_list
+        from i2vsgg_tpu_torch.data.pipeline import dequantize_image_u8
+        from i2vsgg_tpu_torch.models import faster_rcnn as frcnn_mod
+        from i2vsgg_tpu_torch.models import sgg as sgg_mod
+        from i2vsgg_tpu_torch.ops import conv1 as conv1_mod
+        from i2vsgg_tpu_torch.ops import roi_align as roi_align_mod
         from i2vsgg_tpu_torch.ops import roi_pool as roi_pool_mod
-        from i2vsgg_tpu_torch.utils import cuda_build
+        from i2vsgg_tpu_torch.video.association import association
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "root of a checkout", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    counters = Counters()
+    kernels = {}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -194,13 +431,8 @@ def main() -> int:
         f"{kind} x{count}; nvidia-smi: {name_power or 'not available'}")
     card = name_power or kind
 
-    phase("2 build")
-    t = time.time()
-    lib = cuda_build.build("roi_pool.cu")
-    log(f"built {lib.name} in {time.time() - t:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    phase("2 build (one nvcc per source, in parallel)")
+    build_kernels()
 
     phase("3 roi_pool kernel vs plain at (1, 38, 60, 1024)")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -222,6 +454,70 @@ def main() -> int:
     rois2[100:, 0] = 1.0
     max_err = max(max_err, check_kernel_vs_plain(
         fmap2.bfloat16(), rois2, "bf16 B=2, C=1000 (scalar path)"))
+    kernels["roi_pool"] = {"max_abs_err": max_err}
+
+    phase("3b conv1 kernel vs plain at (4, 600, 960): images and planes, "
+          "stem and conv+ReLU, the v2 mode")
+    spec = FULL
+    b, h, w = spec["frames"], spec["height"], spec["width"]
+    x = (torch.rand(b, h, w, 3, generator=g, device=dev) * 255 - 120)
+    weight = torch.randn(64, 3, 7, 7, generator=g, device=dev) / 147 ** 0.5
+    mul = torch.rand(64, generator=g, device=dev) + 0.5
+    add = torch.randn(64, generator=g, device=dev)
+    planes = conv1_mod.Conv1Planes.pack(x.cpu().numpy()).to(dev)
+    if not torch.equal(planes.planes, conv1_mod.pack_conv1_planes(x)):
+        raise AssertionError("host planes != device planes")
+    c1 = conv1_mod
+    err = 0.0
+    for name, kern, plain, args in (
+            ("bn_relu images", c1.conv1_bn_relu, c1.conv1_bn_relu_plain,
+             (x, weight, mul, add)),
+            ("bn_relu planes", c1.conv1_bn_relu_planes,
+             c1.conv1_bn_relu_planes_plain,
+             (planes.planes, h, w, weight, mul, add)),
+            ("stem images", c1.conv1_stem, c1.conv1_stem_plain,
+             (x, weight, mul, add)),
+            ("stem planes", c1.conv1_stem_planes, c1.conv1_stem_planes_plain,
+             (planes.planes, h, w, weight, mul, add)),
+            ("v2 images", c1.conv1_bn_relu_v2, c1.conv1_bn_relu_v2_plain,
+             (x, weight, mul, add))):
+        err = max(err, held_one_ulp(kern(*args), plain(*args),
+                                    f"conv1 {name}"))
+    for kern_i, kern_p in ((c1.conv1_stem, c1.conv1_stem_planes),
+                           (c1.conv1_bn_relu, c1.conv1_bn_relu_planes)):
+        if not torch.equal(kern_i(x, weight, mul, add),
+                           kern_p(planes.planes, h, w, weight, mul, add)):
+            raise AssertionError(f"{kern_i.__name__}: the image form and the "
+                                 "planes form differ")
+    log("conv1 image form == planes form, bit for bit (stem and conv+ReLU)")
+    kernels["conv1"] = {"max_abs_err": err}
+
+    phase("3c roi_align kernel vs plain: edge rois at the main path's three "
+          "shapes")
+    err = 0.0
+    for fshape, dt, grid in (((4, 38, 60, 1024), torch.bfloat16,
+                              (0, 2, 4, 6)),
+                             ((4, 38, 60, 512), torch.bfloat16, None),
+                             ((1, 38, 60, 1024), torch.float32, None)):
+        fmap = (torch.randn(*fshape, generator=g, device=dev) * 4).to(dt)
+        n_img = fshape[0]
+        edge = align_edge_rois(dev, n_img).reshape(n_img, -1, 5)
+        rnd = torch.rand(n_img, 116, 4, generator=g, device=dev) * \
+            torch.tensor([1000.0, 640.0, 1000.0, 640.0], device=dev) - 20
+        rnd = torch.cat([torch.minimum(rnd[..., :2], rnd[..., 2:]),
+                         torch.maximum(rnd[..., :2], rnd[..., 2:])], -1)
+        rnd = torch.cat([edge[:, :1, :1].expand(-1, 116, 1), rnd], -1)
+        rois = torch.cat([edge, rnd], 1).reshape(-1, 5).contiguous()
+        got = roi_align_mod.roi_align_avg(fmap, rois, grid=grid)
+        ref = roi_align_mod.roi_align_avg_plain(fmap, rois, grid=grid)
+        what = f"roi_align {fshape} {dt} grid {grid}, R={rois.shape[0]}"
+        if dt == torch.float32:
+            err = max(err, held_f32(got, ref, what, float(fmap.abs().max())))
+            gat = roi_align_mod.roi_align_avg_gather(fmap, rois)
+            held_f32(got, gat, what + " vs gather", float(fmap.abs().max()))
+        else:
+            err = max(err, held_one_ulp(got, ref, what))
+    kernels["roi_align"] = {"max_abs_err": err}
 
     phase("4 small program: card vs CPU (res10, 64x80, f32, TF32 off)")
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -257,59 +553,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
     phase("5 full-width serving (res101 ic+gc, 600x960 bf16, rpn128/pre512, "
-          "det8)")
+          "det8), f32 images, SGG head on RoIPool")
     t = time.time()
     cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
                          "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
     det, sgg, prd = build_models(FULL, cfg, torch.Generator().manual_seed(3))
-    program = serve.make_frame_program(
-        det, sgg, prd, cfg, max_det=FULL["max_det"],
-        max_per_class=FULL["max_per_class"], device=dev)
+    kw = dict(max_det=FULL["max_det"], max_per_class=FULL["max_per_class"],
+              device=dev)
+    program = serve.make_frame_program(det, sgg, prd, cfg, **kw)
     torch.cuda.synchronize()
     log(f"models built, weights on the card in {time.time() - t:.2f} s")
     requests = [make_inputs(FULL, 10 + i) for i in range(FULL["requests"])]
-    roi_pool_fn = roi_pool_mod.roi_pool
     torch.cuda.reset_peak_memory_stats()
-    roi_pool_fn.launches = 0                      # main path starts
-    outs, times = [], []
-    for images, im_info in requests:
-        t = time.time()
-        outs.append(program(images, im_info))
-        torch.cuda.synchronize()
-        times.append(time.time() - t)
-    launches = roi_pool_fn.launches               # main path ends
-    expected = FULL["requests"] * FULL["frames"]  # one launch per frame
-    if launches != expected:
-        raise AssertionError(f"roi_pool launched {launches} times on the "
-                             f"main path, expected {expected}")
-    b, md, nr = FULL["frames"], FULL["max_det"], FULL["num_rel"]
+    # one launch of RoIPool per frame; RoIAlign on the det subgrid and the
+    # ic context per request; conv1 is cuDNN's on this path
+    outs, times = serve_requests(
+        program, requests, lambda r: r, counters,
+        {"roi_pool": FULL["frames"], "roi_align": 2, "conv1": 0},
+        "f32 images, pool")
+    kernels["roi_pool"]["launches"] = counters.read()["roi_pool"]
     for out in outs:
-        shapes = {"boxes": (b, md, 4), "scores": (b, md),
-                  "det_valid": (b, md), "rel_prob": (b, md * (md - 1), nr),
-                  "pair_valid": (b, md * (md - 1))}
-        for k, s in shapes.items():
-            if tuple(out[k].shape) != s:
-                raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
-        rp = out["rel_prob"].float()
-        if not bool(torch.isfinite(rp).all()):
-            raise AssertionError("rel_prob has non-finite values")
-        sums_err = float((rp.sum(-1) - 1.0).abs().max())
-        if not sums_err <= 1e-4:
-            raise AssertionError(f"rel_prob sums off 1 by {sums_err}")
-        if not bool(torch.isfinite(out["boxes"]).all()):
-            raise AssertionError("boxes have non-finite values")
-    steady = times[1:]
-    ms = 1e3 * sum(steady) / len(steady)
-    log(f"roi_pool launches on the main path: {launches} "
-        f"({FULL['frames']} per request)")
-    log(f"request ms: {', '.join(f'{1e3 * x:.2f}' for x in times)} "
-        f"(first includes cuDNN/cuBLAS warm-up)")
-    log(f"steady: {ms:.2f} ms/request, {1e3 * b / ms:.2f} frames/s "
-        f"[{card}]; valid detections {int(outs[-1]['det_valid'].sum())}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_outputs(out, FULL)
+    ms = {"f32_images_pool": steady_ms(times)}
+    log(f"steady: {ms['f32_images_pool']:.2f} ms/request, "
+        f"{1e3 * b / ms['f32_images_pool']:.2f} frames/s [{card}]; valid "
+        f"detections {int(outs[-1]['det_valid'].sum())}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     phase("5b roi_pool on the main path's own inputs: exactness and time")
-    from i2vsgg_tpu_torch.models import sgg as sgg_mod
+    roi_pool_fn = roi_pool_mod.roi_pool
     seen = []
 
     def recording(features, rois, *a, **k):
@@ -321,32 +593,281 @@ def main() -> int:
         program(*requests[-1])
     finally:
         sgg_mod.roi_pool = roi_pool_fn
-    fmap, rois = seen[-1]
+    k_ms = p_ms = bound_ms = 0.0
+    bound_by = "bytes"
+    for fmap, rois in seen:                       # the request's 4 frames
+        kernels["roi_pool"]["max_abs_err"] = max(
+            kernels["roi_pool"]["max_abs_err"],
+            check_kernel_vs_plain(fmap, rois, "main-path inputs"))
+        k_ms += cuda_ms(lambda: roi_pool_fn(fmap, rois), 200)
+        p_ms += cuda_ms(lambda: roi_pool_mod.roi_pool_plain(fmap, rois), 5, 1)
+        nbytes, compares = roi_pool_work(fmap, rois)
+        bnd, bound_by = bound_of(nbytes, compares, H100_F32_OPS_PER_S)
+        bound_ms += bnd
     log(f"main-path inputs: fmap {tuple(fmap.shape)} {fmap.dtype}, rois "
-        f"{tuple(rois.shape)}")
-    max_err = max(max_err, check_kernel_vs_plain(fmap, rois,
-                                                 "main-path inputs"))
-    k_ms = cuda_ms(lambda: roi_pool_fn(fmap, rois), 200)
-    p_ms = cuda_ms(lambda: roi_pool_mod.roi_pool_plain(fmap, rois), 10, 1)
-    nbytes, compares = roi_pool_work(fmap, rois)
-    t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
-    t_ops = 1e3 * compares / H100_F32_OPS_PER_S
-    bound_ms = max(t_bytes, t_ops)
-    log(f"roi_pool {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-        f"{bound_ms * 1e3:.3f} us ({nbytes} B, {compares} compares) [{card}]")
+        f"{tuple(rois.shape)} x {len(seen)} frames")
+    log(f"roi_pool per request: {k_ms * 1e3:.2f} us "
+        f"({k_ms * 1e3 / len(seen):.2f} per launch), plain {p_ms * 1e3:.2f} "
+        f"us, bound {bound_ms * 1e3:.3f} us [{card}]")
+    kernels["roi_pool"].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None)
 
-    phase("6 results")
+    phase("6 this slice's path: host-packed conv1 planes, SGG head under "
+          "align, a 12-frame video in 3 requests")
+    sgg_align = copy.deepcopy(sgg)
+    sgg_align.vrd.pooling = "align"
+    program = serve.make_frame_program(det, sgg_align, prd, cfg, **kw)
+    video = synthetic_video(FULL, seed=20)
+    per_request = {"roi_pool": 0, "conv1": 2,   # the stem: conv + pool pass
+                   "roi_align": 2 + FULL["frames"]}
+    pack_ms = []
+
+    def planes_input(req):
+        t = time.time()
+        planes = conv1_mod.Conv1Planes.pack(req[1])          # on the host
+        pack_ms.append(1e3 * (time.time() - t))
+        return planes, req[2]
+
+    main_outs, times = serve_requests(program, video, planes_input, counters,
+                                      per_request, "host planes, align")
+    launches = counters.read()
+    kernels["conv1"]["launches"] = launches["conv1"]
+    kernels["roi_align"]["launches"] = launches["roi_align"]
+    for out in main_outs:
+        check_outputs(out, FULL)
+    ms["host_planes_align"] = steady_ms(times)
+    log(f"steady: {ms['host_planes_align']:.2f} ms/request (host packing "
+        f"{', '.join(f'{x:.2f}' for x in pack_ms)} ms of it) [{card}]")
+
+    phase("6b the same program fed f32 images under I2VSGG_PALLAS_CONV1=1: "
+          "bit-equal")
+    os.environ["I2VSGG_PALLAS_CONV1"] = "1"
+    try:
+        env_outs, times = serve_requests(program, video,
+                                         lambda r: (r[1], r[2]), counters,
+                                         per_request, "f32 images, env")
+    finally:
+        del os.environ["I2VSGG_PALLAS_CONV1"]
+    for a, o in zip(main_outs, env_outs):
+        same_outputs(a, o, "planes vs images under I2VSGG_PALLAS_CONV1=1")
+    ms["images_env_align"] = steady_ms(times)
+    log(f"outputs bit-equal to the host-planes path; steady "
+        f"{ms['images_env_align']:.2f} ms/request")
+
+    phase("6c bucketed program, buckets (4, 8), host planes")
+    bucketed = serve.make_bucketed_program(det, sgg_align, prd, cfg,
+                                           buckets=(4, 8), **kw)
+    bk_outs, times = serve_requests(bucketed, video,
+                                    lambda r: (conv1_mod.Conv1Planes.pack(
+                                        r[1]), r[2]), counters, per_request,
+                                    "bucketed (4, 8)")
+    worst = 0.0
+    for a, o in zip(main_outs, bk_outs):
+        for k in ("boxes", "scores", "classes", "det_valid"):
+            if not torch.equal(a[k], o[k]):
+                raise AssertionError(f"bucketed: {k} differs from the fused "
+                                     "program")
+        for f in range(b):
+            full, part = ({(int(i), int(j)): x["rel_prob"][f, n]
+                           for n, (i, j) in enumerate(zip(x["ix1"], x["ix2"]))
+                           if x["pair_valid"][f, n]} for x in (a, o))
+            if set(full) != set(part):
+                raise AssertionError("bucketed: valid pairs differ")
+            for key in full:
+                worst = max(worst, float((full[key].float()
+                                          - part[key].float()).abs().max()))
+    if not worst <= 1e-3:
+        raise AssertionError(f"bucketed: rel_prob off by {worst} > 1e-3")
+    ms["bucketed_planes_align"] = steady_ms(times)
+    log(f"buckets chosen {[o['bucket'] for o in bk_outs]}; detections equal, "
+        f"valid pairs' rel_prob within {worst:.3g} (tol 1e-3); steady "
+        f"{ms['bucketed_planes_align']:.2f} ms/request")
+
+    phase("6d Stage C over the video: per-frame tuples, association")
+    frames = []
+    for r, out in enumerate(main_outs):
+        for f in range(b):
+            frames.append([r * b + f, serve.frame_relation_tuples(out, f)])
+    n_tuples = sum(len(t) for _, t in frames)
+    relations = association(
+        {"synthetic": copy.deepcopy(frames)},
+        objects=[f"class{i}" for i in range(FULL["num_classes"])],
+        predicates=[f"pred{i}" for i in range(FULL["num_rel"])])
+    rels = relations.get("synthetic", [])
+    if not rels:
+        raise AssertionError("Stage C linked no video relation over 12 "
+                             "identical frames")
+    for rel in rels:
+        s0, s1 = rel["duration"]
+        if not (0 <= s0 < s1 <= len(frames)
+                and len(rel["sub_traj"]) == len(rel["obj_traj"]) == s1 - s0
+                and np.isfinite(rel["score"])):
+            raise AssertionError(f"malformed video relation {rel}")
+    log(f"{len(frames)} frames, {n_tuples} relation tuples -> {len(rels)} "
+        f"video relations (durations "
+        f"{sorted({tuple(r['duration']) for r in rels})[:4]}...)")
+
+    phase("6e uint8 upload: dequantized on the card, equal to the f32 "
+          "transport")
+    u8 = torch.as_tensor(video[0][0], device=dev)
+    small = torch.tensor([[560.0, 900.0, 1.0]] * b, device=dev)
+    want = torch.as_tensor(video[0][1], device=dev).clone()
+    want[:, 560:] = 0.0
+    want[:, :, 900:] = 0.0
+    if not torch.equal(dequantize_image_u8(u8, small, cfg.PIXEL_MEANS),
+                       want):
+        raise AssertionError("dequantize_image_u8 != the padded f32 "
+                             "transport")
+    os.environ["I2VSGG_PALLAS_CONV1"] = "1"
+    try:
+        def u8_input(req):
+            img = torch.as_tensor(req[0], device=dev)
+            info = torch.as_tensor(req[2], device=dev)
+            return dequantize_image_u8(img, info, cfg.PIXEL_MEANS), info
+
+        for req in video:
+            x8, _ = u8_input(req)
+            if not torch.equal(x8, torch.as_tensor(req[1], device=dev)):
+                raise AssertionError("dequantize_image_u8 != f32 transport")
+        u8_outs, times = serve_requests(program, video, u8_input, counters,
+                                        per_request, "uint8 upload, env")
+    finally:
+        del os.environ["I2VSGG_PALLAS_CONV1"]
+    for a, o in zip(env_outs, u8_outs):
+        same_outputs(a, o, "uint8 upload vs f32 transport")
+    ms["uint8_env_align"] = steady_ms(times)
+    log(f"program inputs equal to the f32 transport's (and with a 560x900 "
+        f"true size, to its zero padding); outputs bit-equal; steady "
+        f"{ms['uint8_env_align']:.2f} ms/request")
+
+    phase("7 conv1 and roi_align on the main path's own inputs: exactness "
+          "and time per request")
+    ra_fn = roi_align_mod.roi_align_avg
+    sites = []
+
+    def rec_align(features, rois, *a, **k):
+        sites.append((features, rois, k.get("grid")))
+        return ra_fn(features, rois, *a, **k)
+
+    frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = rec_align
+    try:
+        planes = conv1_mod.Conv1Planes.pack(video[-1][1])
+        program(planes, video[-1][2])
+    finally:
+        frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = ra_fn
+    torch.cuda.synchronize()
+    ra = kernels["roi_align"]
+    ra.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, sites=[])
+    for fmap, rois, grid in sites:
+        got = ra_fn(fmap, rois, grid=grid)
+        ref = roi_align_mod.roi_align_avg_plain(fmap, rois, grid=grid)
+        what = f"roi_align {tuple(fmap.shape)} {fmap.dtype} grid {grid}"
+        if fmap.dtype == torch.float32:
+            e = held_f32(got, ref, what, float(fmap.abs().max()))
+        else:
+            e = held_one_ulp(got, ref, what)
+        ra["max_abs_err"] = max(ra["max_abs_err"], e)
+        k_ms = cuda_ms(lambda: ra_fn(fmap, rois, grid=grid), 200)
+        p_ms = cuda_ms(lambda: roi_align_mod.roi_align_avg_plain(
+            fmap, rois, grid=grid), 10, 1)
+        nbytes, flops = roi_align_work(fmap, rois, grid)
+        bnd, by = bound_of(nbytes, flops, H100_F32_OPS_PER_S)
+        ra["ms"] += k_ms
+        ra["plain_ms"] += p_ms
+        ra["bound_ms"] += bnd
+        ra["bound_by"] = by
+        ra["sites"].append({"fmap": list(fmap.shape),
+                            "dtype": str(fmap.dtype), "rois": rois.shape[0],
+                            "grid": grid, "ms": k_ms, "plain_ms": p_ms,
+                            "bound_ms": bnd, "bytes": nbytes})
+        log(f"{what}, R={rois.shape[0]}: kernel {k_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({nbytes} B) "
+            f"[{card}]")
+    if len(sites) != per_request["roi_align"]:
+        raise AssertionError(f"{len(sites)} roi_align calls per request")
+
+    c1k = kernels["conv1"]
+    weight = det.trunk.conv1.weight.detach()
+    mul, add = det.trunk.bn1.affine()
+    pl = planes.to(dev).planes
+    c1k["max_abs_err"] = max(c1k["max_abs_err"], held_one_ulp(
+        c1.conv1_stem_planes(pl, h, w, weight, mul, add),
+        c1.conv1_stem_planes_plain(pl, h, w, weight, mul, add),
+        "conv1 stem on the main path's planes and weights"))
+    k_ms = cuda_ms(lambda: c1.conv1_stem_planes(pl, h, w, weight, mul, add),
+                   50)
+    p_ms = cuda_ms(lambda: c1.conv1_stem_planes_plain(pl, h, w, weight, mul,
+                                                      add), 10, 1)
+    # the library call: cuDNN's conv with the BN scale folded into bf16
+    # weights and the shift as its bias, on the same bf16 input (ReLU and
+    # the pool would be extra passes)
+    xb = torch.as_tensor(video[-1][1], device=dev).to(torch.bfloat16)
+    xb = xb.permute(0, 3, 1, 2)                  # NCHW view, channels-last
+    wf = c1.fold_v2_weight(weight, mul).contiguous(
+        memory_format=torch.channels_last)
+    bias = add.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+        xb, wf, bias, stride=2, padding=3), 50)
+    nbytes, flops = conv1_work(pl, b, h, w)
+    bnd, by = bound_of(nbytes, flops, H100_BF16_OPS_PER_S)
+    c1k.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+               library_ms=lib_ms, modes={})
+    log(f"conv1 stem, planes {tuple(pl.shape)}: kernel {k_ms * 1e3:.2f} us "
+        f"(conv + pool pass), plain {p_ms * 1e3:.2f} us, F.conv2d (conv + "
+        f"affine only) {lib_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
+        f"({nbytes} B, {flops} flop) [{card}]")
+    # the other forms on the same frames and weights: the stem fed f32
+    # images, and conv + ReLU without the pool (B3's unpooled entry, and the
+    # v2 mode B5), whose output is the full (4, 300, 480, 64) map
+    x32 = torch.as_tensor(video[-1][1], device=dev)
+    for mode, kern, plain, x_in in (
+            ("stem_images", c1.conv1_stem, c1.conv1_stem_plain, x32),
+            ("bn_relu_planes", lambda *a: c1.conv1_bn_relu_planes(
+                pl, h, w, *a[1:]), lambda *a: c1.conv1_bn_relu_planes_plain(
+                pl, h, w, *a[1:]), pl),
+            ("v2_images", c1.conv1_bn_relu_v2, c1.conv1_bn_relu_v2_plain,
+             x32)):
+        out = kern(x_in, weight, mul, add)
+        km = cuda_ms(lambda: kern(x_in, weight, mul, add), 50)
+        pm = cuda_ms(lambda: plain(x_in, weight, mul, add), 10, 1)
+        nb = (x_in.numel() * x_in.element_size() + 147 * 64 * 2 + 2 * 64 * 4
+              + out.numel() * out.element_size())
+        bd, _ = bound_of(nb, flops, H100_BF16_OPS_PER_S)
+        c1k["modes"][mode] = {"ms": km, "plain_ms": pm, "bound_ms": bd,
+                              "bytes": nb}
+        log(f"conv1 {mode}: kernel {km * 1e3:.2f} us, plain {pm * 1e3:.2f} "
+            f"us, bound {bd * 1e3:.3f} us ({nb} B) [{card}]")
+
+    phase("8 results")
     print(json.dumps({"serving": {
-        "ms_per_request": ms, "frames_per_s": 1e3 * b / ms,
-        "frames_per_request": b, "wall_s": time.time() - T0}}), flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "roi_pool", "route": "cuda",
-        "source": "i2vsgg_tpu_torch/csrc/roi_pool.cu",
-        "replaces": "i2vsgg_tpu/ops/pallas/roi_pool_kernel.py:134",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}]}), flush=True)
+        "ms_per_request": ms, "frames_per_request": b,
+        "video_relations": len(rels), "relation_tuples": n_tuples,
+        "buckets": [o["bucket"] for o in bk_outs],
+        "wall_s": time.time() - T0}}), flush=True)
+    meta = {
+        "roi_pool": ("i2vsgg_tpu_torch/csrc/roi_pool.cu",
+                     "i2vsgg_tpu/ops/pallas/roi_pool_kernel.py:134",
+                     "none: no single PyTorch call computes RoIPool"),
+        "conv1": ("i2vsgg_tpu_torch/csrc/conv1.cu",
+                  "i2vsgg_tpu/ops/pallas/conv1_kernel.py:249",
+                  "F.conv2d of the bf16 input with bf16(w * mul) and the "
+                  "shift as bias: conv + BN affine only (ReLU and the pool "
+                  "would be extra passes)"),
+        "roi_align": ("i2vsgg_tpu_torch/csrc/roi_align.cu",
+                      "i2vsgg_tpu/ops/pallas/roi_align_kernel.py:119",
+                      "none: no single PyTorch call computes RoIAlignAvg")}
+    line = []
+    for name in ("roi_pool", "roi_align", "conv1"):
+        k = kernels[name]
+        line.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1], "launches": k["launches"],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                     "library_call": meta[name][2], "per": "request",
+                     **{key: k[key] for key in ("sites", "modes")
+                        if key in k}})
+    print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -14,11 +14,14 @@ either end.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from i2vsgg_tpu_torch.models.layers import Conv
+from i2vsgg_tpu_torch.ops import conv1 as conv1_ops
 
 RESNET_STAGES = {
     50: (3, 4, 6, 3),
@@ -50,9 +53,14 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x):
+    def affine(self):
+        """The folded ``(mul, add)`` in f32 (the JAX module called with
+        ``None``), for kernels that take the affine as parameters."""
         mul = self.scale * torch.rsqrt(self.var + self.eps)
-        add = self.bias - self.mean * mul
+        return mul, self.bias - self.mean * mul
+
+    def forward(self, x):
+        mul, add = self.affine()
         return (x * mul.to(x.dtype)[:, None, None]
                 + add.to(x.dtype)[:, None, None])
 
@@ -135,9 +143,23 @@ def caffe_maxpool(x: torch.Tensor) -> torch.Tensor:
 class ResNetTrunk(nn.Module):
     """conv1..layer3 (stride 16) with the layer2 tap.
 
-    ``forward(images NHWC)`` -> (c4 (B, H/16, W/16, 1024),
-                                 c3 tap (B, H/8, W/8, 512)), both NHWC.
-    conv1 is the plain 7x7/2 pad-3 conv (``Conv1S2D``'s default branch).
+    ``forward(images NHWC or Conv1Planes)`` -> (c4 (B, H/16, W/16, 1024),
+    c3 tap (B, H/8, W/8, 512)), both NHWC.
+
+    conv1 dispatches as the JAX trunk does, reading the environment at
+    forward time:
+
+    * a ``Conv1Planes`` input (host-packed parity planes) goes to the
+      planes-fed conv1 kernel;
+    * ``I2VSGG_PALLAS_CONV1=1`` sends an image batch to the image-fed
+      conv1 kernel;
+    * otherwise conv1 is the plain 7x7/2 pad-3 conv (cuDNN on the card);
+    * on the kernel paths ``I2VSGG_CONV1_FUSED_POOL`` (default ``1``)
+      selects the stem (conv + BN + ReLU + the caffe pool in the kernel's
+      module) over the kernel conv followed by ``caffe_maxpool``.
+
+    The kernel paths compute conv1 in bf16 with f32 accumulation and return
+    bf16 values, whatever the trunk's dtype (as the JAX kernels do).
     """
 
     def __init__(self, depth: int = 101, dtype=torch.bfloat16):
@@ -151,11 +173,27 @@ class ResNetTrunk(nn.Module):
         self.layer2 = ResNetStage(256, 128, n2, 2, dtype)
         self.layer3 = ResNetStage(512, 256, n3, 2, dtype)
 
+    def _stem(self, images):
+        fused_pool = os.environ.get("I2VSGG_CONV1_FUSED_POOL", "1") == "1"
+        if isinstance(images, conv1_ops.Conv1Planes):
+            mul, add = self.bn1.affine()
+            fn = (conv1_ops.conv1_stem_planes if fused_pool
+                  else conv1_ops.conv1_bn_relu_planes)
+            x = fn(images.planes, images.h, images.w, self.conv1.weight,
+                   mul, add)
+        elif os.environ.get("I2VSGG_PALLAS_CONV1") == "1":
+            mul, add = self.bn1.affine()
+            fn = (conv1_ops.conv1_stem if fused_pool
+                  else conv1_ops.conv1_bn_relu)
+            x = fn(images.float().contiguous(), self.conv1.weight, mul, add)
+        else:
+            x = nhwc_to_nchw(images.to(self.dtype))
+            return caffe_maxpool(F.relu(self.bn1(self.conv1(x))))
+        x = nhwc_to_nchw(x.to(self.dtype))
+        return x if fused_pool else caffe_maxpool(x)
+
     def forward(self, images):
-        x = nhwc_to_nchw(images.to(self.dtype))
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = caffe_maxpool(x)
-        x = self.layer1(x)
+        x = self.layer1(self._stem(images))
         tap = self.layer2(x)
         x = self.layer3(tap)
         return nchw_to_nhwc(x), nchw_to_nhwc(tap)

@@ -75,26 +75,28 @@ class FasterRCNN_DA(nn.Module):
 
     @torch.no_grad()
     def inference(self, images, im_info) -> Dict[str, torch.Tensor]:
-        """images (B, H, W, 3) NHWC, im_info (B, 3) f32 ->
+        """images (B, H, W, 3) NHWC or ``Conv1Planes`` (whose ``shape`` is
+        the image batch's), im_info (B, 3) f32 ->
         {rois (B, N, 5), roi_valid (B, N), cls_prob (B, N, C),
          bbox_pred (B, N, 4C), base_feat (B, H/16, W/16, 1024)}."""
         base_feat, tap = self.trunk(images)
         rpn_cls, rpn_bbox = self.rpn(base_feat)
         props = self._proposals(base_feat, rpn_cls, rpn_bbox, im_info)
         b, n = props.rois.shape[:2]
-        rois_flat = props.rois.reshape(b * n, 5)
+        rois_flat = props.rois.reshape(b * n, 5).contiguous()
         p = self.cfg.POOLING_SIZE
         scale = 1.0 / self.cfg.FEAT_STRIDE[0]
 
-        pooled4 = roi_align_avg(base_feat, rois_flat, p, p, scale,
-                                grid=(0, 2, 4, 6))
+        pooled4 = roi_align_avg(base_feat.contiguous(), rois_flat, p, p,
+                                scale, grid=(0, 2, 4, 6))
         x = self.head(pooled4, first_stride=1).float()
         if self.gc:
             feat_image = self.netD_style(tap)                  # (B, 512)
             x = torch.cat([feat_image.repeat_interleave(n, dim=0), x], dim=1)
         if self.ic:
             f512 = self.netD_pixel.preconv(base_feat)
-            pooled_ic = roi_align_avg(f512, rois_flat, p, p, scale)
+            pooled_ic = roi_align_avg(f512.contiguous(), rois_flat, p, p,
+                                      scale)
             x = torch.cat([self.netD_pixel.context_tail(pooled_ic), x], dim=1)
         cls_prob = torch.softmax(self.cls_score(x), dim=-1)
         return {

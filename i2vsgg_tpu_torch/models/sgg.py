@@ -102,7 +102,8 @@ class VRDHead(nn.Module):
         m = obj_rois.shape[0]
         all_rois = torch.cat([obj_rois, union_rois], dim=0).contiguous()
         if self.pooling == "align":
-            pooled = roi_align_avg(fmap, all_rois, p, p, 1.0 / 16.0)
+            pooled = roi_align_avg(fmap.contiguous(), all_rois, p, p,
+                                   1.0 / 16.0)
         else:
             pooled = roi_pool(fmap.contiguous(), all_rois, p, p, 1.0 / 16.0)
         x = pooled.reshape(pooled.shape[0], -1).to(self.dtype)

@@ -7,21 +7,27 @@ features and predicate scoring — all on the device, with static shapes:
 * detections padded to ``max_det`` per image with validity masks,
 * pairs padded to ``max_det * (max_det - 1)``.
 
-``make_frame_program`` is the port's entry point. It runs on the card unless
-the caller passes ``device="cpu"``.
+``make_frame_program`` is the port's entry point, and
+``make_bucketed_program`` its detection-count-bucketed form. Both take an
+NHWC image batch or host-packed ``Conv1Planes``, and run on the card unless
+the caller passes ``device="cpu"``. ``frame_relation_tuples`` turns one
+frame of their output into the tuples that Stage C
+(``video/association.py``) links over time.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from i2vsgg_tpu_torch.config import Config
 from i2vsgg_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
 from i2vsgg_tpu_torch.ops.nms import nms_indices_unsorted
 from i2vsgg_tpu_torch.utils.device import resolve_device
+from i2vsgg_tpu_torch.video.metrics import detection_output
 
 
 class Detections(NamedTuple):
@@ -113,6 +119,49 @@ def make_union_dedup(ix1: np.ndarray, ix2: np.ndarray):
             np.asarray(u_map, np.int32))
 
 
+def _pair_layout(max_det: int, dev):
+    """(ix1, ix2, (iu1, iu2, u_map)) as index tensors on ``dev``."""
+    ix1_np, ix2_np = make_pair_indices(max_det)
+    as_idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
+    pair_static = tuple(as_idx(a) for a in make_union_dedup(ix1_np, ix2_np))
+    return as_idx(ix1_np), as_idx(ix2_np), pair_static
+
+
+def _detect(det_model, images, im_info, cfg, max_det, max_per_class, dev):
+    """The detection half of a program: inputs moved to ``dev`` (images as
+    f32, ``Conv1Planes`` as bf16 planes, no f32 detour), detector inference,
+    then ``decode_detections`` -> (im_info, detector outputs, detections)."""
+    if isinstance(images, Conv1Planes):
+        images = images.to(dev)
+    else:
+        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    im_info = torch.as_tensor(im_info, dtype=torch.float32, device=dev)
+    out = det_model.inference(images, im_info)
+    dets = decode_detections(out["rois"], out["roi_valid"], out["cls_prob"],
+                             out["bbox_pred"], im_info, cfg, max_det=max_det,
+                             max_per_class=max_per_class)
+    return im_info, out, dets
+
+
+def _relation_heads(sgg_model, base_feat, im_info, boxes, valid, layout,
+                    prd):
+    """The SGG head frame by frame on the detector's feature map -> (rel_prob
+    (B, P, n_rel), pair_valid (B, P))."""
+    ix1, ix2, pair_static = layout
+    rel_prob, pair_valid = [], []
+    for f in range(base_feat.shape[0]):
+        # the relation head works at input scale on the detector's own
+        # feature map (one trunk pass per frame for both stages)
+        info = im_info[f]
+        pv = valid[f][ix1] & valid[f][ix2]
+        res = sgg_model.head_on_features(
+            base_feat[f:f + 1], info, boxes[f] * info[2], ix1, ix2, pv, prd,
+            pair_static=pair_static)
+        rel_prob.append(torch.softmax(res["scores"], dim=-1))
+        pair_valid.append(pv)
+    return torch.stack(rel_prob), torch.stack(pair_valid)
+
+
 def make_frame_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
                        max_det: int = 16, max_per_class: int = 8,
                        device: str | torch.device = "cuda"):
@@ -120,45 +169,109 @@ def make_frame_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
 
     ``det_model`` (``FasterRCNN_DA``) and ``sgg_model`` (``SGGModel``) carry
     their weights and are moved to ``device``. Returns
-    ``fn(images (B, H, W, 3), im_info (B, 3)) -> dict`` of detections and
-    per-pair predicate probabilities, padded and masked; inputs may be numpy
-    arrays or tensors and are moved to the device.
+    ``fn(images, im_info (B, 3)) -> dict`` of detections and per-pair
+    predicate probabilities, padded and masked. ``images`` is an NHWC
+    (B, H, W, 3) batch (numpy or tensor, moved to the device as f32) or
+    host-packed ``Conv1Planes`` (moved as bf16; the trunk's conv1 kernel
+    reads them).
     """
     dev = resolve_device(device)
     det_model.to(dev).eval()
     sgg_model.to(dev).eval()
-    ix1_np, ix2_np = make_pair_indices(max_det)
-    as_idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
-    ix1, ix2 = as_idx(ix1_np), as_idx(ix2_np)
-    pair_static = tuple(as_idx(a) for a in make_union_dedup(ix1_np, ix2_np))
+    layout = _pair_layout(max_det, dev)
     prd = torch.as_tensor(np.asarray(prd_vecs, np.float32), device=dev)
 
     @torch.no_grad()
     def frame_program(images, im_info):
-        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32, device=dev)
-        out = det_model.inference(images, im_info)
-        dets = decode_detections(out["rois"], out["roi_valid"],
-                                 out["cls_prob"], out["bbox_pred"], im_info,
-                                 cfg, max_det=max_det,
-                                 max_per_class=max_per_class)
-        rel_prob, pair_valid = [], []
-        for f in range(images.shape[0]):
-            # the relation head works at input scale on the detector's own
-            # feature map (one trunk pass per frame for both stages)
-            info = im_info[f]
-            valid = dets.valid[f]
-            pv = valid[ix1] & valid[ix2]
-            res = sgg_model.head_on_features(
-                out["base_feat"][f:f + 1], info, dets.boxes[f] * info[2],
-                ix1, ix2, pv, prd, pair_static=pair_static)
-            rel_prob.append(torch.softmax(res["scores"], dim=-1))
-            pair_valid.append(pv)
+        im_info, out, dets = _detect(det_model, images, im_info, cfg,
+                                     max_det, max_per_class, dev)
+        rel_prob, pair_valid = _relation_heads(
+            sgg_model, out["base_feat"], im_info, dets.boxes, dets.valid,
+            layout, prd)
         return {
             "boxes": dets.boxes, "scores": dets.scores,
             "classes": dets.classes, "det_valid": dets.valid,
-            "rel_prob": torch.stack(rel_prob), "pair_valid": torch.stack(pair_valid),
-            "ix1": ix1, "ix2": ix2,
+            "rel_prob": rel_prob, "pair_valid": pair_valid,
+            "ix1": layout[0], "ix2": layout[1],
         }
 
     return frame_program
+
+
+def _check_buckets(buckets, max_det: int) -> tuple:
+    """The detection-count buckets as given, refused unless they increase
+    strictly and the largest is ``max_det`` (the JAX driver's guard let an
+    unsorted list, or a largest bucket above ``--max_det``, through)."""
+    buckets = tuple(int(b) for b in buckets)
+    if not buckets or min(buckets) < 1:
+        raise ValueError(f"buckets {buckets}: need one or more sizes >= 1")
+    if any(a >= b for a, b in zip(buckets, buckets[1:])):
+        raise ValueError(f"buckets {buckets} must increase strictly")
+    if buckets[-1] != max_det:
+        raise ValueError(f"the largest bucket ({buckets[-1]}) must be "
+                         f"max_det ({max_det})")
+    return buckets
+
+
+def make_bucketed_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
+                          buckets: tuple = (4, 8, 16), max_det: int = 16,
+                          max_per_class: int = 8,
+                          device: str | torch.device = "cuda"):
+    """Detection-count pair bucketing (``serve.py:177`` of the JAX package).
+
+    The detector and decode run at ``max_det``; the batch's largest count of
+    valid detections is read back to the host (one sync per batch), and the
+    SGG head runs on the first ``b`` detection slots, ``b`` the smallest
+    bucket that holds that count. Detections are sorted by score, so the
+    valid ones come first; a pair valid in bucket ``b`` is scored as in every
+    larger bucket (only the padding differs). The output adds ``bucket``.
+    """
+    buckets = _check_buckets(buckets, max_det)
+    dev = resolve_device(device)
+    det_model.to(dev).eval()
+    sgg_model.to(dev).eval()
+    layouts: Dict[int, tuple] = {}
+    prd = torch.as_tensor(np.asarray(prd_vecs, np.float32), device=dev)
+
+    @torch.no_grad()
+    def frame_program(images, im_info):
+        im_info, out, dets = _detect(det_model, images, im_info, cfg,
+                                     max_det, max_per_class, dev)
+        n = int(dets.valid.sum(dim=1).max())          # the one host sync
+        b = next(x for x in buckets if x >= n)
+        if b not in layouts:
+            layouts[b] = _pair_layout(b, dev)
+        rel_prob, pair_valid = _relation_heads(
+            sgg_model, out["base_feat"], im_info, dets.boxes[:, :b],
+            dets.valid[:, :b], layouts[b], prd)
+        return {
+            "boxes": dets.boxes, "scores": dets.scores,
+            "classes": dets.classes, "det_valid": dets.valid,
+            "rel_prob": rel_prob, "pair_valid": pair_valid,
+            "ix1": layouts[b][0], "ix2": layouts[b][1], "bucket": b,
+        }
+
+    return frame_program
+
+
+def frame_relation_tuples(out: Dict, frame: int, top_k: int = 100) -> list:
+    """Frame ``frame`` of a program's output -> its relation tuples
+    ``[conf, [s_cls, pred, o_cls], [sub_box, obj_box], rank]``, the
+    per-frame step of Stage C as ``tools/serve_video.py`` runs it (pair
+    indices remapped into the valid-compacted detections)."""
+    o = {k: ((v.float() if v.is_floating_point() else v).cpu().numpy()
+             if torch.is_tensor(v) else v) for k, v in out.items()}
+    valid = o["det_valid"][frame]
+    pv = o["pair_valid"][frame]
+    pos = np.cumsum(valid) - 1
+    res = detection_output(
+        o["rel_prob"][frame][pv], o["boxes"][frame][valid],
+        o["classes"][frame][valid], o["scores"][frame][valid],
+        pos[o["ix1"][pv]], pos[o["ix2"][pv]], top_k=top_k)
+    tuples = []
+    if res is not None:
+        rlp, tconfs, sboxes, oboxes, _ = res
+        for t in range(len(tconfs)):
+            tuples.append([float(tconfs[t]), [int(c) for c in rlp[t]],
+                           [sboxes[t].tolist(), oboxes[t].tolist()], t])
+    return tuples

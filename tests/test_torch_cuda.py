@@ -1,4 +1,4 @@
-"""Card-only checks of the port's CUDA kernel (marked ``cuda``; they skip on
+"""Card-only checks of the port's CUDA kernels (marked ``cuda``; they skip on
 a machine without a card). On the machine with the card, where JAX is not
 installed, run them without the JAX conftest:
 
@@ -78,3 +78,132 @@ def test_small_program_card_matches_cpu(cuda):
         r = ref[k].numpy()
         np.testing.assert_allclose(got[k].cpu().numpy(), r, rtol=1e-4,
                                    atol=1e-4 * max(1.0, np.abs(r).max()))
+
+
+def _conv1_case(cuda, shape, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, h, w = shape
+    x = torch.randn(b, h, w, 3, generator=g, device=cuda) * 20
+    weight = torch.randn(64, 3, 7, 7, generator=g, device=cuda) * 0.1
+    mul = torch.rand(64, generator=g, device=cuda) + 0.5
+    add = torch.randn(64, generator=g, device=cuda)
+    return x, weight, mul, add
+
+
+@pytest.mark.parametrize("entry", ["bn_relu", "bn_relu_planes", "stem",
+                                   "stem_planes", "v2"])
+@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70), (1, 600, 960)])
+def test_conv1_kernel_vs_plain(cuda, shape, entry):
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops import conv1
+    x, weight, mul, add = _conv1_case(cuda, shape)
+    _, h, w = shape
+    planes = conv1.pack_conv1_planes(x)
+    calls = {
+        "bn_relu": (conv1.conv1_bn_relu, conv1.conv1_bn_relu_plain,
+                    (x, weight, mul, add), 1),
+        "bn_relu_planes": (conv1.conv1_bn_relu_planes,
+                           conv1.conv1_bn_relu_planes_plain,
+                           (planes, h, w, weight, mul, add), 1),
+        "stem": (conv1.conv1_stem, conv1.conv1_stem_plain,
+                 (x, weight, mul, add), 2),
+        "stem_planes": (conv1.conv1_stem_planes,
+                        conv1.conv1_stem_planes_plain,
+                        (planes, h, w, weight, mul, add), 2),
+        "v2": (conv1.conv1_bn_relu_v2, conv1.conv1_bn_relu_v2_plain,
+               (x, weight, mul, add), 1),
+    }
+    kernel, plain, args, n_launch = calls[entry]
+    before = conv1.launches
+    got = kernel(*args)
+    assert conv1.launches == before + n_launch
+    chip_smoke.held_one_ulp(got, plain(*args), entry)
+
+
+def test_conv1_planes_and_images_bit_identical(cuda):
+    from i2vsgg_tpu_torch.ops import conv1
+    x, weight, mul, add = _conv1_case(cuda, (2, 50, 70), seed=1)
+    host = conv1.Conv1Planes.pack(x.cpu().numpy()).to(cuda)
+    assert torch.equal(host.planes, conv1.pack_conv1_planes(x))
+    assert torch.equal(conv1.conv1_stem(x, weight, mul, add),
+                       conv1.conv1_stem_planes(host.planes, 50, 70, weight,
+                                               mul, add))
+    assert torch.equal(conv1.conv1_bn_relu(x, weight, mul, add),
+                       conv1.conv1_bn_relu_planes(host.planes, 50, 70,
+                                                  weight, mul, add))
+
+
+def test_conv1_wrappers_refuse(cuda):
+    from i2vsgg_tpu_torch.ops import conv1
+    x, weight, mul, add = _conv1_case(cuda, (1, 32, 40))
+    planes = conv1.pack_conv1_planes(x)
+    with pytest.raises(TypeError):
+        conv1.conv1_stem(x.half(), weight, mul, add)
+    with pytest.raises(ValueError):
+        conv1.conv1_stem(x[:, :, ::2], weight, mul, add)
+    with pytest.raises(ValueError):
+        conv1.conv1_stem_planes(planes, 40, 40, weight, mul, add)
+    with pytest.raises(TypeError):
+        conv1.conv1_stem_planes(planes.float(), 32, 40, weight, mul, add)
+    with pytest.raises(ValueError):
+        conv1.conv1_stem(x, weight[:32], mul, add)
+    with pytest.raises(ValueError):
+        conv1.conv1_stem(x, weight.cpu(), mul, add)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("grid", [None, (0, 2, 4, 6)])
+def test_roi_align_kernel_vs_plain(cuda, dtype, grid):
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import (roi_align_avg,
+                                                roi_align_avg_plain)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fmap = (torch.randn(2, 38, 60, 512, generator=g, device=cuda) * 4
+            ).to(dtype)
+    rois = chip_smoke.align_edge_rois(cuda, 2)
+    before = roi_align_avg.launches
+    got = roi_align_avg(fmap, rois, grid=grid)
+    assert roi_align_avg.launches == before + 1
+    ref = roi_align_avg_plain(fmap, rois, grid=grid)
+    if dtype == torch.float32:
+        chip_smoke.held_f32(got, ref, "f32", float(fmap.abs().max()))
+    else:
+        chip_smoke.held_one_ulp(got, ref, str(dtype))
+    # a taller than wide map (the contraction order flips) and C = 36
+    # (the scalar path)
+    fmap2 = torch.randn(1, 45, 30, 36, generator=g, device=cuda).to(dtype)
+    rois2 = chip_smoke.align_edge_rois(cuda, 1)
+    got2 = roi_align_avg(fmap2, rois2, grid=grid)
+    ref2 = roi_align_avg_plain(fmap2, rois2, grid=grid)
+    if dtype == torch.float32:
+        chip_smoke.held_f32(got2, ref2, "f32 tall", float(fmap2.abs().max()))
+    else:
+        chip_smoke.held_one_ulp(got2, ref2, f"{dtype} tall")
+
+
+def test_roi_align_kernel_vs_gather_f32(cuda):
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import (roi_align_avg,
+                                                roi_align_avg_gather)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    fmap = torch.randn(2, 38, 60, 64, generator=g, device=cuda)
+    rois = chip_smoke.align_edge_rois(cuda, 2)
+    chip_smoke.held_f32(roi_align_avg(fmap, rois),
+                        roi_align_avg_gather(fmap, rois), "vs gather",
+                        float(fmap.abs().max()))
+
+
+def test_roi_align_wrapper_refuses(cuda):
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
+    fmap = torch.randn(1, 8, 8, 32, device=cuda)
+    rois = chip_smoke.align_edge_rois(cuda, 1)
+    with pytest.raises(ValueError):
+        roi_align_avg(fmap, rois.cpu())
+    with pytest.raises(TypeError):
+        roi_align_avg(fmap.double(), rois)
+    with pytest.raises(ValueError):
+        roi_align_avg(fmap[..., ::2], rois)
+    with pytest.raises(ValueError):
+        roi_align_avg(fmap, rois, grid=(0, 9))

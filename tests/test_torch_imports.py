@@ -1,8 +1,9 @@
 """Import hygiene of the port: ``i2vsgg_tpu_torch`` and ``chip_smoke.py``
 import torch, numpy and the standard library only — no JAX, flax, optax,
-PyYAML, ninja, and nothing of the JAX package ``i2vsgg_tpu`` (a machine with
-the card has none of them). Each case runs in a fresh interpreter with a
-``sys.meta_path`` finder that refuses those names."""
+PyYAML, ninja, cv2, PIL, ml_dtypes, and nothing of the JAX package
+``i2vsgg_tpu`` (a machine with the card has none of them). Each case runs in
+a fresh interpreter with a ``sys.meta_path`` finder that refuses those
+names."""
 
 import os
 import subprocess
@@ -17,7 +18,7 @@ BLOCKER = textwrap.dedent("""
     import sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "ninja",
-               "i2vsgg_tpu"}
+               "cv2", "PIL", "ml_dtypes", "i2vsgg_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -51,12 +52,13 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         import numpy as np
         import torch
 
-        try:
-            import yaml  # noqa: F401
-        except ImportError:
-            pass
-        else:
-            raise SystemExit("the blocker let yaml through")
+        for blocked in ("yaml", "cv2", "PIL", "ml_dtypes"):
+            try:
+                importlib.import_module(blocked)
+            except ImportError:
+                pass
+            else:
+                raise SystemExit(f"the blocker let {blocked} through")
 
         import i2vsgg_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
@@ -120,4 +122,48 @@ def test_roi_pool_cpu_path_and_missing_card():
         else:
             raise SystemExit("make_frame_program ran without a card")
         assert chip_smoke.main() != 0          # no result without a card
+    """)
+
+
+def test_slice_two_paths_run_without_the_blocked_names():
+    """Host planes, the bucketed program, the uint8 dequantize and Stage C,
+    end to end on the CPU in the blocked interpreter; the kernels' wrappers
+    count no launch there."""
+    run_isolated("""
+        import numpy as np
+        import torch
+
+        import chip_smoke
+        from i2vsgg_tpu_torch import serve
+        from i2vsgg_tpu_torch.config import Config
+        from i2vsgg_tpu_torch.data.pipeline import dequantize_image_u8
+        from i2vsgg_tpu_torch.ops import conv1
+        from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+        from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
+        from i2vsgg_tpu_torch.video.association import association
+
+        cfg = Config().replace(
+            TEST=Config().TEST.__class__(RPN_PRE_NMS_TOP_N=100,
+                                         RPN_POST_NMS_TOP_N=16),
+            COMPUTE_DTYPE="float32")
+        spec = chip_smoke.SMALL
+        det, sgg, prd = chip_smoke.build_models(
+            spec, cfg, torch.Generator().manual_seed(0), pooling="align")
+        video = chip_smoke.synthetic_video(spec, 0, n_frames=4)
+        u8, f32, info = video[0]
+        x = dequantize_image_u8(torch.from_numpy(u8), torch.from_numpy(info),
+                                cfg.PIXEL_MEANS)
+        assert torch.equal(x, torch.from_numpy(f32))
+        program = serve.make_bucketed_program(
+            det, sgg, prd, cfg, buckets=(2, 4), max_det=4, max_per_class=4,
+            device="cpu")
+        frames = []
+        for i, (_, f32, info) in enumerate(video):
+            out = program(Conv1Planes.pack(f32), info)
+            for f in range(f32.shape[0]):
+                frames.append([i * f32.shape[0] + f,
+                               serve.frame_relation_tuples(out, f)])
+        assert out["bucket"] in (2, 4)
+        assert isinstance(association({"v": frames}), dict)
+        assert conv1.launches == 0 and roi_align_avg.launches == 0
     """)

@@ -4,15 +4,23 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_torch_serving.py [--requests 4] [--trace PATH]
+        [--host-planes] [--vrd-pooling {pool,align}]
 
 Builds the full-width program of ``chip_smoke.py`` (res101 ic+gc, 600x960
 bf16, rpn128/pre512, det8, 4 frames per request, seeded random weights),
-serves one warm-up request, then three passes of ``--requests`` requests:
+serves one warm-up request, then three passes of ``--requests`` requests.
+``--host-planes`` feeds each request as conv1 parity planes packed on the
+host (``Conv1Planes``; the trunk's stem is then the conv1 kernel, and the
+packing is part of each request's host time); ``--vrd-pooling`` picks the
+SGG head's pooling (``pool``, the drivers' default, or ``align``). The
+passes:
 
 1. plain: host clock per request, ending in a synchronize (as
    ``chip_smoke.py`` times it);
 2. staged: each stage of the main path timed on the host clock between
-   two synchronizes (stages nest: ``roi_pool`` lies inside ``sgg_head``);
+   two synchronizes (stages nest: ``stem`` — conv1, FrozenBN, ReLU and the
+   pool — lies inside ``trunk``, ``roi_pool`` and ``sgg_roi_align`` inside
+   ``sgg_head``);
    the synchronizes remove the overlap of host and device, so the stages
    add up to more than a plain request;
 3. profiled: ``torch.profiler`` over CPU and CUDA for the device's busy
@@ -43,8 +51,9 @@ from i2vsgg_tpu_torch import serve  # noqa: E402
 from i2vsgg_tpu_torch.config import Config, cfg_from_list  # noqa: E402
 from i2vsgg_tpu_torch.models import faster_rcnn, sgg  # noqa: E402
 
-STAGES = ("trunk", "rpn_head", "proposals", "roi_align", "det_head",
-          "context", "decode", "sgg_head", "roi_pool")
+STAGES = ("trunk", "stem", "rpn_head", "proposals", "roi_align",
+          "det_head", "context", "decode", "sgg_head", "roi_pool",
+          "sgg_roi_align")
 
 
 STAGE_MS: dict = {}
@@ -72,12 +81,14 @@ def instrument(det, sgg_model):
     """Wrap each stage of the main path in a profiler span (this script
     only; the port itself carries no instrumentation)."""
     det.trunk.forward = spanned("trunk", det.trunk.forward)
+    det.trunk._stem = spanned("stem", det.trunk._stem)
     det.rpn.forward = spanned("rpn_head", det.rpn.forward)
     det._proposals = spanned("proposals", det._proposals)
     det.head.forward = spanned("det_head", det.head.forward)
     faster_rcnn.roi_align_avg = spanned("roi_align",
                                         faster_rcnn.roi_align_avg)
     sgg.roi_pool = spanned("roi_pool", sgg.roi_pool)
+    sgg.roi_align_avg = spanned("sgg_roi_align", sgg.roi_align_avg)
     det.netD_style.forward = spanned("context", det.netD_style.forward)
     det.netD_pixel.preconv = spanned("context", det.netD_pixel.preconv)
     det.netD_pixel.context_tail = spanned("context",
@@ -135,6 +146,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--host-planes", action="store_true")
+    ap.add_argument("--vrd-pooling", choices=("pool", "align"),
+                    default="pool")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -144,13 +158,20 @@ def main() -> int:
     cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
                          "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
     det, sgg_model, prd = chip_smoke.build_models(
-        spec, cfg, torch.Generator().manual_seed(3))
+        spec, cfg, torch.Generator().manual_seed(3), pooling=args.vrd_pooling)
     instrument(det, sgg_model)
     program = serve.make_frame_program(
         det, sgg_model, prd, cfg, max_det=spec["max_det"],
         max_per_class=spec["max_per_class"], device=dev)
     reqs = [chip_smoke.make_inputs(spec, 10 + i)
             for i in range(args.requests + 1)]
+    if args.host_planes:
+        # packed inside each request, as a loader feeding the program would
+        from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+        frame_program = program
+
+        def program(images, im_info):
+            return frame_program(Conv1Planes.pack(images), im_info)
     program(*reqs[0])                                   # warm-up
     torch.cuda.synchronize()
     n = args.requests
@@ -192,7 +213,8 @@ def main() -> int:
                       and e.key not in STAGES),
                      key=lambda e: -e.self_device_time_total)[:12]
     card = chip_smoke.smi_name_power() or torch.cuda.get_device_name(0)
-    print(f"card: {card}; {n} requests x {spec['frames']} frames")
+    print(f"card: {card}; {n} requests x {spec['frames']} frames; "
+          f"host planes {args.host_planes}, SGG pooling {args.vrd_pooling}")
     print(f"plain: {', '.join(f'{x:.2f}' for x in plain)} ms/request, mean "
           f"{sum(plain) / n:.2f}")
     print(f"staged: {staged_ms:.2f} ms/request with a synchronize around "
@@ -218,6 +240,8 @@ def main() -> int:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
     print(json.dumps({"card": card, "requests": n,
+                      "host_planes": args.host_planes,
+                      "vrd_pooling": args.vrd_pooling,
                       "plain_ms_per_request": plain,
                       "staged_ms_per_request": staged_ms,
                       "profiled_ms_per_request": wall_ms / n,
