@@ -6,13 +6,14 @@ Run it from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``i2vsgg_tpu_torch/csrc`` with nvcc
-(RoIPool, the conv1 stem, RoIAlignAvg; one nvcc each, in parallel), holds
-each kernel against its plain PyTorch version, checks a small program on the
-card against the same program on the CPU, and serves the fused det+SGG frame
-program (``i2vsgg_tpu_torch.serve``) at full width: ResNet-101 with ic+gc
-context, 16 classes, 26 predicates, 600x960 frames in bf16, rpn post-NMS 128
-/ pre-NMS 512, 8 detections with 8 per class, with seeded random weights,
-along two paths:
+(RoIPool, the conv1 stem, RoIAlignAvg, the identity-bottleneck chain; one
+nvcc each, in parallel), holds each kernel against its plain PyTorch
+version, checks small programs on the card against the same programs on the
+CPU (f32, and bf16 with bf16-stored weights and the chain), and serves the
+fused det+SGG frame program (``i2vsgg_tpu_torch.serve``) at full width:
+ResNet-101 with ic+gc context, 16 classes, 26 predicates, 600x960 frames in
+bf16, rpn post-NMS 128 / pre-NMS 512, 8 detections with 8 per class, with
+seeded random weights, along three paths:
 
 * phase 5: f32 images and the SGG head on RoIPool (the first slice's path);
 * phase 6, this slice's path: a 12-frame synthetic video in 3 requests, fed
@@ -20,7 +21,11 @@ along two paths:
   head under ``pooling="align"``; then the same program fed f32 images under
   ``I2VSGG_PALLAS_CONV1=1`` (bit-equal), the bucketed program with buckets
   (4, 8), Stage C (per-frame tuples and ``association``) over the video, and
-  the uint8 upload (``dequantize_image_u8``).
+  the uint8 upload (``dequantize_image_u8``);
+* phase 9, the third slice's path: the same video with bf16-stored weights
+  (``bf16_storage_cast``) and ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's
+  22-block identity tail runs as the chain kernel; then the same weights
+  with the switch off, for agreement and time.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after. Every phase prints a line with the elapsed seconds before it starts.
@@ -53,13 +58,16 @@ T0 = time.time()
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12        # bf16 tensor cores, dense
-KERNEL_SOURCES = ("roi_pool.cu", "conv1.cu", "roi_align.cu")
+KERNEL_SOURCES = ("roi_pool.cu", "conv1.cu", "roi_align.cu",
+                  "bottleneck.cu")
 
 FULL = dict(backbone="res101", num_classes=16, num_rel=26, height=600,
             width=960, frames=4, requests=3, max_det=8, max_per_class=8,
             fc_dim=4096, emb_dim=300)
 SMALL = dict(backbone="res10", num_classes=4, num_rel=5, height=64, width=80,
              frames=2, max_det=4, max_per_class=4, fc_dim=32, emb_dim=16)
+# the chain's small program: res50 (an identity tail in layer2 and layer3)
+SMALL50 = dict(SMALL, backbone="res50")
 
 
 def phase(name: str):
@@ -240,6 +248,268 @@ def held_f32(got: torch.Tensor, ref: torch.Tensor, what: str,
     return err
 
 
+def held_chain(chain, x: torch.Tensor, wts: tuple, what: str,
+               min_equal: float = 0.99, quiet: bool = False) -> dict:
+    """Hold a bottleneck chain (``chain(x, w1, b1, w3, b3, w2, b2)``, the
+    kernel's wrapper) to the plain version (f32 sums, TF32 off) at bounds
+    that do not widen with depth. Two f32 summation orders part where a
+    bf16 rounding of ``a`` or ``b`` flips by one ulp: W2 carries the flip
+    into the residual add, and where that cancels the flip is many ulps of
+    the small result; over many blocks the flips compound. So the chain is
+    held block by block, each block against an f64 reference with the same
+    rounding points (``ref64``), which measures how far the plain version's
+    own f32 order strays on that block's data, and then as a whole:
+
+    * each of the n blocks, run alone on the map that the chain itself gives
+      it (its own output of the blocks before), is within one bf16 ulp of
+      the plain version on that map (2**-7 |ref|) plus twice the plain
+      version's largest excess over one ulp against ``ref64`` (plus 2**-16
+      max|ref|), with at least ``min_equal`` of its elements bit-equal to
+      the plain version;
+    * the n-block call is bit-equal to those n one-block calls in turn: no
+      state but the map passes from one block to the next;
+    * at the n-block output, the share of elements within 0.02 (rtol = atol)
+      of ``ref64`` is at most 0.005 below the plain version's share.
+
+    Raises AssertionError at the first bound broken. Returns the numbers:
+    the largest abs error, excess and least bit-equal share over the
+    blocks, and the whole chain's shares against f64."""
+    import i2vsgg_tpu_torch.ops.bottleneck as chain_mod
+    plain = chain_mod.bottleneck_chain_plain
+    n = wts[0].shape[0]
+    maps, err, worst_excess, least = [x], 0.0, 0.0, 1.0
+    for i in range(n):
+        one = tuple(t[i:i + 1] for t in wts)
+        maps.append(chain(maps[-1], *one))
+        with tf32_off():
+            ref = plain(maps[-2], *one).float()
+            ref64 = plain(maps[-2], *one, acc=torch.float64).float()
+        g = maps[-1].float()
+        excess = float(((ref - ref64).abs() - 2.0 ** -7 * ref64.abs())
+                       .clamp_min(0).max())
+        gap = (g - ref).abs()
+        ok = bool((gap <= 2.0 ** -7 * ref.abs() + 2 * excess
+                   + 2.0 ** -16 * float(ref.abs().max())).all())
+        equal = float((g == ref).float().mean())
+        err, least = max(err, float(gap.max())), min(least, equal)
+        worst_excess = max(worst_excess, excess)
+        if not ok or equal < min_equal:
+            raise AssertionError(
+                f"{what}: block {i} alone on the chain's map: max abs err "
+                f"{float(gap.max())}, plain vs f64 excess over one ulp "
+                f"{excess:.4g}, bit-equal share {equal:.6f} (needs one ulp "
+                f"+ twice that excess, and {min_equal} bit-equal)")
+    got = chain(x, *wts)
+    if not torch.equal(got, maps[-1]):
+        raise AssertionError(f"{what}: the {n}-block call differs from its "
+                             f"{n} one-block calls in turn")
+    with tf32_off():
+        ref = plain(x, *wts).float()
+        ref64 = plain(x, *wts, acc=torch.float64).float()
+    g = got.float()
+    within = [float(((t - ref64).abs() <= 0.02 * ref64.abs() + 0.02)
+                    .float().mean()) for t in (g, ref)]
+    equal64 = [float((t == ref64).float().mean()) for t in (g, ref)]
+    e_all = float((g - ref).abs().max())
+    vs_plain = float((g == ref).float().mean())
+    msg = (f"{what}: per block: max abs err {err:.4g} (plain vs f64 excess "
+           f"over one ulp at most {worst_excess:.4g}), least bit-equal "
+           f"share {least:.6f}; the {n}-block call equal to the blocks in "
+           f"turn; at the output: max abs err vs plain {e_all:.4g} (max "
+           f"|ref| {float(ref.abs().max()):.4g}), bit-equal share vs plain "
+           f"{vs_plain:.6f}; vs f64, kernel | plain: within 0.02 "
+           f"{within[0]:.6f} | {within[1]:.6f}, bit-equal {equal64[0]:.6f} | "
+           f"{equal64[1]:.6f}")
+    if within[0] < within[1] - 0.005:
+        raise AssertionError(msg + " (needs the share within 0.02 of f64 at "
+                             "most 0.005 below the plain version's)")
+    if not quiet:
+        log(msg)
+    return {"max_abs_err": max(err, e_all), "block_max_abs_err": err,
+            "block_plain_excess_vs_f64": worst_excess,
+            "least_block_bit_equal": least, "bit_equal_vs_plain": vs_plain,
+            "within_002_vs_f64": {"kernel": within[0], "plain": within[1]},
+            "bit_equal_vs_f64": {"kernel": equal64[0], "plain": equal64[1]}}
+
+
+def chain_controls(kern, x: torch.Tensor, wts: tuple) -> list:
+    """Show that ``held_chain`` tells a wrong chain from a right one at
+    these inputs: two wrong chains, each near the kernel, must be refused.
+    Returns (control, the bound that refused it) pairs."""
+    import i2vsgg_tpu_torch.ops.bottleneck as chain_mod
+    plain = chain_mod.bottleneck_chain_plain
+
+    def bf16_sums(x_, *w):
+        # the plain version rounding each product to bf16 before its bias
+        # (bf16 GEMM outputs): one rounding point too many
+        return plain(x_, *w, acc=torch.bfloat16)
+
+    def block0_weights(x_, *w):
+        # the kernel reading block 0's weights for every block
+        return kern(x_, *(t[:1].expand_as(t).contiguous() for t in w))
+
+    refused = []
+    for name, fn in (("the plain version summing in bf16", bf16_sums),
+                     ("the kernel on block 0's weights throughout",
+                      block0_weights)):
+        try:
+            held_chain(fn, x, wts, name, quiet=True)
+        except AssertionError as e:
+            refused.append((name, str(e)))
+            continue
+        raise AssertionError(f"held_chain did not refuse {name}: the chain "
+                             "check cannot tell a wrong chain")
+    return refused
+
+
+class tf32_off:
+    """f32 matmuls and convolutions without TF32 (both flags), restored on
+    exit: the plain versions' reference arithmetic."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def chain_work(x: torch.Tensor, w1, w3, w2, biases) -> tuple:
+    """Bytes and flops of the chain on these inputs: the map read once and
+    written once, every folded weight and bias read once; 2 flops a
+    multiply-add of the three GEMMs over the B * H * W pixels."""
+    b, h, w, c = x.shape
+    n, _, m = w1.shape
+    nbytes = (2 * x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for t in (w1, w3, w2))
+              + sum(t.numel() * t.element_size() for t in biases))
+    flops = 2 * n * b * h * w * (c * m + 9 * m * m + m * c)
+    return nbytes, flops
+
+
+def matched_order(got: dict, ref: dict) -> torch.Tensor:
+    """Per frame, the slot of ``got`` that holds each of ``ref``'s
+    detections: the same class and validity and the nearest box, taken
+    greedily in ``ref``'s order. Two summation orders can swap two
+    detections whose scores nearly tie; matched, they are the same
+    detections. (B, K) long; raises if a detection has no partner."""
+    b, k = ref["classes"].shape
+    perm = torch.empty((b, k), dtype=torch.long)
+    for f in range(b):
+        free = list(range(k))
+        for i in range(k):
+            same = [j for j in free
+                    if int(got["classes"][f, j]) == int(ref["classes"][f, i])
+                    and bool(got["det_valid"][f, j])
+                    == bool(ref["det_valid"][f, i])]
+            if not same:
+                raise AssertionError(f"frame {f}: detection {i} (class "
+                                     f"{int(ref['classes'][f, i])}) has no "
+                                     "partner")
+            j = min(same, key=lambda j: float(
+                (got["boxes"][f, j] - ref["boxes"][f, i]).abs().max()))
+            perm[f, i] = j
+            free.remove(j)
+    return perm
+
+
+def reordered(out: dict, perm: torch.Tensor) -> dict:
+    """``out``'s detections in ``perm``'s order, its pair outputs (where it
+    has them) remapped to the same detections (``ix1``/``ix2``
+    unchanged)."""
+    new = dict(out)
+    for key in ("boxes", "scores", "classes", "det_valid"):
+        new[key] = torch.stack([out[key][f][perm[f]]
+                                for f in range(perm.shape[0])])
+    if "ix1" not in out:
+        return new
+    pair = {(int(a), int(c)): p
+            for p, (a, c) in enumerate(zip(out["ix1"], out["ix2"]))}
+    for key in ("rel_prob", "pair_valid"):
+        new[key] = torch.stack([out[key][f][torch.as_tensor(
+            [pair[(int(perm[f, a]), int(perm[f, c]))]
+             for a, c in zip(out["ix1"], out["ix2"])])]
+            for f in range(perm.shape[0])])
+    return new
+
+
+def fed_stages(det_c, sgg_c, det_g, sgg_g, prd, cfg, images, im_info,
+               ref: dict, dev, **kw) -> dict:
+    """The frame program stage by stage on ``dev`` (models ``det_g`` and
+    ``sgg_g``), each stage fed the CPU's input to it (models ``det_c`` and
+    ``sgg_c``, the same weights), through the models' public stage entry
+    points: the trunk's stages that run the chain, the RPN head, the
+    detector past the trunk on the CPU's maps and proposals, the decode,
+    and the SGG head on the CPU's detections (``ref``, the CPU program's
+    output). Returns {stage: (card output, CPU output)} on the CPU, and
+    under ``"witness"`` the CPU's program past the trunk fed the card's own
+    trunk maps (its output dict, and the two trunks' maps)."""
+    from i2vsgg_tpu_torch import serve
+    from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
+    x, info = torch.as_tensor(images), torch.as_tensor(im_info)
+    tr_c, tr_g = det_c.trunk, det_g.trunk
+    on = lambda ts: tuple(t.to(dev) for t in ts)           # noqa: E731
+    back = lambda t: t.cpu()                               # noqa: E731
+    out = {}
+    with torch.no_grad():
+        l1 = tr_c.layer1(tr_c._stem(x))
+        tap = tr_c.layer2(l1)
+        c4 = tr_c.layer3(tap)
+        out["layer2 (chain)"] = (back(tr_g.layer2(l1.to(dev))), tap)
+        out["layer3 (chain)"] = (back(tr_g.layer3(tap.to(dev))), c4)
+        maps = (nchw_to_nhwc(c4), nchw_to_nhwc(tap))
+        rpn_c = det_c.rpn(maps[0])
+        rpn_g = det_g.rpn(maps[0].to(dev))
+        out["rpn cls_score"] = (back(rpn_g[0]), rpn_c[0])
+        out["rpn bbox_pred"] = (back(rpn_g[1]), rpn_c[1])
+        props = det_c.proposals(maps[0], *rpn_c, info)
+        det_out_c = det_c.detect_on_features(*maps, info, props)
+        det_out_g = det_g.detect_on_features(
+            *on(maps), info.to(dev), type(props)(*on(props)))
+        for k in ("cls_prob", "bbox_pred"):
+            out[k] = (back(det_out_g[k]), det_out_c[k])
+        dec = [serve.decode_detections(
+            o["rois"], o["roi_valid"], o["cls_prob"], o["bbox_pred"],
+            info.to(o["rois"].device), cfg, **kw)._asdict()
+            for o in (det_out_c, det_out_g)]
+        out["decode"] = tuple(
+            {"det_valid" if k == "valid" else k: back(v) for k, v in d.items()}
+            for d in (dec[1], dec[0]))
+        prd_t = torch.as_tensor(np.asarray(prd, np.float32))
+        heads = [serve.relation_heads(
+            model, det_out_c["base_feat"].to(d), info.to(d),
+            ref["boxes"].to(d), ref["det_valid"].to(d),
+            serve.pair_layout(kw["max_det"], d), prd_t.to(d))[0]
+            for model, d in ((sgg_g, dev), (sgg_c, "cpu"))]
+        out["rel_prob"] = (back(heads[0]), heads[1])
+        maps_g = tuple(back(t) for t in tr_g(x.to(dev)))
+        witness = serve.program_outputs(
+            sgg_c, det_c.detect_on_features(*maps_g, info), info, prd_t,
+            serve.pair_layout(kw["max_det"], "cpu"), cfg, **kw)
+    out["witness"] = (witness, (maps_g, maps))
+    return out
+
+
+def fused_tail_blocks(trunk, h: int, w: int) -> int:
+    """Blocks of the trunk's identity tails that run as the chain for an
+    h x w frame: the gate (``use_fused_chain``, which reads the switch) at
+    each stage's block0 output size."""
+    from i2vsgg_tpu_torch.models.backbones import use_fused_chain
+    h, w = (h + 1) // 2, (w + 1) // 2              # conv1 7x7/2, pad 3
+    h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1      # the caffe ceil-mode pool
+    n = 0
+    for stage, stride in ((trunk.layer1, 1), (trunk.layer2, 2),
+                          (trunk.layer3, 2)):
+        h, w = (h - 1) // stride + 1, (w - 1) // stride + 1
+        x = torch.empty((1, stage.planes * 4, h, w), device="meta")
+        if stage.blocks > 1 and use_fused_chain(x, stage.planes):
+            n += stage.blocks - 1
+    return n
+
+
 def check_kernel_vs_plain(fmap, rois, what: str) -> float:
     from i2vsgg_tpu_torch.ops.roi_pool import roi_pool, roi_pool_plain
     got = roi_pool(fmap, rois)
@@ -353,10 +623,11 @@ class Counters:
     """The launch counters of the port's kernels."""
 
     def __init__(self):
-        from i2vsgg_tpu_torch.ops import conv1, roi_align, roi_pool
+        from i2vsgg_tpu_torch.ops import bottleneck, conv1, roi_align, roi_pool
         self.mods = {"roi_pool": (roi_pool.roi_pool, "launches"),
                      "roi_align": (roi_align.roi_align_avg, "launches"),
-                     "conv1": (conv1, "launches")}
+                     "conv1": (conv1, "launches"),
+                     "bottleneck": (bottleneck.bottleneck_chain, "launches")}
 
     def reset(self):
         for obj, attr in self.mods.values():
@@ -411,9 +682,12 @@ def main() -> int:
         from i2vsgg_tpu_torch.data.pipeline import dequantize_image_u8
         from i2vsgg_tpu_torch.models import faster_rcnn as frcnn_mod
         from i2vsgg_tpu_torch.models import sgg as sgg_mod
+        from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
+        from i2vsgg_tpu_torch.ops import bottleneck as chain_mod
         from i2vsgg_tpu_torch.ops import conv1 as conv1_mod
         from i2vsgg_tpu_torch.ops import roi_align as roi_align_mod
         from i2vsgg_tpu_torch.ops import roi_pool as roi_pool_mod
+        from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
         from i2vsgg_tpu_torch.video.association import association
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
@@ -519,11 +793,82 @@ def main() -> int:
             err = max(err, held_one_ulp(got, ref, what))
     kernels["roi_align"] = {"max_abs_err": err}
 
+    phase("3d bottleneck chain kernel vs plain at (4, 38, 60, 1024), n 22, "
+          "M 256: the res101 model's folded layer3 weights (bf16-stored)")
+    t = time.time()
+    cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
+                         "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
+    det, sgg, prd = build_models(FULL, cfg, torch.Generator().manual_seed(3))
+    # the third slice's weights: the same model stored in bf16, the SGG
+    # head under align (phase 9 serves them)
+    det9, sgg9 = copy.deepcopy(det), copy.deepcopy(sgg)
+    bf16_storage_cast(det9)
+    bf16_storage_cast(sgg9)
+    sgg9.vrd.pooling = "align"
+    det9.to(dev).eval()
+    trunk9 = det9.trunk
+    with torch.no_grad():
+        imgs = torch.as_tensor(make_inputs(FULL, 10)[0], device=dev)
+        x3 = trunk9.layer3.block0(trunk9.layer2(trunk9.layer1(
+            trunk9._stem(imgs))))
+        xin = nchw_to_nhwc(x3).to(torch.bfloat16).contiguous()
+        wts = trunk9.layer3.folded_tail()
+    torch.cuda.synchronize()
+    log(f"models built (and a bf16-stored copy on the card) in "
+        f"{time.time() - t:.2f} s; layer3 block0 output {tuple(xin.shape)}, "
+        f"max |x| {float(xin.float().abs().max()):.3g}, {wts[0].shape[0]} "
+        f"blocks in the tail")
+    kern, plain = chain_mod.bottleneck_chain, chain_mod.bottleneck_chain_plain
+    # every block of the tail on the chain's own maps, the 22-block call
+    # against them and against f64; then two wrong chains must be refused
+    check = held_chain(kern, xin, wts, f"bottleneck {wts[0].shape[0]} "
+                       "blocks")
+    for name, why in chain_controls(kern, xin, wts):
+        log(f"refused as it must be: {name}: {why}")
+    err = check["max_abs_err"]
+    k_ms = cuda_ms(lambda: kern(xin, *wts), 20)
+    with tf32_off():
+        p_ms = cuda_ms(lambda: plain(xin, *wts), 3, 1)
+    tail9 = [getattr(trunk9.layer3, f"block{i}")
+             for i in range(1, trunk9.layer3.blocks)]
+
+    def unfused_tail():
+        y = x3
+        for blk in tail9:
+            y = blk(y)
+        return y
+
+    with torch.no_grad():
+        tail_ms = cuda_ms(unfused_tail, 20)
+        # the same tail replayed from a CUDA graph: its device time, without
+        # the host's launch rate (~800 small launches) in the way
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                unfused_tail()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            unfused_tail()
+        tail_graph_ms = cuda_ms(graph.replay, 20)
+        del graph
+    nbytes, flops = chain_work(xin, wts[0], wts[2], wts[4],
+                               (wts[1], wts[3], wts[5]))
+    bnd, by = bound_of(nbytes, flops, H100_BF16_OPS_PER_S)
+    kernels["bottleneck"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": bnd, "bound_by": by,
+                             "library_ms": None, "cudnn_tail_ms": tail_ms,
+                             "cudnn_tail_graph_ms": tail_graph_ms,
+                             "chain_check": check}
+    log(f"bottleneck chain per request (one call, {3 * wts[0].shape[0]} "
+        f"launches): kernel {k_ms:.3f} ms, plain (f32) {p_ms:.3f} ms, the "
+        f"unfused ResNetStage tail on cuDNN {tail_ms:.3f} ms "
+        f"({tail_graph_ms:.3f} ms replayed from a CUDA graph), bound "
+        f"{bnd:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)"
+        f" [{card}]")
+
     phase("4 small program: card vs CPU (res10, 64x80, f32, TF32 off)")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg_s = Config().replace(
         TEST=Config().TEST.__class__(RPN_PRE_NMS_TOP_N=100,
                                      RPN_POST_NMS_TOP_N=16),
@@ -535,8 +880,9 @@ def main() -> int:
     kw = dict(max_det=SMALL["max_det"], max_per_class=SMALL["max_per_class"])
     ref = serve.make_frame_program(det_c, sgg_c, prd_s, cfg_s, device="cpu",
                                    **kw)(imgs_s, info_s)
-    got = serve.make_frame_program(det_g, sgg_g, prd_s, cfg_s, device=dev,
-                                   **kw)(imgs_s, info_s)
+    with tf32_off():
+        got = serve.make_frame_program(det_g, sgg_g, prd_s, cfg_s,
+                                       device=dev, **kw)(imgs_s, info_s)
     got = {k: v.cpu() for k, v in got.items()}
     # f32 sums run in another order on the card: boxes and probabilities
     # agree to 1e-4 of their largest magnitude; masks and classes exactly
@@ -550,26 +896,159 @@ def main() -> int:
             raise AssertionError(f"small program {k}: card vs CPU max abs err "
                                  f"{err} > {tol}")
         log(f"small program {k}: max abs err {err:.3g} (tol {tol:.3g})")
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    phase("4b small program, bf16: card vs CPU (res50, 64x80, bf16-stored "
+          "weights, I2VSGG_PALLAS_BOTTLENECK=1, SGG head under align)")
+    cfg_b = cfg_s.replace(COMPUTE_DTYPE="bfloat16")
+    det_c, sgg_c, prd_b = build_models(SMALL50, cfg_b,
+                                       torch.Generator().manual_seed(1),
+                                       pooling="align")
+    with torch.no_grad():
+        # detections that are not degenerate, as tests/test_torch_bf16.py
+        # makes them: class logits back at their init scale (probabilities
+        # spread instead of saturating into ties), box deltas x0.1
+        # (proposals near their anchors instead of on the border)
+        det_c.cls_score.weight.div_(40.0)
+        det_c.rpn.bbox_pred.weight.mul_(0.1)
+        det_c.bbox_pred.weight.mul_(0.1)
+    bf16_storage_cast(det_c)
+    bf16_storage_cast(sgg_c)
+    det_g, sgg_g = copy.deepcopy(det_c), copy.deepcopy(sgg_c)
+    os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
+    try:
+        ref = serve.make_frame_program(det_c, sgg_c, prd_b, cfg_b,
+                                       device="cpu", **kw)(imgs_s, info_s)
+        counters.reset()
+        got = serve.make_frame_program(det_g, sgg_g, prd_b, cfg_b,
+                                       device=dev, **kw)(imgs_s, info_s)
+        launched = counters.read()["bottleneck"]
+        # layer2's tail (3 blocks) and layer3's (5), 3 launches a block
+        want = 3 * fused_tail_blocks(det_g.trunk, SMALL50["height"],
+                                     SMALL50["width"])
+        fed = fed_stages(det_c, sgg_c, det_g, sgg_g, prd_b, cfg_b, imgs_s,
+                         info_s, ref, dev, **kw)
+    finally:
+        del os.environ["I2VSGG_PALLAS_BOTTLENECK"]
+    if launched != want or not want:
+        raise AssertionError(f"small bf16 program: {launched} chain launches, "
+                             f"expected {want}")
+    # every difference is printed before any bound is applied. Each stage
+    # fed the CPU's input is held tightly: the chain stages to the bounds of
+    # tests/test_torch_bottleneck.py (rtol 0.05 with an atol of one bf16 ulp
+    # of max|ref|, >= 99.9 % within 0.02); the RPN head within one bf16 ulp
+    # plus one ulp of its largest output; the detector head's probabilities
+    # within 1e-2 and deltas within 2e-2 (its bf16 layer4 features part at
+    # the ulp level between cuDNN and oneDNN); the decoded boxes within 0.5
+    # px; the SGG head within 5e-3.
+    checks = []
+    for what in ("layer2 (chain)", "layer3 (chain)"):
+        a, b_ = (nchw_to_nhwc(t).float() for t in fed[what])
+        ulp = 2.0 ** -8 * float(b_.abs().max())
+        gap = (a - b_).abs()
+        worst = float((gap / (0.05 * b_.abs() + max(0.05, ulp))).max())
+        checks.append((f"{what} on the CPU's input, worst |d| / (0.05 |ref| "
+                       "+ atol)", worst, 1.0))
+        checks.append((f"{what} on the CPU's input, share outside 0.02",
+                       float((gap > 0.02 * b_.abs() + max(0.02, ulp)).float()
+                             .mean()), 1e-3))
+    for what in ("rpn cls_score", "rpn bbox_pred"):
+        a, b_ = (t.float() for t in fed[what])
+        excess = float(((a - b_).abs() - 2.0 ** -7 * b_.abs()).max())
+        checks.append((f"{what} on the CPU's map, excess over one bf16 ulp "
+                       "/ max|ref|", excess / float(b_.abs().max()),
+                       2.0 ** -8))
+    dec_g, dec_c = fed["decode"]
+    dec_g = reordered(dec_g, matched_order(dec_g, dec_c))
+    for k in ("det_valid", "classes"):
+        if not torch.equal(dec_g[k], dec_c[k]):
+            raise AssertionError(f"small bf16 decode {k}: card != CPU")
+    for what, (a, b_), tol in (
+            ("cls_prob on the CPU's maps and proposals", fed["cls_prob"],
+             1e-2),
+            ("bbox_pred on the CPU's maps and proposals", fed["bbox_pred"],
+             2e-2),
+            ("decoded boxes (px) from those", (dec_g["boxes"],
+                                               dec_c["boxes"]), 0.5),
+            ("rel_prob on the CPU's detections", fed["rel_prob"], 5e-3)):
+        checks.append((what, float((a.float() - b_.float()).abs().max()),
+                       tol))
+    # the whole program. res50's bf16 trunk parts between cuDNN and oneDNN
+    # by an ulp here and there, the 16 bottlenecks compound it, and the
+    # RPN's box deltas times anchors of up to 368 px turn it into pixels: a
+    # near tie downstream (NMS, the top-K cut) may then keep another
+    # proposal. So the card's whole program is held to the CPU's program
+    # past the trunk fed the card's own trunk maps (the witness): classes,
+    # validity and pairs equal after matching, boxes within 4 px, scores
+    # within 1e-2, rel_prob within 5e-3. Against the CPU's whole program
+    # the classes, validity and pairs are equal after matching, scores and
+    # rel_prob within 5e-2, and a box may be more than 4 px off only where
+    # the witness moves it off too: the CPU's own program, given the card's
+    # trunk maps, makes the same other choice.
+    got = {k: v.cpu() for k, v in got.items()}
+    witness, (maps_g, maps_c) = fed["witness"]
+    for what, other in (("witness", witness), ("CPU", ref)):
+        perm = matched_order(got, other)
+        swaps = int((perm != torch.arange(perm.shape[1])).sum())
+        mine = reordered(got, perm)
+        for k in ("det_valid", "classes", "pair_valid"):
+            if not torch.equal(mine[k], other[k]):
+                raise AssertionError(f"small bf16 program {k}: card != "
+                                     f"{what}")
+        log(f"small bf16 program vs the {what}: classes, validity and pairs "
+            f"equal ({swaps} detections in another slot)")
+        if what == "witness":
+            for k, tol in (("boxes", 4.0), ("scores", 1e-2),
+                           ("rel_prob", 5e-3)):
+                checks.append((f"whole program {k} vs the witness",
+                               float((mine[k].float() - witness[k].float())
+                                     .abs().max()), tol))
+            continue
+        for k in ("scores", "rel_prob"):
+            checks.append((f"whole program {k} vs the CPU",
+                           float((mine[k] - ref[k]).abs().max()), 5e-2))
+        valid = ref["det_valid"]
+        moved = ((mine["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
+        wit = reordered(witness, matched_order(witness, ref))
+        moved_w = ((wit["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
+        for f, i in (moved > 4.0).nonzero().tolist():
+            log(f"  frame {f} detection {i} (class "
+                f"{int(ref['classes'][f, i])}, score "
+                f"{float(ref['scores'][f, i]):.4g}): card "
+                f"{float(moved[f, i]):.3g} px from the CPU, the witness "
+                f"{float(moved_w[f, i]):.3g} px")
+        checks.append(("whole program boxes (px) vs the CPU, where the "
+                       "witness keeps the CPU's box",
+                       float((moved * (moved_w <= 4.0)).max()), 4.0))
+    gap = (maps_g[0].float() - maps_c[0].float()).abs()
+    top = maps_c[0].float().abs()
+    log(f"small bf16 program: c4 of the whole trunk, card vs CPU: max abs "
+        f"err {float(gap.max()):.3g} (max |ref| {float(top.max()):.3g}), "
+        f"share within 0.02 "
+        f"{float((gap <= 0.02 * top + 0.02).float().mean()):.6f}")
+    for what, err, tol in checks:
+        log(f"small bf16 program {what}: {err:.3g} (tol {tol:g})")
+    bad = [what for what, err, tol in checks if not err <= tol]
+    if bad:
+        raise AssertionError(f"small bf16 program, card vs CPU: {bad} out of "
+                             "bounds")
+    log(f"small bf16 program: {launched} chain launches on the card")
 
     phase("5 full-width serving (res101 ic+gc, 600x960 bf16, rpn128/pre512, "
           "det8), f32 images, SGG head on RoIPool")
     t = time.time()
-    cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
-                         "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
-    det, sgg, prd = build_models(FULL, cfg, torch.Generator().manual_seed(3))
     kw = dict(max_det=FULL["max_det"], max_per_class=FULL["max_per_class"],
               device=dev)
     program = serve.make_frame_program(det, sgg, prd, cfg, **kw)
     torch.cuda.synchronize()
-    log(f"models built, weights on the card in {time.time() - t:.2f} s")
+    log(f"weights on the card in {time.time() - t:.2f} s")
     requests = [make_inputs(FULL, 10 + i) for i in range(FULL["requests"])]
     torch.cuda.reset_peak_memory_stats()
     # one launch of RoIPool per frame; RoIAlign on the det subgrid and the
     # ic context per request; conv1 is cuDNN's on this path
     outs, times = serve_requests(
         program, requests, lambda r: r, counters,
-        {"roi_pool": FULL["frames"], "roi_align": 2, "conv1": 0},
+        {"roi_pool": FULL["frames"], "roi_align": 2, "conv1": 0,
+         "bottleneck": 0},
         "f32 images, pool")
     kernels["roi_pool"]["launches"] = counters.read()["roi_pool"]
     for out in outs:
@@ -619,7 +1098,7 @@ def main() -> int:
     program = serve.make_frame_program(det, sgg_align, prd, cfg, **kw)
     video = synthetic_video(FULL, seed=20)
     per_request = {"roi_pool": 0, "conv1": 2,   # the stem: conv + pool pass
-                   "roi_align": 2 + FULL["frames"]}
+                   "roi_align": 2 + FULL["frames"], "bottleneck": 0}
     pack_ms = []
 
     def planes_input(req):
@@ -838,11 +1317,56 @@ def main() -> int:
         log(f"conv1 {mode}: kernel {km * 1e3:.2f} us, plain {pm * 1e3:.2f} "
             f"us, bound {bd * 1e3:.3f} us ({nb} B) [{card}]")
 
-    phase("8 results")
+    phase("9 the third slice's path: bf16-stored weights, "
+          "I2VSGG_PALLAS_BOTTLENECK=1 (layer3's tail on the chain kernel), "
+          "host planes, SGG head under align; then the switch off")
+    program9 = serve.make_frame_program(det9, sgg9, prd, cfg, **kw)
+
+    def planes9(req):
+        return conv1_mod.Conv1Planes.pack(req[1]), req[2]
+
+    os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
+    try:
+        # at 600x960 the gate fuses layer3's tail only (22 blocks)
+        per9 = dict(per_request, bottleneck=3 * fused_tail_blocks(
+            det9.trunk, h, w))
+        if not per9["bottleneck"]:
+            raise AssertionError("the gate fuses no stage on this path")
+        chain_outs, times = serve_requests(program9, video, planes9, counters,
+                                           per9, "bf16 weights, chain")
+    finally:
+        del os.environ["I2VSGG_PALLAS_BOTTLENECK"]
+    kernels["bottleneck"]["launches"] = counters.read()["bottleneck"]
+    for out in chain_outs:
+        check_outputs(out, FULL)
+    ms["bf16_chain_planes_align"] = steady_ms(times)
+    off_outs, times = serve_requests(program9, video, planes9, counters,
+                                     per_request, "bf16 weights, switch off")
+    for out in off_outs:
+        check_outputs(out, FULL)
+    ms["bf16_unfused_planes_align"] = steady_ms(times)
+    same_cls = torch.cat([(a["classes"] == o["classes"]).flatten()
+                          for a, o in zip(chain_outs, off_outs)])
+    same_valid = torch.cat([(a["det_valid"] == o["det_valid"]).flatten()
+                            for a, o in zip(chain_outs, off_outs)])
+    box_gap = max(float((a["boxes"] - o["boxes"]).abs().max())
+                  for a, o in zip(chain_outs, off_outs))
+    agreement = {"classes_equal": float(same_cls.float().mean()),
+                 "valid_equal": float(same_valid.float().mean()),
+                 "max_box_diff_px": box_gap,
+                 "valid_detections": int(chain_outs[-1]["det_valid"].sum())}
+    log(f"chain vs switch off, same weights: classes equal "
+        f"{agreement['classes_equal']:.4f}, validity equal "
+        f"{agreement['valid_equal']:.4f}, largest box difference "
+        f"{box_gap:.3f} px; steady {ms['bf16_chain_planes_align']:.2f} vs "
+        f"{ms['bf16_unfused_planes_align']:.2f} ms/request [{card}]")
+
+    phase("10 results")
     print(json.dumps({"serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
+        "chain_vs_unfused": agreement,
         "wall_s": time.time() - T0}}), flush=True)
     meta = {
         "roi_pool": ("i2vsgg_tpu_torch/csrc/roi_pool.cu",
@@ -855,9 +1379,15 @@ def main() -> int:
                   "would be extra passes)"),
         "roi_align": ("i2vsgg_tpu_torch/csrc/roi_align.cu",
                       "i2vsgg_tpu/ops/pallas/roi_align_kernel.py:119",
-                      "none: no single PyTorch call computes RoIAlignAvg")}
+                      "none: no single PyTorch call computes RoIAlignAvg"),
+        "bottleneck": ("i2vsgg_tpu_torch/csrc/bottleneck.cu",
+                       "i2vsgg_tpu/ops/pallas/bottleneck_kernel.py:165",
+                       "none: no single PyTorch call computes the chain; "
+                       "yardstick: the unfused ResNetStage tail on cuDNN "
+                       "(cudnn_tail_ms; cudnn_tail_graph_ms replayed from a "
+                       "CUDA graph)")}
     line = []
-    for name in ("roi_pool", "roi_align", "conv1"):
+    for name in ("roi_pool", "roi_align", "conv1", "bottleneck"):
         k = kernels[name]
         line.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": k["launches"],
@@ -865,7 +1395,10 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "library_call": meta[name][2], "per": "request",
-                     **{key: k[key] for key in ("sites", "modes")
+                     **{key: k[key] for key in ("sites", "modes",
+                                                "cudnn_tail_ms",
+                                                "cudnn_tail_graph_ms",
+                                                "chain_check")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

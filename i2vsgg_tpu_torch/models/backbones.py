@@ -22,6 +22,9 @@ from torch import nn
 
 from i2vsgg_tpu_torch.models.layers import Conv
 from i2vsgg_tpu_torch.ops import conv1 as conv1_ops
+from i2vsgg_tpu_torch.ops.bottleneck import (bottleneck_chain,
+                                             chain_vmem_bytes,
+                                             fold_block_params)
 
 RESNET_STAGES = {
     50: (3, 4, 6, 3),
@@ -112,24 +115,72 @@ class Bottleneck(nn.Module):
                     if self.has_downsample else x)
         return F.relu(out + residual)
 
+    def folded(self):
+        """(w1', b1, w3', b3, w2', b2) in f32 for the identity-chain kernel
+        (``ops/bottleneck.py::fold_block_params``); stride 1, no
+        downsample."""
+        assert not self.has_downsample and self.conv1.stride == 1
+        return fold_block_params(
+            self.conv1.weight, self.bn1.affine(), self.conv2.weight,
+            self.bn2.affine(), self.conv3.weight, self.bn3.affine())
+
 
 class ResNetStage(nn.Module):
-    """``blocks`` bottlenecks named ``block0..``; block0 downsamples."""
+    """``blocks`` bottlenecks named ``block0..``; block0 downsamples.
+
+    With ``I2VSGG_PALLAS_BOTTLENECK=1`` (read at forward time, as the JAX
+    stage reads it) and a map that passes ``use_fused_chain``, the identity
+    tail (blocks 1..) runs as one ``bottleneck_chain`` on the folded
+    weights: bf16 with f32 bias and accumulation whatever ``dtype`` is, the
+    result cast to ``dtype`` (as the JAX stage does).
+    """
 
     def __init__(self, in_features: int, planes: int, blocks: int,
                  stride: int, dtype=torch.bfloat16):
         super().__init__()
         self.blocks = blocks
+        self.planes = planes
+        self.dtype = dtype
         self.block0 = Bottleneck(planes, in_features, stride, True, dtype)
         for i in range(1, blocks):
             setattr(self, f"block{i}", Bottleneck(planes, planes * 4, 1,
                                                   False, dtype))
 
+    def folded_tail(self):
+        """The identity tail's folded weights, stacked over blocks 1.., in
+        the chain's types: w1 (n, C, M), w3 (n, 9, M, M), w2 (n, M, C) bf16
+        (``bf16(f32(w) * mul)``); b1, b3, b2 f32."""
+        bf16, f32 = torch.bfloat16, torch.float32
+        w1, b1, w3, b3, w2, b2 = (torch.stack(t) for t in zip(*[
+            getattr(self, f"block{i}").folded()
+            for i in range(1, self.blocks)]))
+        return (w1.to(bf16), b1.to(f32), w3.to(bf16), b3.to(f32),
+                w2.to(bf16), b2.to(f32))
+
     def forward(self, x, first_stride: int | None = None):
         x = self.block0(x, first_stride)
+        if self.blocks > 1 and use_fused_chain(x, self.planes):
+            y = bottleneck_chain(
+                nchw_to_nhwc(x).to(torch.bfloat16).contiguous(),
+                *self.folded_tail())
+            return nhwc_to_nchw(y.to(self.dtype))
         for i in range(1, self.blocks):
             x = getattr(self, f"block{i}")(x)
         return x
+
+
+def use_fused_chain(x: torch.Tensor, planes: int) -> bool:
+    """The JAX stage's gate (``_use_fused_chain``), copied: the opt-in
+    switch, an identity tail of 128-aligned widths, and a map whose TPU
+    footprint estimate fits the 15.2 MB budget. ``x`` is the NCHW block0
+    output. The gate is part of the function computed (a fused stage rounds
+    differently), so the port fuses exactly where the JAX package does."""
+    if os.environ.get("I2VSGG_PALLAS_BOTTLENECK") != "1":
+        return False
+    _, c, h, w = x.shape
+    if c != planes * 4 or c % 128 or planes % 128:
+        return False
+    return chain_vmem_bytes(h, w, c, planes) <= int(15.2e6)
 
 
 def caffe_maxpool(x: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,9 @@ class FasterRCNN_DA(nn.Module):
         self._base_anchors = generate_anchors(
             ratios=cfg.ANCHOR_RATIOS, scales=cfg.ANCHOR_SCALES)
 
-    def _proposals(self, base_feat, rpn_cls, rpn_bbox, im_info) -> Proposals:
+    def proposals(self, base_feat, rpn_cls, rpn_bbox, im_info) -> Proposals:
+        """The RPN head's outputs on ``base_feat`` -> decoded, NMS'd
+        proposals (rois (B, N, 5), valid (B, N))."""
         h, w = base_feat.shape[1:3]
         anchors = shifted_anchors(h, w, self.cfg.FEAT_STRIDE[0],
                                   self._base_anchors, base_feat.device)
@@ -80,8 +82,18 @@ class FasterRCNN_DA(nn.Module):
         {rois (B, N, 5), roi_valid (B, N), cls_prob (B, N, C),
          bbox_pred (B, N, 4C), base_feat (B, H/16, W/16, 1024)}."""
         base_feat, tap = self.trunk(images)
-        rpn_cls, rpn_bbox = self.rpn(base_feat)
-        props = self._proposals(base_feat, rpn_cls, rpn_bbox, im_info)
+        return self.detect_on_features(base_feat, tap, im_info)
+
+    @torch.no_grad()
+    def detect_on_features(self, base_feat, tap, im_info,
+                           props: Proposals | None = None
+                           ) -> Dict[str, torch.Tensor]:
+        """``inference`` past the trunk: its outputs from the trunk's
+        ``base_feat`` (B, H/16, W/16, 1024) and ``tap`` (B, H/8, W/8, 512),
+        both NHWC. ``props`` replaces the RPN's proposals (a stage fed
+        another run's input)."""
+        if props is None:
+            props = self.proposals(base_feat, *self.rpn(base_feat), im_info)
         b, n = props.rois.shape[:2]
         rois_flat = props.rois.reshape(b * n, 5).contiguous()
         p = self.cfg.POOLING_SIZE

@@ -135,7 +135,11 @@ class VRDHead(nn.Module):
             torch.linalg.norm(prd_emb, dim=1, keepdim=True), 1e-12)
         vis_n = vis_emb / torch.clamp_min(
             torch.linalg.norm(vis_emb, dim=1, keepdim=True), 1e-12)
-        return {"scores": vis_n @ prd_emb.t(), "union_emb": vis_emb,
+        # bf16-stored weights leave vis_n bf16 and prd_emb f32 (its input
+        # is f32): the product promotes, as jnp's matmul does
+        dt = torch.promote_types(vis_n.dtype, prd_emb.dtype)
+        return {"scores": vis_n.to(dt) @ prd_emb.t().to(dt),
+                "union_emb": vis_emb,
                 "prd_emb": prd_emb, "obj_emb": obj_feat}
 
 

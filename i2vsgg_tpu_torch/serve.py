@@ -119,7 +119,7 @@ def make_union_dedup(ix1: np.ndarray, ix2: np.ndarray):
             np.asarray(u_map, np.int32))
 
 
-def _pair_layout(max_det: int, dev):
+def pair_layout(max_det: int, dev):
     """(ix1, ix2, (iu1, iu2, u_map)) as index tensors on ``dev``."""
     ix1_np, ix2_np = make_pair_indices(max_det)
     as_idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)
@@ -127,24 +127,25 @@ def _pair_layout(max_det: int, dev):
     return as_idx(ix1_np), as_idx(ix2_np), pair_static
 
 
-def _detect(det_model, images, im_info, cfg, max_det, max_per_class, dev):
-    """The detection half of a program: inputs moved to ``dev`` (images as
-    f32, ``Conv1Planes`` as bf16 planes, no f32 detour), detector inference,
-    then ``decode_detections`` -> (im_info, detector outputs, detections)."""
+def _to_device(images, im_info, dev):
+    """A program's inputs on ``dev``: images as f32, ``Conv1Planes`` as bf16
+    planes (no f32 detour), im_info as f32."""
     if isinstance(images, Conv1Planes):
         images = images.to(dev)
     else:
         images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-    im_info = torch.as_tensor(im_info, dtype=torch.float32, device=dev)
-    out = det_model.inference(images, im_info)
-    dets = decode_detections(out["rois"], out["roi_valid"], out["cls_prob"],
-                             out["bbox_pred"], im_info, cfg, max_det=max_det,
+    return images, torch.as_tensor(im_info, dtype=torch.float32, device=dev)
+
+
+def _decode(det_out, im_info, cfg, max_det, max_per_class) -> Detections:
+    return decode_detections(det_out["rois"], det_out["roi_valid"],
+                             det_out["cls_prob"], det_out["bbox_pred"],
+                             im_info, cfg, max_det=max_det,
                              max_per_class=max_per_class)
-    return im_info, out, dets
 
 
-def _relation_heads(sgg_model, base_feat, im_info, boxes, valid, layout,
-                    prd):
+def relation_heads(sgg_model, base_feat, im_info, boxes, valid, layout,
+                   prd):
     """The SGG head frame by frame on the detector's feature map -> (rel_prob
     (B, P, n_rel), pair_valid (B, P))."""
     ix1, ix2, pair_static = layout
@@ -160,6 +161,25 @@ def _relation_heads(sgg_model, base_feat, im_info, boxes, valid, layout,
         rel_prob.append(torch.softmax(res["scores"], dim=-1))
         pair_valid.append(pv)
     return torch.stack(rel_prob), torch.stack(pair_valid)
+
+
+def program_outputs(sgg_model, det_out, im_info, prd, layout, cfg: Config, *,
+                    max_det: int, max_per_class: int) -> dict:
+    """The frame program past the detector: ``det_out`` (the output of
+    ``FasterRCNN_DA.inference``, or of ``detect_on_features`` for a trunk
+    fed another run's maps) and ``im_info`` (B, 3) on the model's device,
+    ``prd`` the predicate vectors there and ``layout`` a ``pair_layout`` ->
+    the program's output dict."""
+    dets = _decode(det_out, im_info, cfg, max_det, max_per_class)
+    rel_prob, pair_valid = relation_heads(
+        sgg_model, det_out["base_feat"], im_info, dets.boxes, dets.valid,
+        layout, prd)
+    return {
+        "boxes": dets.boxes, "scores": dets.scores,
+        "classes": dets.classes, "det_valid": dets.valid,
+        "rel_prob": rel_prob, "pair_valid": pair_valid,
+        "ix1": layout[0], "ix2": layout[1],
+    }
 
 
 def make_frame_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
@@ -178,22 +198,15 @@ def make_frame_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
     dev = resolve_device(device)
     det_model.to(dev).eval()
     sgg_model.to(dev).eval()
-    layout = _pair_layout(max_det, dev)
+    layout = pair_layout(max_det, dev)
     prd = torch.as_tensor(np.asarray(prd_vecs, np.float32), device=dev)
 
     @torch.no_grad()
     def frame_program(images, im_info):
-        im_info, out, dets = _detect(det_model, images, im_info, cfg,
-                                     max_det, max_per_class, dev)
-        rel_prob, pair_valid = _relation_heads(
-            sgg_model, out["base_feat"], im_info, dets.boxes, dets.valid,
-            layout, prd)
-        return {
-            "boxes": dets.boxes, "scores": dets.scores,
-            "classes": dets.classes, "det_valid": dets.valid,
-            "rel_prob": rel_prob, "pair_valid": pair_valid,
-            "ix1": layout[0], "ix2": layout[1],
-        }
+        images, im_info = _to_device(images, im_info, dev)
+        return program_outputs(sgg_model, det_model.inference(images, im_info),
+                               im_info, prd, layout, cfg, max_det=max_det,
+                               max_per_class=max_per_class)
 
     return frame_program
 
@@ -235,13 +248,14 @@ def make_bucketed_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
 
     @torch.no_grad()
     def frame_program(images, im_info):
-        im_info, out, dets = _detect(det_model, images, im_info, cfg,
-                                     max_det, max_per_class, dev)
+        images, im_info = _to_device(images, im_info, dev)
+        out = det_model.inference(images, im_info)
+        dets = _decode(out, im_info, cfg, max_det, max_per_class)
         n = int(dets.valid.sum(dim=1).max())          # the one host sync
         b = next(x for x in buckets if x >= n)
         if b not in layouts:
-            layouts[b] = _pair_layout(b, dev)
-        rel_prob, pair_valid = _relation_heads(
+            layouts[b] = pair_layout(b, dev)
+        rel_prob, pair_valid = relation_heads(
             sgg_model, out["base_feat"], im_info, dets.boxes[:, :b],
             dets.valid[:, :b], layouts[b], prd)
         return {

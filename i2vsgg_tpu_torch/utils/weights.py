@@ -9,6 +9,9 @@ PyTorch state dict leaf by leaf (the inverse of
 * every other leaf keeps its name and layout: biases, and the FrozenBN
   ``scale/bias/mean/var`` buffers.
 
+A bf16 leaf (a tree cast by ``bf16_storage_cast``) stays bf16, bit for bit;
+every other float leaf becomes f32.
+
 Only numpy crosses the boundary: the caller converts the tree's leaves with
 ``np.asarray``; nothing here imports JAX.
 """
@@ -33,7 +36,12 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, prefix + (key,))
                 continue
             a = np.asarray(value)
-            if not np.issubdtype(a.dtype, np.floating):
+            # a bf16 leaf (ml_dtypes' bfloat16, known here by its name only)
+            # moves as its bits and stays bf16
+            is_bf16 = a.dtype.name == "bfloat16"
+            if is_bf16:
+                a = a.view(np.int16)
+            elif not np.issubdtype(a.dtype, np.floating):
                 raise TypeError(f"{'/'.join(prefix + (key,))}: {a.dtype} "
                                 "leaves (int8 serving trees) are not ported")
             name = key
@@ -43,8 +51,12 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                     a = a.transpose(3, 2, 0, 1)
                 elif a.ndim == 2:
                     a = a.T
-            out[".".join(prefix + (name,))] = torch.from_numpy(
-                np.array(a, dtype=np.float32, order="C"))
+            if is_bf16:
+                t = torch.from_numpy(np.array(a, order="C")).view(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+            out[".".join(prefix + (name,))] = t
 
     walk(tree, ())
     return out

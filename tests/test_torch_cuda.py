@@ -207,3 +207,96 @@ def test_roi_align_wrapper_refuses(cuda):
         roi_align_avg(fmap[..., ::2], rois)
     with pytest.raises(ValueError):
         roi_align_avg(fmap, rois, grid=(0, 9))
+
+
+def _chain_case(cuda, b, h, w, c, m, n, seed=0):
+    """A map and folded chain weights of the JAX chain test's scale (x ~
+    N(0, 1), weights and biases ~ 0.05 N(0, 1)) in the kernel's types."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=cuda) * 0.05
+
+    x = torch.randn(b, h, w, c, generator=g, device=cuda).bfloat16()
+    bf = torch.bfloat16
+    return x, (r(n, c, m).to(bf), r(n, m), r(n, 9, m, m).to(bf), r(n, m),
+               r(n, m, c).to(bf), r(n, c))
+
+
+@pytest.mark.parametrize("b,h,w,c,m,n", [
+    (2, 9, 13, 128, 128, 3),       # odd sizes: partial tiles, the halo
+    (1, 15, 20, 256, 128, 2),
+    (4, 38, 60, 1024, 256, 1),     # the main path's shape, one block
+    (4, 38, 60, 1024, 256, 22)])   # ... and its 22-block layer3 tail
+def test_bottleneck_chain_kernel_vs_plain(cuda, b, h, w, c, m, n):
+    """The kernel against its plain version (f32 without TF32) as
+    ``chip_smoke.held_chain`` holds it: every block alone on the chain's own
+    map within one bf16 ulp and >= 99 % bit-equal, the n-block call equal to
+    its blocks in turn, and no further from f64 than the plain version."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.bottleneck import (bottleneck_chain,
+                                                 bottleneck_chain_plain)
+    x, params = _chain_case(cuda, b, h, w, c, m, n)
+    x0 = x.clone()
+    before = bottleneck_chain.launches
+    got = bottleneck_chain(x, *params)
+    assert bottleneck_chain.launches == before + 3 * n
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0)                      # the input is not written
+    chip_smoke.held_chain(bottleneck_chain, x, params, f"{n} blocks")
+    if n <= 3:                    # short chains: the JAX chain test's bounds
+        with chip_smoke.tf32_off():
+            ref = bottleneck_chain_plain(x, *params)
+        g, r = got.float(), ref.float()
+        assert bool(((g - r).abs() <= 0.05 * r.abs() + 0.05).all())
+        assert float(((g - r).abs() <= 0.02 * r.abs() + 0.02).float()
+                     .mean()) > 0.999
+
+
+@pytest.mark.parametrize("n", [3, 22])
+def test_bottleneck_chain_check_refuses_wrong_chains(cuda, n):
+    """``chip_smoke.held_chain`` refuses a chain that sums in bf16 and one
+    that reads block 0's weights throughout, at the main path's shape."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.bottleneck import bottleneck_chain
+    x, params = _chain_case(cuda, 4, 38, 60, 1024, 256, n)
+    assert len(chip_smoke.chain_controls(bottleneck_chain, x, params)) == 2
+
+
+def test_bottleneck_chain_wrapper_refuses(cuda):
+    from i2vsgg_tpu_torch.ops.bottleneck import bottleneck_chain
+    x, params = _chain_case(cuda, 1, 4, 5, 128, 128, 1)
+    with pytest.raises(ValueError):
+        bottleneck_chain(x, params[0].cpu(), *params[1:])
+    with pytest.raises(TypeError):
+        bottleneck_chain(x.float(), *params)
+    with pytest.raises(ValueError):
+        bottleneck_chain(x.transpose(1, 2), *params)
+    with pytest.raises(ValueError):
+        bottleneck_chain(x[..., :64].contiguous(), *params)
+
+
+def test_stage_on_the_card_runs_the_chain(cuda, monkeypatch):
+    """A res50-width stage with the switch on launches the chain and agrees
+    with the same stage on the CPU (the plain chain) to the chain bounds."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.models import backbones as bb
+    from i2vsgg_tpu_torch.models.layers import init_weights
+    from i2vsgg_tpu_torch.ops.bottleneck import bottleneck_chain
+    from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+    stage = bf16_storage_cast(init_weights(
+        bb.ResNetStage(512, 256, 6, 2), torch.Generator().manual_seed(0)))
+    x = torch.randn(2, 512, 16, 20, generator=torch.Generator().manual_seed(1))
+    monkeypatch.setenv("I2VSGG_PALLAS_BOTTLENECK", "1")
+    with torch.no_grad():
+        ref = stage(x.bfloat16())
+        before = bottleneck_chain.launches
+        got = copy.deepcopy(stage).to(cuda)(x.bfloat16().to(cuda))
+    assert bottleneck_chain.launches == before + 3 * 5
+    # block0 runs in bf16 on cuDNN and on oneDNN: the chain bounds of
+    # tests/test_torch_bottleneck.py (one bf16 ulp of max|ref| absolute)
+    g, r = bb.nchw_to_nhwc(got).cpu().float(), bb.nchw_to_nhwc(ref).float()
+    ulp = 2.0 ** -8 * float(r.abs().max())
+    assert bool(((g - r).abs() <= 0.05 * r.abs() + max(0.05, ulp)).all())
+    assert float(((g - r).abs() <= 0.02 * r.abs() + max(0.02, ulp)).float()
+                 .mean()) > 0.999

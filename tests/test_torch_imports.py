@@ -68,6 +68,10 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         import chip_smoke
         from i2vsgg_tpu_torch import serve
         from i2vsgg_tpu_torch.config import Config, cfg_from_list
+        from i2vsgg_tpu_torch.ops import bottleneck
+        from i2vsgg_tpu_torch.utils import params
+        assert "i2vsgg_tpu_torch.ops.bottleneck" in names
+        assert "i2vsgg_tpu_torch.utils.params" in names
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
                              "TEST.RPN_POST_NMS_TOP_N", "16",
@@ -166,4 +170,52 @@ def test_slice_two_paths_run_without_the_blocked_names():
         assert out["bucket"] in (2, 4)
         assert isinstance(association({"v": frames}), dict)
         assert conv1.launches == 0 and roi_align_avg.launches == 0
+    """)
+
+
+def test_slice_three_path_runs_without_the_blocked_names():
+    """bf16-stored weights and the chain switch, end to end on the CPU in
+    the blocked interpreter (res50: layer2 and layer3 tails fused); the
+    chain's wrapper counts no launch there."""
+    run_isolated("""
+        import os
+
+        import torch
+
+        import chip_smoke
+        from i2vsgg_tpu_torch import serve
+        from i2vsgg_tpu_torch.config import Config
+        from i2vsgg_tpu_torch.models import backbones
+        from i2vsgg_tpu_torch.ops import bottleneck
+        from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+        from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+
+        cfg = Config().replace(
+            TEST=Config().TEST.__class__(RPN_PRE_NMS_TOP_N=100,
+                                         RPN_POST_NMS_TOP_N=16),
+            COMPUTE_DTYPE="bfloat16")
+        spec = chip_smoke.SMALL50
+        det, sgg, prd = chip_smoke.build_models(
+            spec, cfg, torch.Generator().manual_seed(0), pooling="align")
+        bf16_storage_cast(det)
+        bf16_storage_cast(sgg)
+        assert det.trunk.layer3.block1.conv2.weight.dtype == torch.bfloat16
+        assert det.bbox_pred.weight.dtype == torch.float32
+        calls = []
+        real = bottleneck.bottleneck_chain
+
+        def counting(*a):
+            calls.append(tuple(a[0].shape))
+            return real(*a)
+
+        backbones.bottleneck_chain = counting
+        os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
+        program = serve.make_frame_program(det, sgg, prd, cfg, max_det=4,
+                                           max_per_class=4, device="cpu")
+        _, f32, info = chip_smoke.synthetic_video(spec, 0, n_frames=2)[0]
+        out = program(Conv1Planes.pack(f32), info)
+        assert calls == [(2, 8, 10, 512), (2, 4, 5, 1024)], calls
+        assert chip_smoke.fused_tail_blocks(det.trunk, 64, 80) == 8
+        assert torch.isfinite(out["rel_prob"]).all()
+        assert real.launches == 0
     """)

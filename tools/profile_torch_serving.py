@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_torch_serving.py [--requests 4] [--trace PATH]
-        [--host-planes] [--vrd-pooling {pool,align}]
+        [--host-planes] [--vrd-pooling {pool,align}] [--bf16-params]
+        [--pallas-bottleneck]
 
 Builds the full-width program of ``chip_smoke.py`` (res101 ic+gc, 600x960
 bf16, rpn128/pre512, det8, 4 frames per request, seeded random weights),
@@ -12,8 +13,12 @@ serves one warm-up request, then three passes of ``--requests`` requests.
 ``--host-planes`` feeds each request as conv1 parity planes packed on the
 host (``Conv1Planes``; the trunk's stem is then the conv1 kernel, and the
 packing is part of each request's host time); ``--vrd-pooling`` picks the
-SGG head's pooling (``pool``, the drivers' default, or ``align``). The
-passes:
+SGG head's pooling (``pool``, ``cli/args.py``'s default, or ``align``);
+``--bf16-params`` stores the weights in bf16 (``bf16_storage_cast``, as
+bench.py's flag of that name does); ``--pallas-bottleneck`` sets
+``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's identity tail runs as the chain
+kernel (spans ``fold``, the per-call weight fold, and ``chain``, inside
+``trunk``). The passes:
 
 1. plain: host clock per request, ending in a synchronize (as
    ``chip_smoke.py`` times it);
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -49,11 +55,12 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from i2vsgg_tpu_torch import serve  # noqa: E402
 from i2vsgg_tpu_torch.config import Config, cfg_from_list  # noqa: E402
-from i2vsgg_tpu_torch.models import faster_rcnn, sgg  # noqa: E402
+from i2vsgg_tpu_torch.models import backbones, faster_rcnn, sgg  # noqa: E402
+from i2vsgg_tpu_torch.utils.params import bf16_storage_cast  # noqa: E402
 
-STAGES = ("trunk", "stem", "rpn_head", "proposals", "roi_align",
-          "det_head", "context", "decode", "sgg_head", "roi_pool",
-          "sgg_roi_align")
+STAGES = ("trunk", "stem", "fold", "chain", "rpn_head", "proposals",
+          "roi_align", "det_head", "context", "decode", "sgg_head",
+          "roi_pool", "sgg_roi_align")
 
 
 STAGE_MS: dict = {}
@@ -82,8 +89,11 @@ def instrument(det, sgg_model):
     only; the port itself carries no instrumentation)."""
     det.trunk.forward = spanned("trunk", det.trunk.forward)
     det.trunk._stem = spanned("stem", det.trunk._stem)
+    backbones.ResNetStage.folded_tail = spanned(
+        "fold", backbones.ResNetStage.folded_tail)
+    backbones.bottleneck_chain = spanned("chain", backbones.bottleneck_chain)
     det.rpn.forward = spanned("rpn_head", det.rpn.forward)
-    det._proposals = spanned("proposals", det._proposals)
+    det.proposals = spanned("proposals", det.proposals)
     det.head.forward = spanned("det_head", det.head.forward)
     faster_rcnn.roi_align_avg = spanned("roi_align",
                                         faster_rcnn.roi_align_avg)
@@ -149,7 +159,11 @@ def main() -> int:
     ap.add_argument("--host-planes", action="store_true")
     ap.add_argument("--vrd-pooling", choices=("pool", "align"),
                     default="pool")
+    ap.add_argument("--bf16-params", action="store_true")
+    ap.add_argument("--pallas-bottleneck", action="store_true")
     args = ap.parse_args()
+    if args.pallas_bottleneck:
+        os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -159,6 +173,9 @@ def main() -> int:
                          "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
     det, sgg_model, prd = chip_smoke.build_models(
         spec, cfg, torch.Generator().manual_seed(3), pooling=args.vrd_pooling)
+    if args.bf16_params:
+        bf16_storage_cast(det)
+        bf16_storage_cast(sgg_model)
     instrument(det, sgg_model)
     program = serve.make_frame_program(
         det, sgg_model, prd, cfg, max_det=spec["max_det"],
@@ -214,7 +231,8 @@ def main() -> int:
                      key=lambda e: -e.self_device_time_total)[:12]
     card = chip_smoke.smi_name_power() or torch.cuda.get_device_name(0)
     print(f"card: {card}; {n} requests x {spec['frames']} frames; "
-          f"host planes {args.host_planes}, SGG pooling {args.vrd_pooling}")
+          f"host planes {args.host_planes}, SGG pooling {args.vrd_pooling}, "
+          f"bf16 params {args.bf16_params}, chain {args.pallas_bottleneck}")
     print(f"plain: {', '.join(f'{x:.2f}' for x in plain)} ms/request, mean "
           f"{sum(plain) / n:.2f}")
     print(f"staged: {staged_ms:.2f} ms/request with a synchronize around "
@@ -242,6 +260,8 @@ def main() -> int:
     print(json.dumps({"card": card, "requests": n,
                       "host_planes": args.host_planes,
                       "vrd_pooling": args.vrd_pooling,
+                      "bf16_params": args.bf16_params,
+                      "pallas_bottleneck": args.pallas_bottleneck,
                       "plain_ms_per_request": plain,
                       "staged_ms_per_request": staged_ms,
                       "profiled_ms_per_request": wall_ms / n,
