@@ -6,14 +6,15 @@ Run it from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``i2vsgg_tpu_torch/csrc`` with nvcc
-(RoIPool, the conv1 stem, RoIAlignAvg, the identity-bottleneck chain; one
-nvcc each, in parallel), holds each kernel against its plain PyTorch
-version, checks small programs on the card against the same programs on the
-CPU (f32, and bf16 with bf16-stored weights and the chain), and serves the
-fused det+SGG frame program (``i2vsgg_tpu_torch.serve``) at full width:
-ResNet-101 with ic+gc context, 16 classes, 26 predicates, 600x960 frames in
-bf16, rpn post-NMS 128 / pre-NMS 512, 8 detections with 8 per class, with
-seeded random weights, along three paths:
+(RoIPool, the conv1 stem, RoIAlignAvg, the identity-bottleneck chain, the
+int8 conv1; one nvcc each, in parallel), holds each kernel against its plain
+PyTorch version, checks small programs on the card against the same programs
+on the CPU (f32; bf16 with bf16-stored weights and the chain; the int8
+levers), and serves the fused det+SGG frame program
+(``i2vsgg_tpu_torch.serve``) at full width: ResNet-101 with ic+gc context,
+16 classes, 26 predicates, 600x960 frames in bf16, rpn post-NMS 128 /
+pre-NMS 512, 8 detections with 8 per class, with seeded random weights,
+along four paths:
 
 * phase 5: f32 images and the SGG head on RoIPool (the first slice's path);
 * phase 6, this slice's path: a 12-frame synthetic video in 3 requests, fed
@@ -25,7 +26,16 @@ seeded random weights, along three paths:
 * phase 9, the third slice's path: the same video with bf16-stored weights
   (``bf16_storage_cast``) and ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's
   22-block identity tail runs as the chain kernel; then the same weights
-  with the switch off, for agreement and time.
+  with the switch off, for agreement and time;
+* phase 11, the fourth slice's path (the round-5 configuration, as
+  ``bench.py --int8-fc6 --int8-trunk-scope 1:layer2,layer3,layer4,@3x3
+  --int8-static-acts runs/calib/act_scales_res101.json`` builds it): the
+  same video as f32 images (cuDNN's conv1) on phase 9's bf16-stored weights
+  with the SGG head's fc6/fc7 in int8 and the 3x3 convs of layer2-4 in int8
+  with the calibration file's static activation scales; then phase 9's
+  weights on the same images, for agreement and time. Phase 11b holds the
+  int8 conv1 kernel (B6, which no path dispatches, as in JAX) to its plain
+  version on the path's own frames.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after. Every phase prints a line with the elapsed seconds before it starts.
@@ -58,8 +68,13 @@ T0 = time.time()
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12        # bf16 tensor cores, dense
+H100_INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
 KERNEL_SOURCES = ("roi_pool.cu", "conv1.cu", "roi_align.cu",
-                  "bottleneck.cu")
+                  "bottleneck.cu", "conv1_int8.cu")
+# the round-5 configuration's int8 trunk scope and static activation scales
+INT8_SCOPE = "layer2,layer3,layer4,@3x3"
+ACT_SCALES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                          "calib", "act_scales_res101.json")
 
 FULL = dict(backbone="res101", num_classes=16, num_rel=26, height=600,
             width=960, frames=4, requests=3, max_det=8, max_per_class=8,
@@ -68,6 +83,8 @@ SMALL = dict(backbone="res10", num_classes=4, num_rel=5, height=64, width=80,
              frames=2, max_det=4, max_per_class=4, fc_dim=32, emb_dim=16)
 # the chain's small program: res50 (an identity tail in layer2 and layer3)
 SMALL50 = dict(SMALL, backbone="res50")
+NO_LAUNCHES = {"roi_pool": 0, "roi_align": 0, "conv1": 0, "bottleneck": 0,
+               "conv1_int8": 0, "int8_conv2d": 0, "int8_linear": 0}
 
 
 def phase(name: str):
@@ -90,10 +107,11 @@ def smi_name_power() -> str | None:
 
 
 def build_models(spec: dict, cfg, generator: torch.Generator,
-                 pooling: str = "pool"):
+                 pooling: str = "pool", int8_fc: bool = False):
     """Detector + SGG model of ``spec`` with seeded random weights (on the
     CPU). The RPN and class logits are scaled up so that scores spread out
-    and no top-k or NMS decision sits on a float near-tie."""
+    and no top-k or NMS decision sits on a float near-tie. ``int8_fc``
+    builds the SGG head's fc6/fc7 as ``DenseInt8`` (the same weights)."""
     from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
     from i2vsgg_tpu_torch.models.layers import init_weights, torch_dtype
     from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
@@ -101,13 +119,34 @@ def build_models(spec: dict, cfg, generator: torch.Generator,
                         gc=True)
     sgg = SGGModel(VRDHead(emb_dim=spec["emb_dim"], fc_dim=spec["fc_dim"],
                            pooling=pooling,
-                           dtype=torch_dtype(cfg.COMPUTE_DTYPE)))
+                           dtype=torch_dtype(cfg.COMPUTE_DTYPE),
+                           int8_fc=int8_fc))
     init_weights(det, generator)
     init_weights(sgg, generator)
     with torch.no_grad():
         det.rpn.cls_score.weight.mul_(40.0)
         det.cls_score.weight.mul_(40.0)
     prd = torch.randn(spec["num_rel"], 300, generator=generator).numpy()
+    return det, sgg, prd
+
+
+def small_bf16_models(cfg, int8_fc: bool = False):
+    """The small res50 models of phases 4b and 4c (``SMALL50``, seed 1, the
+    SGG head under align; ``int8_fc``: fc6/fc7 as ``DenseInt8``, the same
+    weights), stored in bf16, with detections that are not degenerate, as
+    tests/test_torch_bf16.py makes them: class logits back at their init
+    scale (probabilities spread instead of saturating into ties), box
+    deltas x0.1 (proposals near their anchors instead of on the border)."""
+    from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+    det, sgg, prd = build_models(SMALL50, cfg,
+                                 torch.Generator().manual_seed(1),
+                                 pooling="align", int8_fc=int8_fc)
+    with torch.no_grad():
+        det.cls_score.weight.div_(40.0)
+        det.rpn.bbox_pred.weight.mul_(0.1)
+        det.bbox_pred.weight.mul_(0.1)
+    bf16_storage_cast(det)
+    bf16_storage_cast(sgg)
     return det, sgg, prd
 
 
@@ -485,12 +524,164 @@ def fed_stages(det_c, sgg_c, det_g, sgg_g, prd, cfg, images, im_info,
             serve.pair_layout(kw["max_det"], d), prd_t.to(d))[0]
             for model, d in ((sgg_g, dev), (sgg_c, "cpu"))]
         out["rel_prob"] = (back(heads[0]), heads[1])
-        maps_g = tuple(back(t) for t in tr_g(x.to(dev)))
+    witness, maps_g = witness_outputs(det_c, sgg_c, det_g, prd, cfg, images,
+                                      im_info, dev, **kw)
+    out["witness"] = (witness, (maps_g, maps))
+    return out
+
+
+def witness_outputs(det_c, sgg_c, det_g, prd, cfg, images, im_info, dev,
+                    **kw):
+    """The CPU's program past the trunk (models ``det_c``, ``sgg_c``) fed
+    the card's own trunk maps (model ``det_g``, the same weights): the
+    witness a card program is held to where a near tie downstream of the
+    trunk may go another way. Returns its output dict and the card's maps
+    on the CPU."""
+    from i2vsgg_tpu_torch import serve
+    x, info = torch.as_tensor(images), torch.as_tensor(im_info)
+    prd_t = torch.as_tensor(np.asarray(prd, np.float32))
+    with torch.no_grad():
+        maps_g = tuple(t.cpu() for t in det_g.trunk(x.to(dev)))
         witness = serve.program_outputs(
             sgg_c, det_c.detect_on_features(*maps_g, info), info, prd_t,
             serve.pair_layout(kw["max_det"], "cpu"), cfg, **kw)
-    out["witness"] = (witness, (maps_g, maps))
-    return out
+    return witness, maps_g
+
+
+def whole_program_checks(got: dict, ref: dict, witness: dict, what: str,
+                         int8: bool = False) -> list:
+    """Hold a card program's output ``got`` (on the CPU) to the CPU's
+    program ``ref`` and to the ``witness`` (``witness_outputs``). Against
+    the witness: classes, validity and pairs equal after matching (raises
+    otherwise), and (check, value, bound) triples for boxes within 4 px,
+    scores within 1e-2, rel_prob within 5e-3. Against the CPU: classes,
+    validity and pairs equal after matching, scores and rel_prob within
+    5e-2, and a box may be more than 4 px off only where the witness moves
+    it off too (the CPU's own program, given the card's trunk maps, makes
+    the same other choice). With ``int8`` the same exception holds for the
+    scores and rel_prob of such a detection (and of its pairs): there the
+    witness has picked another detection, which may score otherwise; an
+    int8 quantization turns the trunk's ulp differences into whole steps,
+    so such picks are more frequent. Returns the triples."""
+    checks = []
+    for name, other in (("witness", witness), ("CPU", ref)):
+        perm = matched_order(got, other)
+        swaps = int((perm != torch.arange(perm.shape[1])).sum())
+        mine = reordered(got, perm)
+        for k in ("det_valid", "classes", "pair_valid"):
+            if not torch.equal(mine[k], other[k]):
+                raise AssertionError(f"{what} {k}: card != {name}")
+        log(f"{what} vs the {name}: classes, validity and pairs equal "
+            f"({swaps} detections in another slot)")
+        if name == "witness":
+            for k, tol in (("boxes", 4.0), ("scores", 1e-2),
+                           ("rel_prob", 5e-3)):
+                checks.append((f"whole program {k} vs the witness",
+                               float((mine[k].float() - witness[k].float())
+                                     .abs().max()), tol))
+            continue
+        valid = ref["det_valid"]
+        moved = ((mine["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
+        wit = reordered(witness, matched_order(witness, ref))
+        moved_w = ((wit["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
+        kept = (moved_w <= 4.0) if int8 else torch.ones_like(valid)
+        pair_kept = kept[:, mine["ix1"]] & kept[:, mine["ix2"]]
+        for k, mask in (("scores", kept), ("rel_prob", pair_kept)):
+            gap = (mine[k] - ref[k]).abs()
+            gap = gap * (mask if k == "scores" else mask[..., None])
+            checks.append((f"whole program {k} vs the CPU"
+                           + (", where the witness keeps the CPU's box"
+                              if int8 else ""), float(gap.max()), 5e-2))
+        for f, i in (moved > 4.0).nonzero().tolist():
+            log(f"  frame {f} detection {i} (class "
+                f"{int(ref['classes'][f, i])}, score "
+                f"{float(ref['scores'][f, i]):.4g}): card "
+                f"{float(moved[f, i]):.3g} px from the CPU, the witness "
+                f"{float(moved_w[f, i]):.3g} px")
+        checks.append(("whole program boxes (px) vs the CPU, where the "
+                       "witness keeps the CPU's box",
+                       float((moved * (moved_w <= 4.0)).max()), 4.0))
+    return checks
+
+
+def int8_modules(model) -> dict:
+    """The modules of ``model`` that run an int8 product: ``BNConv``s with
+    int8-stored weights and the ``DenseInt8`` towers, by name."""
+    from i2vsgg_tpu_torch.models.backbones import BNConv
+    from i2vsgg_tpu_torch.models.sgg import DenseInt8
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, DenseInt8)
+            or (isinstance(m, BNConv) and m.weight.dtype == torch.int8)}
+
+
+class recorded_calls:
+    """Record every call of the given modules (name -> module) as (name,
+    positional inputs, output) while inside."""
+
+    def __init__(self, modules: dict):
+        self.modules, self.calls, self.handles = modules, [], []
+
+    def __enter__(self):
+        for name, m in self.modules.items():
+            self.handles.append(m.register_forward_hook(
+                lambda mod, args, out, name=name:
+                self.calls.append((name, args, out))))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def calibrated_act_scales(det, scope: str, run) -> dict:
+    """Static activation scales for the convs of ``det`` (a float model)
+    that ``quantize_trunk_params(det, scope)`` selects, calibrated on the
+    inputs of ``run()`` as the JAX package's
+    ``tools/calibrate_act_scales.py`` calibrates them: each conv's input
+    abs-max over the run, / 127, by its flax path."""
+    from i2vsgg_tpu_torch.utils.params import quantize_trunk_params
+    names = set(int8_modules(quantize_trunk_params(copy.deepcopy(det),
+                                                   scope)))
+    convs = {n: m for n, m in det.named_modules() if n in names}
+    with recorded_calls(convs) as calls:
+        run()
+    absmax: dict = {}
+    for name, args, _ in calls:
+        path = name.replace(".", "/")
+        absmax[path] = max(absmax.get(path, 0.0),
+                           float(args[0].float().abs().max()))
+    return {k: v / 127.0 for k, v in absmax.items()}
+
+
+def saturated_share(det, run) -> tuple:
+    """Run ``run()`` and count, at every int8 conv of ``det`` with a static
+    activation scale, the inputs whose quotient ``round(x / act_scale)``
+    lies beyond +-127 (clipped to it). Returns (share of all their inputs,
+    the largest share at one conv and its name)."""
+    convs = {n: m for n, m in int8_modules(det).items()
+             if getattr(m, "act_scale", None) is not None}
+    with recorded_calls(convs) as calls:
+        run()
+    total = clipped = 0
+    worst, worst_name = 0.0, ""
+    for name, args, _ in calls:
+        q = torch.round(args[0].float() / convs[name].act_scale)
+        n_clip = int((q.abs() > 127).sum())
+        total += q.numel()
+        clipped += n_clip
+        if n_clip / q.numel() > worst:
+            worst, worst_name = n_clip / q.numel(), name
+    return clipped / max(total, 1), worst, worst_name
+
+
+def conv1_int8_work(x: torch.Tensor, out: torch.Tensor) -> tuple:
+    """Bytes and int8 operations of B6 on these images: the f32 images read
+    once, the int8 weights and f32 scale and bias read once, the bf16
+    output written once; 2 operations a multiply-add over the 147 taps."""
+    b, ho, wo, c = out.shape
+    nbytes = (x.numel() * x.element_size() + 64 * 160 + 2 * 64 * 4
+              + out.numel() * out.element_size())
+    return nbytes, 2 * b * ho * wo * c * 147
 
 
 def fused_tail_blocks(trunk, h: int, w: int) -> int:
@@ -620,14 +811,20 @@ def check_outputs(out: dict, spec: dict):
 
 
 class Counters:
-    """The launch counters of the port's kernels."""
+    """The launch counters of the port's kernels, and the int8 GEMMs the
+    int8 levers take on the card (``torch._int_mm``, not a kernel of the
+    port: counted to show which path ran)."""
 
     def __init__(self):
-        from i2vsgg_tpu_torch.ops import bottleneck, conv1, roi_align, roi_pool
+        from i2vsgg_tpu_torch.ops import (bottleneck, conv1, conv1_int8, int8,
+                                          roi_align, roi_pool)
         self.mods = {"roi_pool": (roi_pool.roi_pool, "launches"),
                      "roi_align": (roi_align.roi_align_avg, "launches"),
                      "conv1": (conv1, "launches"),
-                     "bottleneck": (bottleneck.bottleneck_chain, "launches")}
+                     "bottleneck": (bottleneck.bottleneck_chain, "launches"),
+                     "conv1_int8": (conv1_int8, "launches"),
+                     "int8_conv2d": (int8.int8_conv2d, "calls"),
+                     "int8_linear": (int8.int8_linear, "calls")}
 
     def reset(self):
         for obj, attr in self.mods.values():
@@ -685,9 +882,13 @@ def main() -> int:
         from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
         from i2vsgg_tpu_torch.ops import bottleneck as chain_mod
         from i2vsgg_tpu_torch.ops import conv1 as conv1_mod
+        from i2vsgg_tpu_torch.ops import conv1_int8 as c8_mod
         from i2vsgg_tpu_torch.ops import roi_align as roi_align_mod
         from i2vsgg_tpu_torch.ops import roi_pool as roi_pool_mod
-        from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+        from i2vsgg_tpu_torch.utils.params import (bf16_storage_cast,
+                                                   load_act_scales,
+                                                   quantize_dense_params,
+                                                   quantize_trunk_params)
         from i2vsgg_tpu_torch.video.association import association
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
@@ -900,19 +1101,7 @@ def main() -> int:
     phase("4b small program, bf16: card vs CPU (res50, 64x80, bf16-stored "
           "weights, I2VSGG_PALLAS_BOTTLENECK=1, SGG head under align)")
     cfg_b = cfg_s.replace(COMPUTE_DTYPE="bfloat16")
-    det_c, sgg_c, prd_b = build_models(SMALL50, cfg_b,
-                                       torch.Generator().manual_seed(1),
-                                       pooling="align")
-    with torch.no_grad():
-        # detections that are not degenerate, as tests/test_torch_bf16.py
-        # makes them: class logits back at their init scale (probabilities
-        # spread instead of saturating into ties), box deltas x0.1
-        # (proposals near their anchors instead of on the border)
-        det_c.cls_score.weight.div_(40.0)
-        det_c.rpn.bbox_pred.weight.mul_(0.1)
-        det_c.bbox_pred.weight.mul_(0.1)
-    bf16_storage_cast(det_c)
-    bf16_storage_cast(sgg_c)
+    det_c, sgg_c, prd_b = small_bf16_models(cfg_b)
     det_g, sgg_g = copy.deepcopy(det_c), copy.deepcopy(sgg_c)
     os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
     try:
@@ -977,48 +1166,11 @@ def main() -> int:
     # RPN's box deltas times anchors of up to 368 px turn it into pixels: a
     # near tie downstream (NMS, the top-K cut) may then keep another
     # proposal. So the card's whole program is held to the CPU's program
-    # past the trunk fed the card's own trunk maps (the witness): classes,
-    # validity and pairs equal after matching, boxes within 4 px, scores
-    # within 1e-2, rel_prob within 5e-3. Against the CPU's whole program
-    # the classes, validity and pairs are equal after matching, scores and
-    # rel_prob within 5e-2, and a box may be more than 4 px off only where
-    # the witness moves it off too: the CPU's own program, given the card's
-    # trunk maps, makes the same other choice.
+    # past the trunk fed the card's own trunk maps, the witness
+    # (``whole_program_checks``).
     got = {k: v.cpu() for k, v in got.items()}
     witness, (maps_g, maps_c) = fed["witness"]
-    for what, other in (("witness", witness), ("CPU", ref)):
-        perm = matched_order(got, other)
-        swaps = int((perm != torch.arange(perm.shape[1])).sum())
-        mine = reordered(got, perm)
-        for k in ("det_valid", "classes", "pair_valid"):
-            if not torch.equal(mine[k], other[k]):
-                raise AssertionError(f"small bf16 program {k}: card != "
-                                     f"{what}")
-        log(f"small bf16 program vs the {what}: classes, validity and pairs "
-            f"equal ({swaps} detections in another slot)")
-        if what == "witness":
-            for k, tol in (("boxes", 4.0), ("scores", 1e-2),
-                           ("rel_prob", 5e-3)):
-                checks.append((f"whole program {k} vs the witness",
-                               float((mine[k].float() - witness[k].float())
-                                     .abs().max()), tol))
-            continue
-        for k in ("scores", "rel_prob"):
-            checks.append((f"whole program {k} vs the CPU",
-                           float((mine[k] - ref[k]).abs().max()), 5e-2))
-        valid = ref["det_valid"]
-        moved = ((mine["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
-        wit = reordered(witness, matched_order(witness, ref))
-        moved_w = ((wit["boxes"] - ref["boxes"]).abs().amax(-1) * valid)
-        for f, i in (moved > 4.0).nonzero().tolist():
-            log(f"  frame {f} detection {i} (class "
-                f"{int(ref['classes'][f, i])}, score "
-                f"{float(ref['scores'][f, i]):.4g}): card "
-                f"{float(moved[f, i]):.3g} px from the CPU, the witness "
-                f"{float(moved_w[f, i]):.3g} px")
-        checks.append(("whole program boxes (px) vs the CPU, where the "
-                       "witness keeps the CPU's box",
-                       float((moved * (moved_w <= 4.0)).max()), 4.0))
+    checks += whole_program_checks(got, ref, witness, "small bf16 program")
     gap = (maps_g[0].float() - maps_c[0].float()).abs()
     top = maps_c[0].float().abs()
     log(f"small bf16 program: c4 of the whole trunk, card vs CPU: max abs "
@@ -1032,6 +1184,71 @@ def main() -> int:
         raise AssertionError(f"small bf16 program, card vs CPU: {bad} out of "
                              "bounds")
     log(f"small bf16 program: {launched} chain launches on the card")
+
+    phase("4c small int8 program: card vs CPU (phase 4b's res50 model at "
+          "64x80, bf16-stored weights, int8 fc6/fc7, int8 3x3 convs of "
+          "layer2-4 with static scales calibrated on this input)")
+    # phase 4b's model with the int8 levers. Its static scales are
+    # calibrated on this program's own input, as the calibration tool
+    # calibrates them: the calibration file's scales belong to a trained
+    # res101 at 600x960, and on these random weights they make each int8
+    # step about one bf16 ulp of the activations, so that any ulp the card
+    # and the CPU part by (cuDNN's and oneDNN's bf16 sums) becomes a step
+    # (phase 11 serves the file's scales at full width)
+    det_c, sgg_c, prd_b = small_bf16_models(cfg_b, int8_fc=True)
+    scales = calibrated_act_scales(
+        det_c, INT8_SCOPE, lambda: serve.make_frame_program(
+            det_c, sgg_c, prd_b, cfg_b, device="cpu", **kw)(imgs_s, info_s))
+    quantize_dense_params(sgg_c)
+    quantize_trunk_params(det_c, INT8_SCOPE, scales)
+    det_g, sgg_g = copy.deepcopy(det_c), copy.deepcopy(sgg_c)
+    mods_c = {**int8_modules(det_c), **{f"sgg.{k}": m for k, m in
+                                         int8_modules(sgg_c).items()}}
+    mods_g = {**int8_modules(det_g), **{f"sgg.{k}": m for k, m in
+                                         int8_modules(sgg_g).items()}}
+    os.environ["I2VSGG_INT8_TRUNK"] = "1:" + INT8_SCOPE
+    try:
+        with recorded_calls(mods_c) as calls:
+            ref = serve.make_frame_program(det_c, sgg_c, prd_b, cfg_b,
+                                           device="cpu", **kw)(imgs_s, info_s)
+        counters.reset()
+        got = serve.make_frame_program(det_g, sgg_g, prd_b, cfg_b,
+                                       device=dev, **kw)(imgs_s, info_s)
+        gemms = counters.read()
+        # every int8 module fed the CPU's input: bit-equal (the int32 sums
+        # are exact on both sides, the quantization and rescale elementwise)
+        with torch.no_grad():
+            for name, args, out_c in calls:
+                out_g = mods_g[name](*(a.to(dev) if torch.is_tensor(a) else a
+                                       for a in args))
+                gap = (out_g.cpu().float() - out_c.float()).abs()
+                if not torch.equal(out_g.cpu(), out_c):
+                    raise AssertionError(
+                        f"small int8 program: {name} fed the CPU's input "
+                        f"differs from the CPU's output by {float(gap.max())}")
+        witness, maps_g = witness_outputs(det_c, sgg_c, det_g, prd_b, cfg_b,
+                                          imgs_s, info_s, dev, **kw)
+    finally:
+        del os.environ["I2VSGG_INT8_TRUNK"]
+    n_convs = sum(1 for k in mods_c if not k.startswith("sgg."))
+    want = {"int8_conv2d": n_convs, "int8_linear": 2 * SMALL50["frames"]}
+    if {k: gemms[k] for k in want} != want or len(calls) != sum(
+            want.values()):
+        raise AssertionError(f"small int8 program: int8 GEMMs {gemms}, "
+                             f"{len(calls)} calls on the CPU, expected "
+                             f"{want}")
+    log(f"small int8 program: {len(calls)} int8 module calls ({n_convs} "
+        f"convs, {want['int8_linear']} DenseInt8) fed the CPU's input: "
+        "bit-equal")
+    got = {k: v.cpu() for k, v in got.items()}
+    checks = whole_program_checks(got, ref, witness, "small int8 program",
+                                  int8=True)
+    for what, err, tol in checks:
+        log(f"small int8 program {what}: {err:.3g} (tol {tol:g})")
+    bad = [what for what, err, tol in checks if not err <= tol]
+    if bad:
+        raise AssertionError(f"small int8 program, card vs CPU: {bad} out of "
+                             "bounds")
 
     phase("5 full-width serving (res101 ic+gc, 600x960 bf16, rpn128/pre512, "
           "det8), f32 images, SGG head on RoIPool")
@@ -1047,8 +1264,7 @@ def main() -> int:
     # ic context per request; conv1 is cuDNN's on this path
     outs, times = serve_requests(
         program, requests, lambda r: r, counters,
-        {"roi_pool": FULL["frames"], "roi_align": 2, "conv1": 0,
-         "bottleneck": 0},
+        dict(NO_LAUNCHES, roi_pool=FULL["frames"], roi_align=2),
         "f32 images, pool")
     kernels["roi_pool"]["launches"] = counters.read()["roi_pool"]
     for out in outs:
@@ -1097,8 +1313,8 @@ def main() -> int:
     sgg_align.vrd.pooling = "align"
     program = serve.make_frame_program(det, sgg_align, prd, cfg, **kw)
     video = synthetic_video(FULL, seed=20)
-    per_request = {"roi_pool": 0, "conv1": 2,   # the stem: conv + pool pass
-                   "roi_align": 2 + FULL["frames"], "bottleneck": 0}
+    per_request = dict(NO_LAUNCHES, conv1=2,    # the stem: conv + pool pass
+                       roi_align=2 + FULL["frames"])
     pack_ms = []
 
     def planes_input(req):
@@ -1361,12 +1577,113 @@ def main() -> int:
         f"{box_gap:.3f} px; steady {ms['bf16_chain_planes_align']:.2f} vs "
         f"{ms['bf16_unfused_planes_align']:.2f} ms/request [{card}]")
 
-    phase("10 results")
+    phase("11 the fourth slice's path: the round-5 int8 configuration "
+          "(bf16-stored weights, int8 fc6/fc7, the 3x3 convs of layer2-4 in "
+          "int8 with static scales), f32 images, cuDNN conv1, SGG head under "
+          "align; then phase 9's weights on the same images")
+    t = time.time()
+    # as bench.py builds it: bf16 storage (phase 9's weights), then
+    # quantize_dense_params, then quantize_trunk_params with the
+    # calibration file's scales; I2VSGG_INT8_TRUNK set; the chain off
+    det_i8 = copy.deepcopy(det9)
+    sgg_i8 = sgg_mod.SGGModel(sgg_mod.VRDHead(
+        emb_dim=FULL["emb_dim"], fc_dim=FULL["fc_dim"], pooling="align",
+        dtype=torch.bfloat16, int8_fc=True))
+    bf16_storage_cast(sgg_i8)
+    sgg_i8.load_state_dict(sgg9.state_dict())
+    quantize_dense_params(sgg_i8)
+    quantize_trunk_params(det_i8, INT8_SCOPE, load_act_scales(ACT_SCALES))
+    program11 = serve.make_frame_program(det_i8, sgg_i8, prd, cfg, **kw)
+    n_i8 = len(int8_modules(det_i8))
+    torch.cuda.synchronize()
+    log(f"int8 models built in {time.time() - t:.2f} s: {n_i8} int8 convs "
+        f"with static scales from {os.path.relpath(ACT_SCALES)}, fc6/fc7 "
+        "int8")
+
+    def images_in(req):
+        return req[1], req[2]
+
+    per11 = dict(NO_LAUNCHES, roi_align=2 + FULL["frames"], int8_conv2d=n_i8,
+                 int8_linear=2 * FULL["frames"])
+    os.environ["I2VSGG_INT8_TRUNK"] = "1:" + INT8_SCOPE
+    try:
+        i8_outs, times = serve_requests(program11, video, images_in, counters,
+                                        per11, "int8 levers, f32 images")
+        ms["int8_images_align"] = steady_ms(times)
+        kernels["conv1_int8"] = {"launches": counters.read()["conv1_int8"]}
+        sat, sat_worst, sat_name = saturated_share(
+            det_i8, lambda: program11(*images_in(video[-1])))
+    finally:
+        del os.environ["I2VSGG_INT8_TRUNK"]
+    for out in i8_outs:
+        check_outputs(out, FULL)
+    ref_outs, times = serve_requests(
+        program9, video, images_in, counters,
+        dict(NO_LAUNCHES, roi_align=2 + FULL["frames"]),
+        "bf16 weights, f32 images")
+    ms["bf16_images_align"] = steady_ms(times)
+    same_cls = torch.cat([(a["classes"] == o["classes"]).flatten()
+                          for a, o in zip(i8_outs, ref_outs)])
+    same_valid = torch.cat([(a["det_valid"] == o["det_valid"]).flatten()
+                            for a, o in zip(i8_outs, ref_outs)])
+    both = [a["det_valid"] & o["det_valid"] & (a["classes"] == o["classes"])
+            for a, o in zip(i8_outs, ref_outs)]
+    box_gap = max(float(((a["boxes"] - o["boxes"]).abs().amax(-1) * v).max())
+                  for a, o, v in zip(i8_outs, ref_outs, both))
+    int8_vs_bf16 = {"classes_equal": float(same_cls.float().mean()),
+                    "valid_equal": float(same_valid.float().mean()),
+                    "max_box_diff_px_same_class": box_gap,
+                    "valid_detections": int(i8_outs[-1]["det_valid"].sum()),
+                    "saturated_share": sat, "saturated_share_worst": sat_worst,
+                    "saturated_worst_conv": sat_name}
+    log(f"int8 vs bf16 weights on the same images: classes equal "
+        f"{int8_vs_bf16['classes_equal']:.4f}, validity equal "
+        f"{int8_vs_bf16['valid_equal']:.4f}, largest box difference where "
+        f"both keep the class {box_gap:.3f} px; activations saturated at "
+        f"+-127 under the calibrated scales: {sat:.6f} of all (at most "
+        f"{sat_worst:.6f}, {sat_name}); steady "
+        f"{ms['int8_images_align']:.2f} vs {ms['bf16_images_align']:.2f} "
+        f"ms/request (phase 9: {ms['bf16_unfused_planes_align']:.2f} with "
+        f"host planes, chain off) [{card}]")
+
+    phase("11b conv1_int8 (B6) kernel vs plain on the int8 path's frames "
+          "(4, 600, 960) and conv1 weights: bit-equal; time, bound, cuDNN's "
+          "bf16 conv1")
+    x8 = torch.as_tensor(video[-1][1], device=dev)   # integer pixels - means
+    w1 = det_i8.trunk.conv1.weight.detach()
+    mul1, add1 = det_i8.trunk.bn1.affine()
+    params8 = c8_mod.conv1_int8_params(w1, mul1, add1, cfg.PIXEL_MEANS)
+    got8 = c8_mod.conv1_bn_relu_int8(x8, w1, mul1, add1, cfg.PIXEL_MEANS)
+    want8 = c8_mod.conv1_bn_relu_int8_plain(x8, *params8)
+    if not torch.equal(got8, want8):
+        raise AssertionError(
+            f"conv1_int8 kernel != plain: max abs err "
+            f"{float((got8.float() - want8.float()).abs().max())}")
+    k_ms = cuda_ms(lambda: c8_mod.conv1_int8_apply(x8, *params8), 50)
+    p_ms = cuda_ms(lambda: c8_mod.conv1_bn_relu_int8_plain(x8, *params8), 10,
+                   1)
+    xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)   # NCHW view, channels-last
+    wf = c1.fold_v2_weight(w1, mul1).contiguous(
+        memory_format=torch.channels_last)
+    bias1 = add1.to(torch.bfloat16)
+    cudnn_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+        xb, wf, bias1, stride=2, padding=3), 50)
+    nbytes, ops = conv1_int8_work(x8, got8)
+    bnd, by = bound_of(nbytes, ops, H100_INT8_OPS_PER_S)
+    kernels["conv1_int8"].update(
+        max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+        library_ms=None, cudnn_bf16_conv1_ms=cudnn_ms)
+    log(f"conv1_int8 on {tuple(x8.shape)}: bit-equal to plain; kernel "
+        f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, cuDNN bf16 conv "
+        f"(+ affine) {cudnn_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}: "
+        f"{nbytes} B, {ops} int8 ops) [{card}]")
+
+    phase("12 results")
     print(json.dumps({"serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
-        "chain_vs_unfused": agreement,
+        "chain_vs_unfused": agreement, "int8_vs_bf16": int8_vs_bf16,
         "wall_s": time.time() - T0}}), flush=True)
     meta = {
         "roi_pool": ("i2vsgg_tpu_torch/csrc/roi_pool.cu",
@@ -1385,9 +1702,15 @@ def main() -> int:
                        "none: no single PyTorch call computes the chain; "
                        "yardstick: the unfused ResNetStage tail on cuDNN "
                        "(cudnn_tail_ms; cudnn_tail_graph_ms replayed from a "
-                       "CUDA graph)")}
+                       "CUDA graph)"),
+        "conv1_int8": ("i2vsgg_tpu_torch/csrc/conv1_int8.cu",
+                       "i2vsgg_tpu/ops/pallas/conv1_int8_kernel.py:147",
+                       "none: no single PyTorch call computes the int8 conv1; "
+                       "yardstick: cuDNN's bf16 conv1 with the BN scale "
+                       "folded and the shift as bias (cudnn_bf16_conv1_ms)")}
     line = []
-    for name in ("roi_pool", "roi_align", "conv1", "bottleneck"):
+    for name in ("roi_pool", "roi_align", "conv1", "bottleneck",
+                 "conv1_int8"):
         k = kernels[name]
         line.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": k["launches"],
@@ -1398,7 +1721,8 @@ def main() -> int:
                      **{key: k[key] for key in ("sites", "modes",
                                                 "cudnn_tail_ms",
                                                 "cudnn_tail_graph_ms",
-                                                "chain_check")
+                                                "chain_check",
+                                                "cudnn_bf16_conv1_ms")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -1,5 +1,5 @@
 """ResNet trunk and head — counterpart of ``i2vsgg_tpu/models/backbones.py``
-(the float path of the serving program).
+(the serving program's float and int8 paths).
 
 * caffe-convention ``Bottleneck``: the stride sits on the FIRST 1x1 conv;
 * every BatchNorm is frozen, i.e. a constant affine (``FrozenBatchNorm``);
@@ -25,6 +25,8 @@ from i2vsgg_tpu_torch.ops import conv1 as conv1_ops
 from i2vsgg_tpu_torch.ops.bottleneck import (bottleneck_chain,
                                              chain_vmem_bytes,
                                              fold_block_params)
+from i2vsgg_tpu_torch.ops.int8 import (dynamic_act_quant, int8_conv2d,
+                                       static_act_quant, weight_quant)
 
 RESNET_STAGES = {
     50: (3, 4, 6, 3),
@@ -71,7 +73,27 @@ class FrozenBatchNorm(nn.Module):
 class BNConv(Conv):
     """No-bias conv with padding ``k // 2``, computed in ``dtype``. On tiny
     spatial grids (per-roi head inputs, H*W <= 64) a 1x1 stride-1 conv runs
-    as one (R*HW, C) @ (C, F) matmul, as in the JAX module."""
+    as one (R*HW, C) @ (C, F) matmul, as in the JAX module.
+
+    The int8 branches of the JAX module, in its order:
+
+    * an int8-stored ``weight`` (``utils/params.py::quantize_trunk_params``)
+      with its ``kernel_scale`` runs the int8 conv with a static activation
+      scale (buffer ``act_scale``) or a dynamic one; a small-grid 1x1 with
+      such a weight is dequantized instead;
+    * otherwise ``I2VSGG_INT8_TRUNK`` (read at forward time) = ``1`` or
+      ``1:<tok>,..`` quantizes on the fly the convs it selects: a token
+      matches as a substring of the joined flax path (``path``, e.g.
+      ``trunk/layer3/block0/conv2``, set by ``FasterRCNN_DA``), and ``@3x3``
+      keeps 3x3 kernels only.
+
+    The int32 product is rescaled as ``(y * (a_s * w_s)).to(dtype)``. The
+    JAX package's CPU quality-gate and calibration modes (``sim``,
+    ``I2VSGG_INT8_PREQ_SIM``, ``I2VSGG_INT8_CALIB``) are not ported: the
+    port raises on them.
+    """
+
+    path = ""
 
     def __init__(self, in_features: int, features: int, kernel: int = 1,
                  stride: int = 1, dtype: torch.dtype = torch.bfloat16):
@@ -80,12 +102,72 @@ class BNConv(Conv):
 
     def forward(self, x, stride: int | None = None):
         stride = stride or self.stride
+        if os.environ.get("I2VSGG_INT8_CALIB"):
+            raise NotImplementedError(
+                "I2VSGG_INT8_CALIB (activation-scale calibration) is not "
+                "ported")
         r, c, h, w = x.shape
-        if h * w <= 64 and self.weight.shape[-1] == 1 and stride == 1:
+        k = self.weight.shape[-1]
+        small = h * w <= 64 and k == 1 and stride == 1
+        if self.weight.dtype == torch.int8:
+            return self._int8_forward(x, stride, small)
+        if small:
             xm = nchw_to_nhwc(x).reshape(r * h * w, c).to(self.dtype)
             wm = self.weight.reshape(self.weight.shape[0], c).to(self.dtype)
             return nhwc_to_nchw((xm @ wm.t()).reshape(r, h, w, -1))
+        mode = int8_trunk_mode(self.path, k)
+        if mode == "sim":
+            raise NotImplementedError(
+                "I2VSGG_INT8_TRUNK=sim (the CPU fake-quant gate) is not "
+                "ported")
+        if mode == "1":
+            w_q, w_s = weight_quant(self.weight)
+            x_q, a_s = dynamic_act_quant(x)
+            return self._rescale(x_q, w_q, a_s, w_s, stride)
         return super().forward(x, stride)
+
+    def _int8_forward(self, x, stride: int, small: bool):
+        """The hoisted int8 weight (``quantize_trunk_params``)."""
+        w_s = self.kernel_scale
+        if small:
+            # the transform skips small-grid 1x1s; one that slips through
+            # is dequantized rather than miscomputed (as in JAX)
+            r, c, h, w = x.shape
+            wd = (self.weight.float().reshape(-1, c) * w_s[:, None]).to(
+                self.dtype)
+            xm = nchw_to_nhwc(x).reshape(r * h * w, c).to(self.dtype)
+            return nhwc_to_nchw((xm @ wd.t()).reshape(r, h, w, -1))
+        if os.environ.get("I2VSGG_INT8_PREQ_SIM"):
+            raise NotImplementedError(
+                "I2VSGG_INT8_PREQ_SIM (the CPU fake-quant gate) is not "
+                "ported")
+        a_s = getattr(self, "act_scale", None)
+        if a_s is not None:
+            x_q = static_act_quant(x, a_s)
+        else:
+            x_q, a_s = dynamic_act_quant(x)
+        return self._rescale(x_q, self.weight, a_s, w_s, stride)
+
+    def _rescale(self, x_q, w_q, a_s, w_s, stride: int):
+        y = int8_conv2d(x_q, w_q, stride, self.padding)
+        return (y.float() * (a_s * w_s)[:, None, None]).to(self.dtype)
+
+
+def int8_trunk_mode(path: str, k: int) -> str:
+    """The ``I2VSGG_INT8_TRUNK`` mode for a conv at flax ``path`` with a
+    ``k`` x ``k`` kernel: ``""`` (float) unless the switch selects it, as
+    the JAX ``BNConv`` reads it. ``<mode>:<tok>,..`` selects the convs whose
+    path contains a token (substring of the joined path); ``@3x3`` drops
+    every kernel but 3x3."""
+    mode, _, only = (os.environ.get("I2VSGG_INT8_TRUNK") or "").partition(":")
+    if only:
+        toks = [t for t in only.split(",") if t]
+        if "@3x3" in toks and k != 3:
+            mode = ""
+        ptoks = [t for t in toks if not t.startswith("@")]
+        if ptoks and not any(t in path for t in ptoks):
+            mode = ""
+    return mode
 
 
 class Bottleneck(nn.Module):
@@ -132,8 +214,11 @@ class ResNetStage(nn.Module):
     stage reads it) and a map that passes ``use_fused_chain``, the identity
     tail (blocks 1..) runs as one ``bottleneck_chain`` on the folded
     weights: bf16 with f32 bias and accumulation whatever ``dtype`` is, the
-    result cast to ``dtype`` (as the JAX stage does).
+    result cast to ``dtype`` (as the JAX stage does). A tail with int8-stored
+    weights is refused there (``folded_tail``).
     """
+
+    path = ""
 
     def __init__(self, in_features: int, planes: int, blocks: int,
                  stride: int, dtype=torch.bfloat16):
@@ -149,7 +234,20 @@ class ResNetStage(nn.Module):
     def folded_tail(self):
         """The identity tail's folded weights, stacked over blocks 1.., in
         the chain's types: w1 (n, C, M), w3 (n, 9, M, M), w2 (n, M, C) bf16
-        (``bf16(f32(w) * mul)``); b1, b3, b2 f32."""
+        (``bf16(f32(w) * mul)``); b1, b3, b2 f32.
+
+        Raises ``ValueError`` on int8-stored weights: the JAX stage folds
+        their raw integer taps without ``kernel_scale``
+        (``backbones.py:319-326`` with ``bottleneck_kernel.py:204-221``), a
+        chain that computes something else, which the port does not copy."""
+        int8 = [name for name, p in self.named_parameters()
+                if p.dtype == torch.int8 and not name.startswith("block0.")]
+        if int8:
+            raise ValueError(
+                f"stage {self.path or type(self).__name__}: int8-stored "
+                f"weights ({', '.join(int8)}) cannot be folded into the "
+                "bottleneck chain; serve them with I2VSGG_PALLAS_BOTTLENECK "
+                "off")
         bf16, f32 = torch.bfloat16, torch.float32
         w1, b1, w3, b3, w2, b2 = (torch.stack(t) for t in zip(*[
             getattr(self, f"block{i}").folded()

@@ -61,6 +61,11 @@ class FasterRCNN_DA(nn.Module):
         self.bbox_pred = Dense(feat_d, 4 * num_classes, init_std=0.001)
         self._base_anchors = generate_anchors(
             ratios=cfg.ANCHOR_RATIOS, scales=cfg.ANCHOR_SCALES)
+        # the flax module paths (``trunk/layer3/block0/conv2``) that the
+        # int8 switch's scope tokens match, and that name a refused stage
+        for name, m in self.named_modules():
+            if isinstance(m, (bb.BNConv, bb.ResNetStage)):
+                m.path = name.replace(".", "/")
 
     def proposals(self, base_feat, rpn_cls, rpn_bbox, im_info) -> Proposals:
         """The RPN head's outputs on ``base_feat`` -> decoded, NMS'd

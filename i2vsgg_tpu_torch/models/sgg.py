@@ -27,6 +27,7 @@ from torch import nn
 
 from i2vsgg_tpu_torch.models.layers import Conv, Dense
 from i2vsgg_tpu_torch.ops.boxes import dual_mask, union_boxes
+from i2vsgg_tpu_torch.ops.int8 import int8_linear, row_act_quant, weight_quant
 from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
 from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
 
@@ -47,6 +48,32 @@ def conv_t(in_features: int, features: int, kernel: int, stride: int = 1,
                 init_std=bound / math.sqrt(3.0), bias_bound=bound)
 
 
+class DenseInt8(Dense):
+    """``Dense`` whose product runs in int8 (JAX ``DenseInt8``): per-output-
+    channel symmetric weights — an int8-stored ``weight`` with its
+    ``kernel_scale`` (``utils/params.py::quantize_dense_params``), or
+    quantized on the fly from a float one — and one dynamic scale per input
+    row; the int32 product is rescaled and the bias added in f32. It
+    returns f32, whatever the input and weight dtypes."""
+
+    def forward(self, x):
+        if self.weight.dtype == torch.int8:
+            w_q, w_s = self.weight, self.kernel_scale
+        else:
+            w_q, w_s = weight_quant(self.weight)
+        x_q, a_s = row_act_quant(x)
+        y = int8_linear(x_q, w_q)
+        return (y.float() * (a_s[:, None] * w_s[None, :])
+                + self.bias.float())
+
+
+def dense_int8_t(in_features: int, features: int) -> DenseInt8:
+    """``DenseInt8`` with ``dense_t``'s init."""
+    bound = 1.0 / math.sqrt(in_features)
+    return DenseInt8(in_features, features, init_std=bound / math.sqrt(3.0),
+                     bias_bound=bound)
+
+
 class PredicateEmbedder(nn.Module):
     """GloVe 300-d -> emb_dim predicate embeddings.
     [resnet_SGG_emb.py:188-192 prd_sem_embeddings]"""
@@ -62,20 +89,24 @@ class PredicateEmbedder(nn.Module):
 
 class VRDHead(nn.Module):
     """Relation classification head over pooled features (inference,
-    ``spatial_type=2``, ``use_obj_visual=True``)."""
+    ``spatial_type=2``, ``use_obj_visual=True``). ``int8_fc`` runs the
+    fc6/fc7 tower as ``DenseInt8`` (same parameter names), whose f32 output
+    feeds the rest of the head."""
 
     pooling_size = 7
 
     def __init__(self, emb_dim: int = 300, fc_dim: int = 4096,
-                 pooling: str = "pool", dtype=torch.float32):
+                 pooling: str = "pool", dtype=torch.float32,
+                 int8_fc: bool = False):
         super().__init__()
         if pooling not in ("pool", "align"):
             raise ValueError(f"pooling must be 'pool' or 'align', not {pooling!r}")
         self.pooling = pooling
         self.dtype = dtype
         p = self.pooling_size
-        self.fc6 = dense_t(1024 * p * p, fc_dim)
-        self.fc7 = dense_t(fc_dim, fc_dim)
+        fc = dense_int8_t if int8_fc else dense_t
+        self.fc6 = fc(1024 * p * p, fc_dim)
+        self.fc7 = fc(fc_dim, fc_dim)
         self.so_vis_embeddings = dense_t(fc_dim, emb_dim)
         self.fc8 = dense_t(fc_dim, 256)
         self.fc_so = dense_t(2 * emb_dim, 256)

@@ -10,7 +10,12 @@ PyTorch state dict leaf by leaf (the inverse of
   ``scale/bias/mean/var`` buffers.
 
 A bf16 leaf (a tree cast by ``bf16_storage_cast``) stays bf16, bit for bit;
-every other float leaf becomes f32.
+every other float leaf becomes f32. An int8 ``kernel`` (a tree quantized by
+``quantize_trunk_params`` / ``quantize_dense_params``) is transposed as
+above and stays int8; its ``kernel_scale`` (F,) and ``act_scale`` (0-d)
+siblings are float leaves. Load such a state dict into a module quantized
+by the port's functions of the same names (``utils/params.py``), whose
+int8 ``weight`` and scale buffers it then overwrites.
 
 Only numpy crosses the boundary: the caller converts the tree's leaves with
 ``np.asarray``; nothing here imports JAX.
@@ -39,11 +44,13 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             # a bf16 leaf (ml_dtypes' bfloat16, known here by its name only)
             # moves as its bits and stays bf16
             is_bf16 = a.dtype.name == "bfloat16"
+            is_int8 = a.dtype == np.int8 and key == "kernel"
             if is_bf16:
                 a = a.view(np.int16)
-            elif not np.issubdtype(a.dtype, np.floating):
+            elif not (is_int8 or np.issubdtype(a.dtype, np.floating)):
                 raise TypeError(f"{'/'.join(prefix + (key,))}: {a.dtype} "
-                                "leaves (int8 serving trees) are not ported")
+                                "leaves other than int8 kernels are not "
+                                "ported")
             name = key
             if key == "kernel":
                 name = "weight"
@@ -54,6 +61,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if is_bf16:
                 t = torch.from_numpy(np.array(a, order="C")).view(
                     torch.bfloat16)
+            elif is_int8:
+                t = torch.from_numpy(np.array(a, order="C"))
             else:
                 t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
             out[".".join(prefix + (name,))] = t

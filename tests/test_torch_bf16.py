@@ -36,8 +36,8 @@ are stated per setting (measured on the CPU with 1 and 6 threads):
   ``rel_prob`` within 5e-3 (1.0e-3).
 
 Also: ``bf16_storage_cast`` keeps f32 exactly the leaves JAX's keeps, name
-by name through ``params_from_jax``, which moves bf16 leaves bit for bit and
-still refuses int8 ones.
+by name through ``params_from_jax``, which moves bf16 leaves bit for bit,
+int8 kernels as int8, and still refuses any other int8 leaf.
 """
 
 import numpy as np
@@ -206,8 +206,15 @@ def test_params_from_jax_keeps_bf16_bits_and_refuses_int8():
         sd["conv.weight"].view(torch.int16).numpy().view(np.uint16), want)
     np.testing.assert_array_equal(
         sd["conv.bias"].float().numpy(), np.asarray(b, np.float32))
+    # int8 kernels (quantized serving trees) move as int8, transposed
+    # (tests/test_torch_int8.py); any other int8 leaf is still refused
+    sd = params_from_jax({"fc6": {"kernel": np.arange(12, dtype=np.int8)
+                                  .reshape(3, 4)}})
+    assert sd["fc6.weight"].dtype == torch.int8
+    np.testing.assert_array_equal(sd["fc6.weight"].numpy(),
+                                  np.arange(12).reshape(3, 4).T)
     with pytest.raises(TypeError):
-        params_from_jax({"fc6": {"kernel": np.zeros((4, 4), np.int8)}})
+        params_from_jax({"fc6": {"bias": np.zeros((4,), np.int8)}})
 
 
 def test_bf16_trunk_stages_match_jax(monkeypatch, setting):

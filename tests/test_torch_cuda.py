@@ -300,3 +300,113 @@ def test_stage_on_the_card_runs_the_chain(cuda, monkeypatch):
     assert bool(((g - r).abs() <= 0.05 * r.abs() + max(0.05, ulp)).all())
     assert float(((g - r).abs() <= 0.02 * r.abs() + max(0.02, ulp)).float()
                  .mean()) > 0.999
+
+
+def _int8_image_case(device, shape, seed=0):
+    """Mean-subtracted integer pixels (the int8 conv1's premise), a conv1
+    weight and a BN affine."""
+    from i2vsgg_tpu_torch.ops.conv1_int8 import DEFAULT_PIXEL_MEANS
+    g = torch.Generator(device=device).manual_seed(seed)
+    raw = torch.randint(0, 256, (*shape, 3), generator=g, device=device)
+    x = raw.float() - torch.tensor(DEFAULT_PIXEL_MEANS, device=device)
+    weight = torch.randn(64, 3, 7, 7, generator=g, device=device) * 0.1
+    mul = torch.rand(64, generator=g, device=device) + 0.5
+    add = torch.randn(64, generator=g, device=device)
+    return x.contiguous(), weight, mul, add
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70), (1, 7, 9),
+                                   (1, 1, 1), (3, 37, 301), (1, 600, 960)])
+def test_conv1_int8_kernel_bit_equal_to_plain(cuda, shape):
+    """B6 against its plain version on the same parameters: bit-equal, at
+    odd sizes (a partial last tile, rows and columns where the whole
+    window is halo), B = 1 and the serving frame."""
+    from i2vsgg_tpu_torch.ops import conv1_int8 as c8
+    x, weight, mul, add = _int8_image_case(cuda, shape)
+    params = c8.conv1_int8_params(weight, mul, add)
+    before = c8.launches
+    got = c8.conv1_bn_relu_int8(x, weight, mul, add)
+    torch.cuda.synchronize()
+    assert c8.launches == before + 1
+    want = c8.conv1_bn_relu_int8_plain(x, *params)
+    assert got.shape == (shape[0], (shape[1] - 1) // 2 + 1,
+                         (shape[2] - 1) // 2 + 1, 64)
+    assert torch.equal(got, want)
+    # and the plain version on the card equals the one on the CPU
+    assert torch.equal(want.cpu(), c8.conv1_bn_relu_int8_plain(
+        x.cpu(), *(t.cpu() for t in params)))
+
+
+def test_conv1_int8_wrapper_refuses(cuda):
+    from i2vsgg_tpu_torch.ops import conv1_int8 as c8
+    x, weight, mul, add = _int8_image_case(cuda, (1, 32, 40))
+    with pytest.raises(TypeError):
+        c8.conv1_bn_relu_int8(x.half(), weight, mul, add)
+    with pytest.raises(ValueError):
+        c8.conv1_bn_relu_int8(x[:, :, ::2], weight, mul, add)
+    with pytest.raises(ValueError):
+        c8.conv1_bn_relu_int8(x, weight[:32], mul, add)
+    with pytest.raises(ValueError):
+        c8.conv1_bn_relu_int8(x, weight.cpu(), mul, add)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 300])
+def test_int8_linear_on_int_mm_exact(cuda, m):
+    """``int8_linear`` on ``torch._int_mm`` against the f64 plain version:
+    exact, also below 17 rows and at K, N not multiples of 8."""
+    from i2vsgg_tpu_torch.ops import int8
+    g = torch.Generator().manual_seed(m)
+    for k, n in ((4608, 64), (50, 30)):
+        a = torch.randint(-127, 128, (m, k), generator=g).to(torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g).to(torch.int8)
+        a[0] = 127
+        w[0] = 127
+        before = int8.int8_linear.calls
+        got = int8.int8_linear(a.to(cuda), w.to(cuda))
+        assert int8.int8_linear.calls == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), int8.int8_linear(a, w))
+
+
+@pytest.mark.parametrize("k,stride,shape", [
+    (3, 1, (2, 256, 38, 60)), (1, 2, (1, 64, 13, 15)), (3, 1, (1, 24, 3, 4)),
+    (3, 1, (16, 512, 4, 4))])
+def test_int8_conv2d_on_int_mm_exact(cuda, k, stride, shape):
+    """``int8_conv2d`` (im2col + ``_int_mm``) against the f64 plain version:
+    exact, at a layer3 3x3, a strided 1x1, a grid under 17 rows and the
+    per-roi 4x4 grids of layer4."""
+    from i2vsgg_tpu_torch.ops import int8
+    g = torch.Generator().manual_seed(k * stride)
+    x = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+    w = torch.randint(-127, 128, (32, shape[1], k, k),
+                      generator=g).to(torch.int8)
+    x[0, :, :2] = 127
+    w[0] = 127
+    before = int8.int8_conv2d.calls
+    xg = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    got = int8.int8_conv2d(xg, w.to(cuda), stride, k // 2)
+    assert int8.int8_conv2d.calls == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8.int8_conv2d(x, w, stride, k // 2))
+
+
+def test_int8_quantization_on_the_card_equals_the_cpu(cuda):
+    """Scales and int8 taps computed on the card equal the CPU's (and so
+    JAX's, tests/test_torch_int8.py): the scale is a correctly rounded
+    division by 127, not a multiply by its reciprocal."""
+    from i2vsgg_tpu_torch.ops import int8
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn(512, 256, 3, 3, generator=g) * torch.rand(
+        512, 1, 1, 1, generator=g) * 3
+    x = torch.randn(64, 4096, generator=g) * torch.rand(64, 1, generator=g)
+    a_s = torch.tensor(0.0123)
+    for fn, args in ((int8.weight_quant, (w,)),
+                     (int8.weight_quant, (w.bfloat16(),)),
+                     (int8.dynamic_act_quant, (x,)),
+                     (int8.row_act_quant, (x,)),
+                     (int8.static_act_quant, (x, a_s))):
+        got = fn(*(t.to(cuda) for t in args))
+        want = fn(*args)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a.cpu(), b), fn.__name__

@@ -72,6 +72,8 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         from i2vsgg_tpu_torch.utils import params
         assert "i2vsgg_tpu_torch.ops.bottleneck" in names
         assert "i2vsgg_tpu_torch.utils.params" in names
+        assert "i2vsgg_tpu_torch.ops.int8" in names
+        assert "i2vsgg_tpu_torch.ops.conv1_int8" in names
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
                              "TEST.RPN_POST_NMS_TOP_N", "16",
@@ -218,4 +220,53 @@ def test_slice_three_path_runs_without_the_blocked_names():
         assert chip_smoke.fused_tail_blocks(det.trunk, 64, 80) == 8
         assert torch.isfinite(out["rel_prob"]).all()
         assert real.launches == 0
+    """)
+
+
+def test_slice_four_path_runs_without_the_blocked_names():
+    """The round-5 int8 levers (bf16 storage, int8 fc6/fc7, the scoped int8
+    trunk with the calibration file's static scales, read with json) end to
+    end on the CPU in the blocked interpreter (res50), and the plain int8
+    conv1; no kernel launch and no int8 GEMM on the card is counted
+    there."""
+    run_isolated("""
+        import os
+
+        import torch
+
+        import chip_smoke
+        from i2vsgg_tpu_torch import serve
+        from i2vsgg_tpu_torch.config import Config
+        from i2vsgg_tpu_torch.ops import conv1_int8, int8
+        from i2vsgg_tpu_torch.utils.params import (
+            bf16_storage_cast, load_act_scales, quantize_dense_params,
+            quantize_trunk_params)
+
+        cfg = Config().replace(
+            TEST=Config().TEST.__class__(RPN_PRE_NMS_TOP_N=100,
+                                         RPN_POST_NMS_TOP_N=16),
+            COMPUTE_DTYPE="bfloat16")
+        spec = chip_smoke.SMALL50
+        det, sgg, prd = chip_smoke.build_models(
+            spec, cfg, torch.Generator().manual_seed(0), pooling="align",
+            int8_fc=True)
+        bf16_storage_cast(det)
+        bf16_storage_cast(sgg)
+        quantize_dense_params(sgg)
+        quantize_trunk_params(det, chip_smoke.INT8_SCOPE,
+                              load_act_scales(chip_smoke.ACT_SCALES))
+        assert len(chip_smoke.int8_modules(det)) == 13
+        assert det.head.layer4.block0.conv2.act_scale.shape == ()
+        os.environ["I2VSGG_INT8_TRUNK"] = "1:" + chip_smoke.INT8_SCOPE
+        program = serve.make_frame_program(det, sgg, prd, cfg, max_det=4,
+                                           max_per_class=4, device="cpu")
+        _, f32, info = chip_smoke.synthetic_video(spec, 0, n_frames=2)[0]
+        out = program(f32, info)
+        assert torch.isfinite(out["rel_prob"]).all()
+        x = torch.as_tensor(f32)
+        y = conv1_int8.conv1_bn_relu_int8(x, det.trunk.conv1.weight,
+                                          *det.trunk.bn1.affine())
+        assert tuple(y.shape) == (2, 32, 40, 64)
+        assert conv1_int8.launches == 0
+        assert int8.int8_conv2d.calls == 0 and int8.int8_linear.calls == 0
     """)

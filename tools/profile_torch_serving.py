@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_torch_serving.py [--requests 4] [--trace PATH]
         [--host-planes] [--vrd-pooling {pool,align}] [--bf16-params]
-        [--pallas-bottleneck]
+        [--pallas-bottleneck] [--int8-fc6] [--int8-trunk-scope 1:<scope>]
+        [--int8-static-acts PATH|1]
 
 Builds the full-width program of ``chip_smoke.py`` (res101 ic+gc, 600x960
 bf16, rpn128/pre512, det8, 4 frames per request, seeded random weights),
@@ -18,7 +19,16 @@ SGG head's pooling (``pool``, ``cli/args.py``'s default, or ``align``);
 bench.py's flag of that name does); ``--pallas-bottleneck`` sets
 ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's identity tail runs as the chain
 kernel (spans ``fold``, the per-call weight fold, and ``chain``, inside
-``trunk``). The passes:
+``trunk``). The int8 levers are bench.py's flags of the same names, applied
+in its order after ``--bf16-params``: ``--int8-fc6`` builds the SGG head's
+fc6/fc7 as ``DenseInt8`` with int8-stored weights
+(``quantize_dense_params``); ``--int8-trunk-scope 1:<tokens>`` stores the
+in-scope trunk convs in int8 (``quantize_trunk_params``) and sets
+``I2VSGG_INT8_TRUNK``; ``--int8-static-acts`` gives them static activation
+scales from a calibration file (``runs/calib/act_scales_res101.json``), or
+unit scales with ``1``. The span ``int8`` covers every int8 conv and fc
+(activation quantization, the int8 GEMM, the rescale), inside ``trunk``,
+``det_head`` and ``sgg_head``. The passes:
 
 1. plain: host clock per request, ending in a synchronize (as
    ``chip_smoke.py`` times it);
@@ -56,11 +66,13 @@ import chip_smoke  # noqa: E402
 from i2vsgg_tpu_torch import serve  # noqa: E402
 from i2vsgg_tpu_torch.config import Config, cfg_from_list  # noqa: E402
 from i2vsgg_tpu_torch.models import backbones, faster_rcnn, sgg  # noqa: E402
-from i2vsgg_tpu_torch.utils.params import bf16_storage_cast  # noqa: E402
+from i2vsgg_tpu_torch.utils.params import (  # noqa: E402
+    bf16_storage_cast, load_act_scales, quantize_dense_params,
+    quantize_trunk_params)
 
 STAGES = ("trunk", "stem", "fold", "chain", "rpn_head", "proposals",
           "roi_align", "det_head", "context", "decode", "sgg_head",
-          "roi_pool", "sgg_roi_align")
+          "roi_pool", "sgg_roi_align", "int8")
 
 
 STAGE_MS: dict = {}
@@ -92,6 +104,9 @@ def instrument(det, sgg_model):
     backbones.ResNetStage.folded_tail = spanned(
         "fold", backbones.ResNetStage.folded_tail)
     backbones.bottleneck_chain = spanned("chain", backbones.bottleneck_chain)
+    backbones.BNConv._int8_forward = spanned(
+        "int8", backbones.BNConv._int8_forward)
+    sgg.DenseInt8.forward = spanned("int8", sgg.DenseInt8.forward)
     det.rpn.forward = spanned("rpn_head", det.rpn.forward)
     det.proposals = spanned("proposals", det.proposals)
     det.head.forward = spanned("det_head", det.head.forward)
@@ -161,9 +176,16 @@ def main() -> int:
                     default="pool")
     ap.add_argument("--bf16-params", action="store_true")
     ap.add_argument("--pallas-bottleneck", action="store_true")
+    ap.add_argument("--int8-fc6", action="store_true")
+    ap.add_argument("--int8-trunk-scope", default="",
+                    help="e.g. 1:layer2,layer3,layer4,@3x3")
+    ap.add_argument("--int8-static-acts", default="",
+                    help="a calibration JSON, or 1 for unit scales")
     args = ap.parse_args()
     if args.pallas_bottleneck:
         os.environ["I2VSGG_PALLAS_BOTTLENECK"] = "1"
+    if args.int8_trunk_scope:
+        os.environ["I2VSGG_INT8_TRUNK"] = args.int8_trunk_scope
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -172,10 +194,20 @@ def main() -> int:
     cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
                          "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
     det, sgg_model, prd = chip_smoke.build_models(
-        spec, cfg, torch.Generator().manual_seed(3), pooling=args.vrd_pooling)
+        spec, cfg, torch.Generator().manual_seed(3), pooling=args.vrd_pooling,
+        int8_fc=args.int8_fc6)
     if args.bf16_params:
         bf16_storage_cast(det)
         bf16_storage_cast(sgg_model)
+    if args.int8_fc6:
+        quantize_dense_params(sgg_model)
+    if args.int8_trunk_scope:
+        acts = None
+        if args.int8_static_acts:
+            acts = (1.0 if args.int8_static_acts == "1"
+                    else load_act_scales(args.int8_static_acts))
+        quantize_trunk_params(det, args.int8_trunk_scope.partition(":")[2],
+                              acts)
     instrument(det, sgg_model)
     program = serve.make_frame_program(
         det, sgg_model, prd, cfg, max_det=spec["max_det"],
@@ -232,7 +264,9 @@ def main() -> int:
     card = chip_smoke.smi_name_power() or torch.cuda.get_device_name(0)
     print(f"card: {card}; {n} requests x {spec['frames']} frames; "
           f"host planes {args.host_planes}, SGG pooling {args.vrd_pooling}, "
-          f"bf16 params {args.bf16_params}, chain {args.pallas_bottleneck}")
+          f"bf16 params {args.bf16_params}, chain {args.pallas_bottleneck}, "
+          f"int8 fc {args.int8_fc6}, int8 trunk {args.int8_trunk_scope!r} "
+          f"(static acts {args.int8_static_acts!r})")
     print(f"plain: {', '.join(f'{x:.2f}' for x in plain)} ms/request, mean "
           f"{sum(plain) / n:.2f}")
     print(f"staged: {staged_ms:.2f} ms/request with a synchronize around "
@@ -262,6 +296,9 @@ def main() -> int:
                       "vrd_pooling": args.vrd_pooling,
                       "bf16_params": args.bf16_params,
                       "pallas_bottleneck": args.pallas_bottleneck,
+                      "int8_fc6": args.int8_fc6,
+                      "int8_trunk_scope": args.int8_trunk_scope,
+                      "int8_static_acts": args.int8_static_acts,
                       "plain_ms_per_request": plain,
                       "staged_ms_per_request": staged_ms,
                       "profiled_ms_per_request": wall_ms / n,
