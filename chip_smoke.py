@@ -42,6 +42,11 @@ after. Every phase prints a line with the elapsed seconds before it starts.
 Any failure raises and the script exits non-zero; without a card, or away
 from the package, it exits non-zero before printing any result.
 
+``python3 chip_smoke.py --chain-depths`` instead builds the chain kernel at
+each accumulation depth (``kDepth`` 16, 32, 64 in ``csrc/bottleneck.cu``)
+and holds each as phase 3d does, on phase 3d's input and on the card tests'
+chain shapes (``chain_depths``).
+
 The lines before the last are the serving record (ms per 4-frame request of
 each path served) and the kernels' JSON record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
@@ -83,6 +88,8 @@ SMALL = dict(backbone="res10", num_classes=4, num_rel=5, height=64, width=80,
              frames=2, max_det=4, max_per_class=4, fc_dim=32, emb_dim=16)
 # the chain's small program: res50 (an identity tail in layer2 and layer3)
 SMALL50 = dict(SMALL, backbone="res50")
+# the chain kernel's three GEMM phases and their template arguments
+CHAIN_PHASES = (("down", 0), ("mid", 1), ("up", 2))
 NO_LAUNCHES = {"roi_pool": 0, "roi_align": 0, "conv1": 0, "bottleneck": 0,
                "conv1_int8": 0, "int8_conv2d": 0, "int8_linear": 0}
 
@@ -733,6 +740,63 @@ def build_kernels():
                 log(f"ptxas ({src}): {line.strip()}")
 
 
+def ptxas_report(source: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each kernel entry of
+    ``csrc/<source>``, from its build log (``-Xptxas -v``), by mangled
+    name."""
+    from i2vsgg_tpu_torch.utils import cuda_build
+    log_text = cuda_build.library_path(source).with_suffix(".log").read_text()
+    out, name = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"registers": None, "spill_bytes": 0}
+        elif name and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            out[name]["spill_bytes"] = nums[1] + nums[2]
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def chain_phase_ms(kern, x, wts, reps: int = 5) -> dict:
+    """Device ms per chain call of each of the chain kernel's three GEMM
+    phases (the kernels ``bottleneck_gemm<0>``, ``<1>``, ``<2>``: 1x1 down,
+    3x3, 1x1 up), from ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    kern(x, *wts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kern(x, *wts)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for ph, tag in CHAIN_PHASES:
+            if f"bottleneck_gemm<{tag}>" in e.key:
+                out[ph] = out.get(ph, 0.0) + e.device_time_total / 1e3 / reps
+    if set(out) != {ph for ph, _ in CHAIN_PHASES}:
+        raise AssertionError(f"the profiler saw the chain's phases {out}")
+    return out
+
+
+def chain_phase_work(x, w1, w3, w2, biases) -> dict:
+    """Bytes and flops of each phase of the chain on these inputs (per
+    chain call): each phase's input map, weights and biases read once, its
+    output written once (the up phase reads x for the residual too)."""
+    b, h, w, c = x.shape
+    n, _, m = w1.shape
+    p, e = b * h * w, x.element_size()
+    b1, b3, b2 = (t.numel() * t.element_size() for t in biases)
+    return {"down": (n * p * (c + m) * e + w1.numel() * 2 + b1,
+                     2 * n * p * c * m),
+            "mid": (2 * n * p * m * e + w3.numel() * 2 + b3,
+                    2 * n * p * 9 * m * m),
+            "up": (n * p * (m + 2 * c) * e + w2.numel() * 2 + b2,
+                   2 * n * p * m * c)}
+
+
 def conv1_work(planes_or_images, b: int, h: int, w: int):
     """Bytes and flops of the stem on this input: the input read once, the
     weights and affine read once, the pooled output written once; 2 flops a
@@ -866,6 +930,109 @@ def same_outputs(a: dict, b: dict, what: str):
               "pair_valid"):
         if not torch.equal(a[k], b[k]):
             raise AssertionError(f"{what}: {k} differs")
+
+
+# ----------------------------------------------------------------------------
+# ``--chain-depths``: how deep the chain kernel may let the tensor cores
+# accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
+
+# the card tests' chain shapes: (B, H, W, C, M, n)
+CHAIN_TEST_SHAPES = ((2, 9, 13, 128, 128, 3), (1, 15, 20, 256, 128, 2),
+                     (4, 38, 60, 1024, 256, 1), (1, 37, 61, 512, 128, 2),
+                     (3, 37, 61, 1024, 256, 1))
+
+
+def chain_at_depth(depth: int):
+    """``csrc/bottleneck.cu`` with ``kDepth = depth``, built into
+    ``i2vsgg_tpu_torch/_build/depth/`` and loaded."""
+    import ctypes
+    import re
+    from i2vsgg_tpu_torch.utils import cuda_build
+    src = (cuda_build.CSRC_DIR / "bottleneck.cu").read_text()
+    text, n = re.subn(r"constexpr int kDepth = \d+;",
+                      f"constexpr int kDepth = {depth};", src)
+    if n != 1:
+        raise RuntimeError("bottleneck.cu has no kDepth constant to set")
+    out = cuda_build.BUILD_DIR / "depth"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"bottleneck_d{depth}.cu", out / f"bottleneck_d{depth}.so"
+    cu.write_text(text)
+    proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                           "-o", str(so), str(cu)], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed at depth {depth}:\n{proc.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def chain_test_case(dev, b, h, w, c, m, n, seed):
+    """tests/test_torch_cuda.py's chain inputs: x ~ N(0, 1), weights and
+    biases ~ 0.05 N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev) * 0.05
+
+    bf16 = torch.bfloat16
+    x = torch.randn(b, h, w, c, generator=g, device=dev).to(bf16)
+    return x, (r(n, c, m).to(bf16), r(n, m), r(n, 9, m, m).to(bf16),
+               r(n, m), r(n, m, c).to(bf16), r(n, c))
+
+
+def phase3d_chain_input(dev):
+    """Phase 3d's chain input: the seeded res101 model's layer3 block0
+    output and its folded 22-block tail, bf16-stored weights."""
+    from i2vsgg_tpu_torch.config import Config, cfg_from_list
+    from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
+    from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+    cfg = cfg_from_list(["TEST.RPN_POST_NMS_TOP_N", "128",
+                         "TEST.RPN_PRE_NMS_TOP_N", "512"], Config())
+    det, _, _ = build_models(FULL, cfg, torch.Generator().manual_seed(3))
+    det = bf16_storage_cast(det).to(dev).eval()
+    trunk = det.trunk
+    with torch.no_grad():
+        imgs = torch.as_tensor(make_inputs(FULL, 10)[0], device=dev)
+        x3 = trunk.layer3.block0(trunk.layer2(trunk.layer1(
+            trunk._stem(imgs))))
+        return (nchw_to_nhwc(x3).to(torch.bfloat16).contiguous(),
+                trunk.layer3.folded_tail())
+
+
+def chain_depths(depths=(16, 32, 64), seeds: int = 3) -> int:
+    """Build the chain kernel at each accumulation depth and hold each build
+    as ``held_chain`` holds the kernel: on phase 3d's input and on the card
+    tests' chain shapes for ``seeds`` seeds each. Prints whether each passes
+    and its least per-block bit-equal share, and the chain's time on phase
+    3d's input. The kernel commits the deepest depth that passes
+    everywhere."""
+    from i2vsgg_tpu_torch.ops import bottleneck as chain_mod
+    from i2vsgg_tpu_torch.utils import cuda_build
+    dev = torch.device("cuda")
+    libs = {d: chain_at_depth(d) for d in depths}
+    x3, wts3 = phase3d_chain_input(dev)
+
+    def held(x, wts, what):
+        try:
+            check = held_chain(chain_mod.bottleneck_chain, x, wts, what,
+                               quiet=True)
+        except AssertionError as e:
+            return f"FAILS ({str(e)[:240]})"
+        return (f"passes, least per-block bit-equal share "
+                f"{check['least_block_bit_equal']:.6f}")
+
+    for depth, lib in libs.items():
+        cuda_build.load = lambda source, lib=lib: lib
+        kern = chain_mod.bottleneck_chain
+        log(f"depth {depth}: phase 3d input: "
+            f"{held(x3, wts3, f'depth {depth}')}; chain "
+            f"{cuda_ms(lambda: kern(x3, *wts3), 20):.4f} ms")
+        for shape in CHAIN_TEST_SHAPES:
+            for seed in range(seeds):
+                x, wts = chain_test_case(dev, *shape, seed)
+                log(f"depth {depth}: {shape} seed {seed}: "
+                    f"{held(x, wts, f'depth {depth}')}")
+    print(smi_name_power() or torch.cuda.get_device_name(0), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1057,17 +1224,41 @@ def main() -> int:
     nbytes, flops = chain_work(xin, wts[0], wts[2], wts[4],
                                (wts[1], wts[3], wts[5]))
     bnd, by = bound_of(nbytes, flops, H100_BF16_OPS_PER_S)
+    if not k_ms < tail_graph_ms:
+        raise AssertionError(f"the chain kernel ({k_ms:.3f} ms) is not below "
+                             f"the cuDNN tail from a CUDA graph "
+                             f"({tail_graph_ms:.3f} ms)")
+    # each GEMM phase alone: its kernel's device time, rate and share of its
+    # bound, with registers, dynamic shared memory and spills from the build
+    phase_ms = chain_phase_ms(kern, xin, wts)
+    ptxas = ptxas_report("bottleneck.cu")
+    smem = chain_mod._lib().i2vsgg_bottleneck_smem_bytes()
+    phases = {}
+    for (ph, tag), (pb, pf) in zip(CHAIN_PHASES, chain_phase_work(
+            xin, wts[0], wts[2], wts[4], (wts[1], wts[3], wts[5])).values()):
+        pbnd, pby = bound_of(pb, pf, H100_BF16_OPS_PER_S)
+        built = next(v for k, v in ptxas.items()
+                     if f"bottleneck_gemmILi{tag}E" in k)
+        phases[ph] = {"ms": phase_ms[ph], "tflops": pf / phase_ms[ph] / 1e9,
+                      "bound_ms": pbnd, "bound_by": pby,
+                      "share_of_bound": pbnd / phase_ms[ph],
+                      "smem_bytes": smem, **built}
+        log(f"chain phase {ph} ({wts[0].shape[0]} launches): "
+            f"{phase_ms[ph]:.3f} ms, {phases[ph]['tflops']:.1f} TFLOP/s, "
+            f"{100 * pbnd / phase_ms[ph]:.1f} % of its {pbnd:.3f} ms bound "
+            f"({pby}); {built['registers']} registers, {smem} B of shared "
+            f"memory, {built['spill_bytes']} B spilled [{card}]")
     kernels["bottleneck"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": bnd, "bound_by": by,
                              "library_ms": None, "cudnn_tail_ms": tail_ms,
                              "cudnn_tail_graph_ms": tail_graph_ms,
-                             "chain_check": check}
+                             "phases": phases, "chain_check": check}
     log(f"bottleneck chain per request (one call, {3 * wts[0].shape[0]} "
-        f"launches): kernel {k_ms:.3f} ms, plain (f32) {p_ms:.3f} ms, the "
-        f"unfused ResNetStage tail on cuDNN {tail_ms:.3f} ms "
-        f"({tail_graph_ms:.3f} ms replayed from a CUDA graph), bound "
-        f"{bnd:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)"
-        f" [{card}]")
+        f"launches): kernel {k_ms:.3f} ms ({100 * bnd / k_ms:.1f} % of its "
+        f"bound), plain (f32) {p_ms:.3f} ms, the unfused ResNetStage tail on "
+        f"cuDNN {tail_ms:.3f} ms ({tail_graph_ms:.3f} ms replayed from a CUDA "
+        f"graph), bound {bnd:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB) [{card}]")
 
     phase("4 small program: card vs CPU (res10, 64x80, f32, TF32 off)")
     cfg_s = Config().replace(
@@ -1313,7 +1504,7 @@ def main() -> int:
     sgg_align.vrd.pooling = "align"
     program = serve.make_frame_program(det, sgg_align, prd, cfg, **kw)
     video = synthetic_video(FULL, seed=20)
-    per_request = dict(NO_LAUNCHES, conv1=2,    # the stem: conv + pool pass
+    per_request = dict(NO_LAUNCHES, conv1=1,    # the stem: one launch
                        roi_align=2 + FULL["frames"])
     pack_ms = []
 
@@ -1489,8 +1680,14 @@ def main() -> int:
         c1.conv1_stem_planes(pl, h, w, weight, mul, add),
         c1.conv1_stem_planes_plain(pl, h, w, weight, mul, add),
         "conv1 stem on the main path's planes and weights"))
-    k_ms = cuda_ms(lambda: c1.conv1_stem_planes(pl, h, w, weight, mul, add),
-                   50)
+    # timed as the trunk calls it: one launch on the weights it prepared
+    # once (the public entries prepare them per call)
+    prep = det.trunk.conv1_weights()
+    if not torch.equal(c1.conv1_apply(pl, prep, (h, w), True),
+                       c1.conv1_stem_planes(pl, h, w, weight, mul, add)):
+        raise AssertionError("conv1 on the trunk's prepared weights != the "
+                             "public entry")
+    k_ms = cuda_ms(lambda: c1.conv1_apply(pl, prep, (h, w), True), 50)
     p_ms = cuda_ms(lambda: c1.conv1_stem_planes_plain(pl, h, w, weight, mul,
                                                       add), 10, 1)
     # the library call: cuDNN's conv with the BN scale folded into bf16
@@ -1505,25 +1702,41 @@ def main() -> int:
         xb, wf, bias, stride=2, padding=3), 50)
     nbytes, flops = conv1_work(pl, b, h, w)
     bnd, by = bound_of(nbytes, flops, H100_BF16_OPS_PER_S)
+    built = {k: v for k, v in ptxas_report("conv1.cu").items()
+             if "conv1_kernelILi0ELb1E" in k}.popitem()[1]
     c1k.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
-               library_ms=lib_ms, modes={})
+               library_ms=lib_ms, modes={},
+               smem_bytes=c1._lib().i2vsgg_conv1_smem_bytes(0), **built)
+    if not k_ms < lib_ms:
+        raise AssertionError(f"the conv1 stem ({k_ms * 1e3:.2f} us) is not "
+                             f"faster than cuDNN's conv1 ({lib_ms * 1e3:.2f} "
+                             "us)")
     log(f"conv1 stem, planes {tuple(pl.shape)}: kernel {k_ms * 1e3:.2f} us "
-        f"(conv + pool pass), plain {p_ms * 1e3:.2f} us, F.conv2d (conv + "
-        f"affine only) {lib_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
-        f"({nbytes} B, {flops} flop) [{card}]")
+        f"(one launch, the pool fused; {100 * bnd / k_ms:.1f} % of its "
+        f"bound; {built['registers']} registers, {c1k['smem_bytes']} B of "
+        f"shared memory, {built['spill_bytes']} B spilled), plain "
+        f"{p_ms * 1e3:.2f} us, F.conv2d (conv + affine only) "
+        f"{lib_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({nbytes} B, "
+        f"{flops} flop) [{card}]")
     # the other forms on the same frames and weights: the stem fed f32
     # images, and conv + ReLU without the pool (B3's unpooled entry, and the
     # v2 mode B5), whose output is the full (4, 300, 480, 64) map
     x32 = torch.as_tensor(video[-1][1], device=dev)
-    for mode, kern, plain, x_in in (
-            ("stem_images", c1.conv1_stem, c1.conv1_stem_plain, x32),
+    prep_v2 = c1.prepare_conv1(weight, mul, add, v2=True)
+    for mode, kern, plain, x_in, run in (
+            ("stem_images", c1.conv1_stem, c1.conv1_stem_plain, x32,
+             lambda: c1.conv1_apply(x32, prep, None, True)),
             ("bn_relu_planes", lambda *a: c1.conv1_bn_relu_planes(
                 pl, h, w, *a[1:]), lambda *a: c1.conv1_bn_relu_planes_plain(
-                pl, h, w, *a[1:]), pl),
+                pl, h, w, *a[1:]), pl,
+             lambda: c1.conv1_apply(pl, prep, (h, w), False)),
             ("v2_images", c1.conv1_bn_relu_v2, c1.conv1_bn_relu_v2_plain,
-             x32)):
+             x32, lambda: c1.conv1_apply(x32, prep_v2, None, False))):
         out = kern(x_in, weight, mul, add)
-        km = cuda_ms(lambda: kern(x_in, weight, mul, add), 50)
+        if not torch.equal(run(), out):
+            raise AssertionError(f"conv1 {mode} on prepared weights != the "
+                                 "public entry")
+        km = cuda_ms(run, 50)
         pm = cuda_ms(lambda: plain(x_in, weight, mul, add), 10, 1)
         nb = (x_in.numel() * x_in.element_size() + 147 * 64 * 2 + 2 * 64 * 4
               + out.numel() * out.element_size())
@@ -1718,7 +1931,9 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "library_call": meta[name][2], "per": "request",
-                     **{key: k[key] for key in ("sites", "modes",
+                     **{key: k[key] for key in ("sites", "modes", "phases",
+                                                "registers", "smem_bytes",
+                                                "spill_bytes",
                                                 "cudnn_tail_ms",
                                                 "cudnn_tail_graph_ms",
                                                 "chain_check",
@@ -1732,4 +1947,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--chain-depths"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: --chain-depths needs a CUDA card",
+                  file=sys.stderr)
+            sys.exit(2)
+        sys.exit(chain_depths())
     sys.exit(main())

@@ -1,5 +1,5 @@
 // A chain of ResNet identity bottlenecks (FrozenBN folded into the weights),
-// hand-written for Hopper (sm_90a) on the tensor cores.
+// hand-written for Hopper (sm_90a): wgmma on TMA-staged tiles.
 //
 // Replaces the Pallas TPU kernel
 //   i2vsgg_tpu/ops/pallas/bottleneck_kernel.py::bottleneck_chain_pallas (B4)
@@ -23,309 +23,558 @@
 // M = 256): 2 * 9120 * (1024 * 256 + 9 * 256 * 256 + 256 * 1024) flops a
 // block = 20.3 GFLOP, 447 GFLOP a chain: 0.452 ms at 989 TFLOP/s bf16,
 // against 49 MB of folded weights and 2 x 18.7 MB of map (26 us at
-// 3.35 TB/s). So operations: the work has to run on the tensor cores (the
-// f32 FMA pipes would need 6.7 ms at their 67 TFLOP/s peak).
+// 3.35 TB/s). So operations: the work has to run on the tensor cores at
+// wgmma's rate (mma.sync reaches about two thirds of it). The exactness
+// rule below adds 14 G round-to-nearest f32 adds a chain (0.42 ms at the
+// FP32 pipes' 33.5 T adds/s).
 //
 // What the TPU design does not carry over: it walks the blocks on a
 // sequential grid and keeps one image's map in VMEM across the chain. Here
-// blocks of threads run in no order, and 227 KB of shared memory cannot hold
-// a 4.7 MB map. Every block of the chain needs the whole output of the one
-// before, so this version runs each block as three implicit-GEMM launches
-// on PyTorch's stream (3 n launches a chain: 66 a request at 600x960), and
-// the map, the mid activations and a chain's weights stay in the 50 MB L2
-// as far as they fit:
+// 227 KB of shared memory cannot hold a 4.7 MB map, and every block needs
+// the whole output of the one before, so each block runs as three
+// implicit-GEMM launches on PyTorch's stream (3 n launches a chain: 66 a
+// request at 600x960), the map, the mid activations and a chain's weights
+// staying in the 50 MB L2 as far as they fit:
 //   1. 1x1 down: A = x rows; the epilogue writes `a` into the interior of
 //      a (B, H + 2, W + 2, M) buffer whose one-pixel halo the wrapper
-//      zeroed once (the 3x3's zero padding; the TPU kernel masks its halo
-//      for the same reason);
-//   2. 3x3: A row p, column tap * M + ci reads the padded buffer at
-//      (y + dy, x + dx): an implicit GEMM over shifted windows, K = 9 M;
+//      zeroed once (the 3x3's zero padding);
+//   2. 3x3: an implicit GEMM over shifted windows, K = 9 M: the A tile of
+//      tap (dy, dx) is one 4-D TMA box (64 channels x 24 x 8 pixels x 1
+//      frame) of the padded buffer at (x0 + dx, y0 + dy), so this phase
+//      tiles the frames in 8 x 24 pixel blocks and TMA fills what lies past
+//      the buffer with zeros;
 //   3. 1x1 up: the epilogue adds the residual read from x and writes x in
 //      place. That is safe: the GEMM reads b, never x, and each thread reads
 //      the residual of exactly the elements it then writes (the TPU kernel's
 //      band-local write-back, :22-25 there).
-// Each GEMM is one tile of 128 pixels x 128 output channels per block of 256
-// threads (8 warps, 64 x 32 each), K in steps of 32 through a 3-stage
-// cp.async ring in shared memory, WMMA bf16 16x16x16 fragments (mma.sync)
-// with f32 accumulators; the epilogue stages each 16x16 accumulator through
-// shared memory and writes 16 bytes a thread. wgmma, TMA, warp
-// specialisation and keeping `a` on-chip across the phases are later work.
+// Each phase is a persistent kernel over 192 x 128 output tiles (one block
+// of 512 threads per SM): one producer warp issues the TMA loads of a
+// 3-stage ring of 64-deep K steps (A as 192 rows of 128 bytes, the weights
+// as two 64 x 64 boxes of their (K, N) rows, both 128-byte swizzled) with
+// completion on mbarriers; three consumer warpgroups (setmaxnreg 152, the
+// producer's down to 24) each run wgmma over 64 rows of the tile. The
+// epilogue stages each warpgroup's f32 tile in shared memory and writes 16
+// bytes a thread, bias, ReLU and residual applied on the way. 192-row tiles
+// (the 3x3's pixel blocks 8 x 24) fit the main path's N = 256 phases in one
+// wave on 132 SMs: 96 tiles down, 120 in the 3x3 (128-row tiles took two,
+// the second nearly empty), 384 up.
 //
 // Accumulation: the tensor cores' own f32 accumulation does not round to
-// nearest, and over K = 2304 its error reaches the bf16 roundings of `a`,
-// `b` and x, each flip fanning out into the next GEMM: accumulating in the
-// MMA, one block at (4, 38, 60, 1024) was bit-equal to the plain version in
-// under 99 % of its outputs on an H100. So each 16-deep product goes into a
-// fresh fragment (its 16 exact products summed once) and is added to the
-// accumulator with round-to-nearest f32 adds, at some cost in time.
-// chip_smoke.py (phase 3d) prints how often the kernel and the plain version
-// each agree with an f64 reference that has the same rounding points.
+// nearest, and its error reaches the bf16 roundings of `a`, `b` and x, each
+// flip fanning out into the next GEMM. So each kDepth-deep slice of K goes
+// into a fresh accumulator (wgmma's scale-d = 0) and is added to the running
+// sum with round-to-nearest f32 adds. chip_smoke.py --chain-depths holds
+// depths 16, 32 and 64 to chip_smoke.held_chain: all pass on the main path,
+// but at 32 and 64 the card tests' (1, 37, 61, 512, 128) chain fails it, so
+// the depth is 16 (at small widths the check is near its edge at every depth:
+// over three seeds a shape, the (1, 15, 20, 256, 128) chain fails at two of
+// them at each depth, 16 included). At that depth the adds are as many
+// instructions as the tensor cores have cycles: a warpgroup splits each slice
+// into its two 64-column halves (wgmma m64n64k16, 32 accumulators each) and
+// keeps kFresh of them in flight, adding each as soon as it lands while the
+// next ones run; three warpgroups give the SM's schedulers other warps' adds
+// and wgmmas to interleave. Nothing stays in flight past a K step: a wgmma in
+// flight across the loop's back edge makes ptxas serialize them all (its
+// warning C7514).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kBM = 128;                 // pixels per block tile
-constexpr int kBN = 128;                 // output channels per block tile
-constexpr int kBK = 32;                  // K per pipeline stage
+constexpr int kConsumers = 3;            // consumer warpgroups, 64 rows each
+constexpr int kBM = 64 * kConsumers;     // pixel rows per tile
+constexpr int kBN = 128;                 // output channels per tile
+constexpr int kBK = 64;                  // K per stage: one 128-byte row
 constexpr int kStages = 3;
-constexpr int kThreads = 256;            // 8 warps: 2 along M x 4 along N
-constexpr int kWM = 64;                  // warp tile rows
-constexpr int kWN = 32;                  // warp tile cols
-constexpr int kALd = kBK + 8;            // A tile row stride (elements)
-constexpr int kBLd = kBN + 8;            // B tile row stride (elements)
-constexpr int kAStage = kBM * kALd;      // elements
-constexpr int kBStage = kBK * kBLd;
-constexpr int kSmemBytes = kStages * (kAStage + kBStage) * 2
-                           + (kThreads / 32) * 16 * 16 * 4;
+constexpr int kDepth = 16;               // K per fresh accumulator
+constexpr int kSlices = kBK / kDepth;    // fresh accumulators per stage
+static_assert(kBK % kDepth == 0 && kDepth % 16 == 0, "kDepth: 16, 32, 64");
+constexpr int kUnits = 2 * kSlices;      // a K step's (slice, N half) units
+constexpr int kFresh = 2;                // fresh accumulators in flight
+constexpr int kThreads = 128 * (kConsumers + 1);   // + the producer WG
+constexpr int kABytes = kBM * kBK * 2;
+constexpr int kBBytes = kBK * kBN * 2;
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kStLd = kBN + 8;           // staged f32 row stride
+constexpr int kStagingBytes = kConsumers * 64 * kStLd * 4;
+constexpr int kSmemBytes =
+    1024 + kStages * kStageBytes + kStagingBytes + 2 * kStages * 8;
+static_assert(kSmemBytes <= 232448, "a block's shared memory");
+constexpr int kPixTY = 8, kPixTX = kBM / 8;   // the 3x3's pixel block
+// registers a thread after setmaxnreg: consumers and the producer
+constexpr int kConsumerRegs = 152;
+constexpr int kProducerRegs = 24;
+static_assert(kConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
+              "the register file");
 
 enum Phase { kDown = 0, kMid = 1, kUp = 2 };
 
-struct Gemm {
-  const bf16* a;       // kDown: x (P, C); kMid: padded a; kUp: b (P, M)
-  const bf16* wt;      // (K, N) row-major
-  const float* bias;   // (N)
-  bf16* out;           // kDown: padded a; kMid: b; kUp: x (in place)
-  int p, h, w, k, n, m;
+struct Epi {
+  const float* bias;   // (N) of this block
+  bf16* out;           // kDown: padded a; kMid: b (P, M); kUp: x (in place)
+  int p, h, w, m;      // pixels, map height and width, mid width M
+  int n, k;            // this GEMM's N and K
+  int k_row0;          // first row of this block's (K, N) weights
+  int m_tiles, n_tiles, tiles_x, tiles_xy;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int size = valid ? 16 : 0;              // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(size));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start, leading and
+// stride byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D (+)= A B for one m64n64k16 slice: A K-major, B MN-major (N contiguous,
+// imm-trans-b), both 128-byte swizzled; scale_d 0 writes D afresh.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// The consumer's view of the ring: the ks-th K step of the tile whose
+// first K step is the q-th of this block.
+struct Ring {
+  uint32_t base, bars;
+  int q;
+  __device__ __forceinline__ int stage(int ks) const {
+    return (q + ks) % kStages;
+  }
+  __device__ __forceinline__ int parity(int ks) const {
+    return ((q + ks) / kStages) & 1;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (kStages + s);
+  }
+};
+
+// Issue half H (output channels 64 H on) of slice J of K step ks into the
+// fresh accumulator f: kDepth / 16 wgmmas, the first with scale-d = 0.
+template <int J, int H>
+__device__ __forceinline__ void issue_unit(float (&f)[32], const Ring& r,
+                                           int ks, int wg) {
+  const int s = r.stage(ks);
+  if (J == 0 && H == 0) mbar_wait(r.full(s), r.parity(ks));
+  const uint32_t a = r.base + s * kStageBytes + wg * (64 * 128);
+  const uint32_t b = r.base + s * kStageBytes + kABytes + H * (kBBytes / 2);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
+    const int k16 = J * (kDepth / 16) + kk;
+    // A: 32 bytes a k16 step inside the swizzled 128-byte rows, 8-row
+    // groups 1 KB apart; B: one 64-column block, 16 K rows = 2 KB a step
+    wgmma_m64n64k16(f, smem_desc(a + 32 * k16, 16, 1024),
+                    smem_desc(b + 2048 * k16, 8192, 1024), kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Half H of slice J of K step ks has landed in f: add it to its half of
+// the running sum with round-to-nearest adds; after the step's last unit,
+// hand its stage back to the producer.
+template <int J, int H>
+__device__ __forceinline__ void retire_unit(float (&acc)[64], float (&f)[32],
+                                            const Ring& r, int ks, int tid) {
+  fence_operands(f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    acc[32 * H + i] = __fadd_rn(acc[32 * H + i], f[i]);
+  if (J == kSlices - 1 && H == 1 && tid == 0)
+    mbar_arrive(r.empty(r.stage(ks)));
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// One K step in units (unit U: slice U / 2, half U % 2, in fresh
+// accumulator U % kFresh): kFresh units in flight, each retired as soon as
+// it lands and its accumulator given the next unit, so that the adds of one
+// unit overlap the wgmmas of the next ones. Nothing stays in flight past
+// the step (a wgmma in flight across the loop's back edge makes ptxas
+// serialize them all).
+template <int U>
+__device__ __forceinline__ void issue_u(float (&f)[kFresh][32], const Ring& r,
+                                        int ks, int wg) {
+  if constexpr (U < kUnits) issue_unit<U / 2, U % 2>(f[U % kFresh], r, ks, wg);
+}
+
+template <int U>
+__device__ __forceinline__ void issue_first(float (&f)[kFresh][32],
+                                            const Ring& r, int ks, int wg) {
+  if constexpr (U < kFresh) {
+    issue_u<U>(f, r, ks, wg);
+    issue_first<U + 1>(f, r, ks, wg);
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void retire_rest(float (&acc)[64],
+                                            float (&f)[kFresh][32],
+                                            const Ring& r, int ks, int wg,
+                                            int tid) {
+  if constexpr (U < kUnits) {
+    constexpr int kIssued = kFresh + U < kUnits ? kFresh + U : kUnits;
+    wgmma_wait<kIssued - U - 1>();
+    retire_unit<U / 2, U % 2>(acc, f[U % kFresh], r, ks, tid);
+    issue_u<U + kFresh>(f, r, ks, wg);
+    retire_rest<U + 1>(acc, f, r, ks, wg, tid);
+  }
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// Where row rt of tile mt writes (its channel 0), or nullptr past the map:
+// the padded buffer's interior (down), b (mid) or x (up).
+template <int PHASE>
+__device__ __forceinline__ bf16* out_row(const Epi& e, int mt, int rt) {
+  int p;
+  if (PHASE == kMid) {
+    const int b = mt / e.tiles_xy, rem = mt - b * e.tiles_xy;
+    const int ty = rem / e.tiles_x, tx = rem - ty * e.tiles_x;
+    const int y = ty * kPixTY + rt / kPixTX, x = tx * kPixTX + rt % kPixTX;
+    if (y >= e.h || x >= e.w) return nullptr;
+    p = (b * e.h + y) * e.w + x;
+  } else {
+    p = mt * kBM + rt;
+    if (p >= e.p) return nullptr;
+  }
+  if (PHASE == kDown) {
+    const int hw = e.h * e.w;
+    const int b = p / hw, rem = p - b * hw;
+    const int y = rem / e.w, x = rem - y * e.w;
+    return e.out +
+           (static_cast<size_t>(b * (e.h + 2) + y + 1) * (e.w + 2) + x + 1) *
+               e.m;
+  }
+  return e.out + static_cast<size_t>(p) * e.n;
 }
 
 template <int PHASE>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_kernel(const Gemm g) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sb = sa + kStages * kAStage;
-  float* sc = reinterpret_cast<float*>(sb + kStages * kBStage);
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_gemm(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b, const Epi e) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // 128-byte swizzle atoms
+  float* staging = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                            kStages * kStageBytes);
+  const uint32_t bars = base + kStages * kStageBytes + kStagingBytes;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int ksteps = e.k / kBK;
+  const int tiles = e.m_tiles * e.n_tiles;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;               // 0..1
-  const int wn = warp & 3;                // 0..3
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int hw = g.h * g.w;
-  const int wp = g.w + 2;                 // padded row width
-
-  // the two A chunks (16 bytes, 8 channels) and two B chunks this thread
-  // copies each stage
-  const bf16* arow[2];
-  bool avalid[2];
-  int acol[2], asmem[2];
-  const bf16* brow[2];
-  int bsmem[2];
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int q = tid + t * kThreads;
-    const int row = q >> 2;
-    const int c8 = (q & 3) * 8;
-    const int r = m0 + row;
-    avalid[t] = r < g.p;
-    const int rr = avalid[t] ? r : 0;
-    if (PHASE == kMid) {
-      const int bi = rr / hw;
-      const int rem = rr - bi * hw;
-      const int y = rem / g.w;
-      const int xx = rem - y * g.w;
-      // top-left tap of the 3x3 window in the padded buffer
-      arow[t] = g.a + ((size_t)(bi * (g.h + 2) + y) * wp + xx) * g.m;
-    } else {
-      arow[t] = g.a + (size_t)rr * g.k;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // the producer's arrival
+      mbar_init(bars + 8 * (kStages + s), kConsumers);  // one per consumer
     }
-    acol[t] = c8;
-    asmem[t] = row * kALd + c8;
-    const int kr = q >> 4;
-    const int c = (q & 15) * 8;
-    brow[t] = g.wt + (size_t)kr * g.n + n0 + c;
-    bsmem[t] = kr * kBLd + c;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    size_t aoff;
-    if (PHASE == kMid) {
-      const int tap = k0 / g.m;
-      const int ci = k0 - tap * g.m;
-      const int dy = tap / 3;
-      const int dx = tap - dy * 3;
-      aoff = (size_t)(dy * wp + dx) * g.m + ci;
-    } else {
-      aoff = k0;
-    }
-    bf16* a_dst = sa + stage * kAStage;
-    bf16* b_dst = sb + stage * kBStage;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      cp_async16(a_dst + asmem[t], arow[t] + aoff + acol[t], avalid[t]);
-      cp_async16(b_dst + bsmem[t], brow[t] + (size_t)k0 * g.n, true);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int ktiles = g.k / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();               // stage kt landed; stage kt-1 is free
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) load_stage(nk % kStages, nk);
-    cp_async_commit();
-
-    const bf16* tile_a = sa + (kt % kStages) * kAStage;
-    const bf16* tile_b = sb + (kt % kStages) * kBStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i],
-                               tile_a + (wm * kWM + i * 16) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tile_b + kk * kBLd + wn * kWN + j * 16,
-                               kBLd);
-      // each 16-deep product into a fresh fragment, added in IEEE f32
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
-          wmma::fill_fragment(part, 0.0f);
-          wmma::mma_sync(part, fa[i], fb[j], part);
-#pragma unroll
-          for (int t = 0; t < part.num_elements; ++t)
-            acc[i][j].x[t] += part.x[t];
-        }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: each 16x16 accumulator through this warp's 1 KB of shared
-  // memory; lane -> row lane / 2, 8 consecutive channels
-  float* st = sc + warp * 256;
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = m0 + wm * kWM + i * 16 + er;
-      const int n = n0 + wn * kWN + j * 16 + ec;
-      if (r < g.p) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = st[er * 16 + ec + e] + g.bias[n + e];
-        bf16* dst;
-        if (PHASE == kDown) {
-          const int bi = r / hw;
-          const int rem = r - bi * hw;
-          const int y = rem / g.w;
-          const int xx = rem - y * g.w;
-          dst = g.out + ((size_t)(bi * (g.h + 2) + y + 1) * wp + xx + 1) * g.m
-                + n;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (tid != 0) return;
+    int q = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int mt = t / e.n_tiles;
+      const int n0 = (t - mt * e.n_tiles) * kBN;
+      for (int ks = 0; ks < ksteps; ++ks, ++q) {
+        const int s = q % kStages;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (kStages + s), ((q / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, kStageBytes);
+        const uint32_t a_dst = base + s * kStageBytes;
+        const uint32_t b_dst = a_dst + kABytes;
+        const int k0 = ks * kBK;
+        if (PHASE == kMid) {
+          const int tap = k0 / e.m, ci = k0 - tap * e.m;
+          const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+          const int b = mt / e.tiles_xy, rem = mt - b * e.tiles_xy;
+          const int ty = rem / e.tiles_x, tx = rem - ty * e.tiles_x;
+          tma_4d(a_dst, &tm_a, full, ci, tx * kPixTX + dx, ty * kPixTY + dy,
+                 b);
         } else {
-          dst = g.out + (size_t)r * g.n + n;
+          tma_2d(a_dst, &tm_a, full, k0, mt * kBM);
         }
-        alignas(16) bf16 o[8];
-        if (PHASE == kUp) {
-          alignas(16) bf16 res[8];
-          *reinterpret_cast<uint4*>(res) =
-              *reinterpret_cast<const uint4*>(dst);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            o[e] = __float2bfloat16_rn(
-                fmaxf(__bfloat162float(res[e]) + v[e], 0.0f));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            o[e] = __float2bfloat16_rn(fmaxf(v[e], 0.0f));
-        }
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+        tma_2d(b_dst, &tm_b, full, n0, e.k_row0 + k0);
+        tma_2d(b_dst + kBBytes / 2, &tm_b, full, n0 + 64, e.k_row0 + k0);
       }
-      __syncwarp();
     }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  float acc[64], fresh[kFresh][32];
+  Ring r{base, bars, 0};
+  float* st = staging + wg * 64 * kStLd;
+  const int warp = tid / 32, lane = tid % 32;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, r.q += ksteps) {
+    const int mt = t / e.n_tiles;
+    const int n0 = (t - mt * e.n_tiles) * kBN;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      issue_first<0>(fresh, r, ks, wg);
+      retire_rest<0>(acc, fresh, r, ks, wg, tid);
+    }
+
+    // the epilogue: stage this warpgroup's 64 x 128 f32 accumulators (rows
+    // 16 warp + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1)); then each
+    // thread writes 16 bytes a step, tile rows tid / 16 + 8 k, channels
+    // 8 (tid % 16) on: one bias chunk a thread, and the up phase's residual
+    // loads all in flight before the first is used
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + lane / 4 + 8 * h;
+        *reinterpret_cast<float2*>(st + row * kStLd + 8 * j + 2 * (lane % 4)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    wg_sync(wg);
+    const int c8 = 8 * (tid % 16);
+    const float4* bv = reinterpret_cast<const float4*>(e.bias + n0 + c8);
+    const float4 bias0 = __ldg(bv), bias1 = __ldg(bv + 1);
+    const float bias[8] = {bias0.x, bias0.y, bias0.z, bias0.w,
+                           bias1.x, bias1.y, bias1.z, bias1.w};
+    bf16* dst[8];
+    uint4 res[8] = {};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      dst[k] = out_row<PHASE>(e, mt, wg * 64 + tid / 16 + 8 * k);
+      if (dst[k] != nullptr) dst[k] += n0 + c8;
+      if (PHASE == kUp && dst[k] != nullptr)
+        res[k] = *reinterpret_cast<const uint4*>(dst[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (dst[k] == nullptr) continue;
+      const float* sv = st + (tid / 16 + 8 * k) * kStLd + c8;
+      const float4 s0 = *reinterpret_cast<const float4*>(sv);
+      const float4 s1 = *reinterpret_cast<const float4*>(sv + 4);
+      const float y[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      const bf16* r8 = reinterpret_cast<const bf16*>(&res[k]);
+      alignas(16) bf16 o[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float v = __fadd_rn(y[q], bias[q]);
+        o[q] = __float2bfloat16_rn(fmaxf(
+            PHASE == kUp ? __fadd_rn(__bfloat162float(r8[q]), v) : v, 0.0f));
+      }
+      *reinterpret_cast<uint4*>(dst[k]) = *reinterpret_cast<const uint4*>(o);
+    }
+    wg_sync(wg);                    // the staging tile is free again
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (innermost first, contiguous) read in boxes
+// whose innermost extent is 64 elements (128 bytes, 128-byte swizzle);
+// reads past the end come back as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int rank,
+            const uint64_t* dims, const uint32_t* box) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], strides[3];
+  cuuint32_t b[4], es[4] = {1, 1, 1, 1};
+  uint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i > 0) strides[i - 1] = stride;
+    stride *= dims[i];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+            d, strides, b, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int PHASE>
-cudaError_t launch(const Gemm& g, cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, const Epi& e,
+                   int sms, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bottleneck_gemm<PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(g.n / kBN, (g.p + kBM - 1) / kBM);
-  gemm_kernel<PHASE><<<grid, kThreads, kSmemBytes, stream>>>(g);
+  const int tiles = e.m_tiles * e.n_tiles;
+  bottleneck_gemm<PHASE><<<tiles < sms ? tiles : sms, kThreads, kSmemBytes,
+                           stream>>>(a, b, e);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // Runs n blocks over x in place: 3 launches a block on `stream`, nothing
 // synchronised. apad is (B, H + 2, W + 2, M) bf16 with a zero halo (the
-// interior is overwritten), bmid (B * H * W, M) bf16 scratch. Returns the
+// interior is overwritten), bmid (B * H * W, M) bf16 scratch. The TMA
+// descriptors are encoded here, per call (the buffers move). Returns the
 // first launch error (cudaSuccess = 0).
 extern "C" int i2vsgg_bottleneck_chain_forward(
     void* x, const void* w1, const void* b1, const void* w3, const void* b3,
     const void* w2, const void* b2, void* apad, void* bmid, int batch, int h,
     int w, int c, int m, int n_blocks, void* stream) {
-  if (c % kBN || m % kBN || batch < 1 || h < 1 || w < 1)
+  if (c % kBN || m % kBN || batch < 1 || h < 1 || w < 1 || !aligned16(x) ||
+      !aligned16(w1) || !aligned16(w3) || !aligned16(w2) ||
+      !aligned16(apad) || !aligned16(bmid) || !aligned16(b1) ||
+      !aligned16(b3) || !aligned16(b2))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int p = batch * h * w;
+  CUtensorMap tx, tmid, tpad, tw1, tw3, tw2;
+  const uint64_t d_x[2] = {static_cast<uint64_t>(c), static_cast<uint64_t>(p)};
+  const uint64_t d_mid[2] = {static_cast<uint64_t>(m), static_cast<uint64_t>(p)};
+  const uint64_t d_pad[4] = {static_cast<uint64_t>(m),
+                             static_cast<uint64_t>(w + 2),
+                             static_cast<uint64_t>(h + 2),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t d_w1[2] = {static_cast<uint64_t>(m),
+                            static_cast<uint64_t>(n_blocks) * c};
+  const uint64_t d_w3[2] = {static_cast<uint64_t>(m),
+                            static_cast<uint64_t>(n_blocks) * 9 * m};
+  const uint64_t d_w2[2] = {static_cast<uint64_t>(c),
+                            static_cast<uint64_t>(n_blocks) * m};
+  const uint32_t box_rows[2] = {64, kBM};
+  const uint32_t box_pix[4] = {64, kPixTX, kPixTY, 1};
+  const uint32_t box_w[2] = {64, 64};
+  if (!encode(&tx, x, 2, d_x, box_rows) ||
+      !encode(&tmid, bmid, 2, d_mid, box_rows) ||
+      !encode(&tpad, apad, 4, d_pad, box_pix) ||
+      !encode(&tw1, w1, 2, d_w1, box_w) || !encode(&tw3, w3, 2, d_w3, box_w) ||
+      !encode(&tw2, w2, 2, d_w2, box_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* xp = static_cast<bf16*>(x);
-  bf16* ap = static_cast<bf16*>(apad);
-  bf16* bp = static_cast<bf16*>(bmid);
-  const int p = batch * h * w;
+  const int rows = (p + kBM - 1) / kBM;
+  const int tiles_x = (w + kPixTX - 1) / kPixTX;
+  const int tiles_xy = tiles_x * ((h + kPixTY - 1) / kPixTY);
   for (int i = 0; i < n_blocks; ++i) {
-    const bf16* w1i = static_cast<const bf16*>(w1) + (size_t)i * c * m;
-    const bf16* w3i = static_cast<const bf16*>(w3) + (size_t)i * 9 * m * m;
-    const bf16* w2i = static_cast<const bf16*>(w2) + (size_t)i * m * c;
-    const float* b1i = static_cast<const float*>(b1) + (size_t)i * m;
-    const float* b3i = static_cast<const float*>(b3) + (size_t)i * m;
-    const float* b2i = static_cast<const float*>(b2) + (size_t)i * c;
-    cudaError_t err;
-    err = launch<kDown>(Gemm{xp, w1i, b1i, ap, p, h, w, c, m, m}, s);
+    const Epi down{static_cast<const float*>(b1) + static_cast<size_t>(i) * m,
+                   static_cast<bf16*>(apad), p, h, w, m, m, c, i * c, rows,
+                   m / kBN, tiles_x, tiles_xy};
+    const Epi mid{static_cast<const float*>(b3) + static_cast<size_t>(i) * m,
+                  static_cast<bf16*>(bmid), p, h, w, m, m, 9 * m, i * 9 * m,
+                  batch * tiles_xy, m / kBN, tiles_x, tiles_xy};
+    const Epi up{static_cast<const float*>(b2) + static_cast<size_t>(i) * c,
+                 xp, p, h, w, m, c, m, i * m, rows, c / kBN, tiles_x,
+                 tiles_xy};
+    err = launch<kDown>(tx, tw1, down, sms, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch<kMid>(Gemm{ap, w3i, b3i, bp, p, h, w, 9 * m, m, m}, s);
+    err = launch<kMid>(tpad, tw3, mid, sms, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch<kUp>(Gemm{bp, w2i, b2i, xp, p, h, w, m, c, m}, s);
+    err = launch<kUp>(tmid, tw2, up, sms, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
 }
+
+// The dynamic shared memory each of the three GEMM kernels takes (bytes).
+extern "C" int i2vsgg_bottleneck_smem_bytes() { return kSmemBytes; }

@@ -15,6 +15,7 @@ either end.
 from __future__ import annotations
 
 import os
+from itertools import chain
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +36,24 @@ RESNET_STAGES = {
     # tiny debug/test variant (full channel widths, one block per stage)
     10: (1, 1, 1, 1),
 }
+
+
+def prepared(module: nn.Module, name: str, sources, build):
+    """``build()``, kept on ``module`` under ``name`` until one of the
+    ``sources`` tensors changes: its storage (``.to(device)``,
+    ``bf16_storage_cast``, a replaced parameter) or its version counter
+    (``load_state_dict`` and any in-place edit). The kept entry holds the
+    sources' storages, so no later tensor can reuse their addresses while
+    it stands. Built without autograd: serving weights, prepared once per
+    load rather than once per call."""
+    key = tuple((t.data_ptr(), t._version) for t in sources)
+    hit = module.__dict__.get(name)
+    if hit is not None and hit[0] == key:
+        return hit[2]
+    with torch.no_grad():
+        value = build()
+    module.__dict__[name] = (key, [t.detach() for t in sources], value)
+    return value
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -234,20 +253,36 @@ class ResNetStage(nn.Module):
     def folded_tail(self):
         """The identity tail's folded weights, stacked over blocks 1.., in
         the chain's types: w1 (n, C, M), w3 (n, 9, M, M), w2 (n, M, C) bf16
-        (``bf16(f32(w) * mul)``); b1, b3, b2 f32.
+        (``bf16(f32(w) * mul)``); b1, b3, b2 f32. Folded once per set of
+        weights and kept on the stage (``prepared``): a change to any tail
+        weight or FrozenBN statistic folds again.
 
         Raises ``ValueError`` on int8-stored weights: the JAX stage folds
         their raw integer taps without ``kernel_scale``
         (``backbones.py:319-326`` with ``bottleneck_kernel.py:204-221``), a
         chain that computes something else, which the port does not copy."""
-        int8 = [name for name, p in self.named_parameters()
-                if p.dtype == torch.int8 and not name.startswith("block0.")]
-        if int8:
+        tail = [t for m in self._tail_modules() for t in chain(
+            m._parameters.values(), m._buffers.values()) if t is not None]
+        if any(t.dtype == torch.int8 for t in tail):
+            int8 = [name for name, p in self.named_parameters()
+                    if p.dtype == torch.int8 and not name.startswith("block0.")]
             raise ValueError(
                 f"stage {self.path or type(self).__name__}: int8-stored "
                 f"weights ({', '.join(int8)}) cannot be folded into the "
                 "bottleneck chain; serve them with I2VSGG_PALLAS_BOTTLENECK "
                 "off")
+        return prepared(self, "_folded_tail", tail, self._fold_tail)
+
+    def _tail_modules(self) -> list:
+        """The identity tail's submodules (blocks 1..), listed once: the
+        weights' cache key walks them on every call."""
+        if "_tail_mods" not in self.__dict__:
+            self.__dict__["_tail_mods"] = [
+                m for i in range(1, self.blocks)
+                for m in getattr(self, f"block{i}").modules()]
+        return self.__dict__["_tail_mods"]
+
+    def _fold_tail(self):
         bf16, f32 = torch.bfloat16, torch.float32
         w1, b1, w3, b3, w2, b2 = (torch.stack(t) for t in zip(*[
             getattr(self, f"block{i}").folded()
@@ -322,19 +357,23 @@ class ResNetTrunk(nn.Module):
         self.layer2 = ResNetStage(256, 128, n2, 2, dtype)
         self.layer3 = ResNetStage(512, 256, n3, 2, dtype)
 
+    def conv1_weights(self) -> conv1_ops.Conv1Weights:
+        """conv1's kernel operands (the K-major bf16 weight, the f32 BN
+        affine), prepared once per set of weights and kept on the trunk
+        (``prepared``)."""
+        return prepared(
+            self, "_conv1_weights", [self.conv1.weight, *self.bn1.buffers()],
+            lambda: conv1_ops.prepare_conv1(self.conv1.weight,
+                                            *self.bn1.affine()))
+
     def _stem(self, images):
         fused_pool = os.environ.get("I2VSGG_CONV1_FUSED_POOL", "1") == "1"
         if isinstance(images, conv1_ops.Conv1Planes):
-            mul, add = self.bn1.affine()
-            fn = (conv1_ops.conv1_stem_planes if fused_pool
-                  else conv1_ops.conv1_bn_relu_planes)
-            x = fn(images.planes, images.h, images.w, self.conv1.weight,
-                   mul, add)
+            x = conv1_ops.conv1_apply(images.planes, self.conv1_weights(),
+                                      (images.h, images.w), fused_pool)
         elif os.environ.get("I2VSGG_PALLAS_CONV1") == "1":
-            mul, add = self.bn1.affine()
-            fn = (conv1_ops.conv1_stem if fused_pool
-                  else conv1_ops.conv1_bn_relu)
-            x = fn(images.float().contiguous(), self.conv1.weight, mul, add)
+            x = conv1_ops.conv1_apply(images.float().contiguous(),
+                                      self.conv1_weights(), None, fused_pool)
         else:
             x = nhwc_to_nchw(images.to(self.dtype))
             return caffe_maxpool(F.relu(self.bn1(self.conv1(x))))

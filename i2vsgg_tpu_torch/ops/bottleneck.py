@@ -12,9 +12,10 @@ W3 (9, M, M) (tap index dy*3+dx) and W2 (M, C) and f32 biases:
 with products and sums in f32 (the TPU kernel's rounding points).
 ``bottleneck_chain_plain`` is that arithmetic in plain PyTorch;
 ``bottleneck_chain`` is the op the trunk calls: a CUDA map goes to the
-hand-written kernel ``csrc/bottleneck.cu`` (or the call raises), a CPU one to
-the plain version. ``bottleneck_chain.launches`` counts the kernel launches
-(three per block: the 1x1 down, the 3x3, the 1x1 up).
+hand-written kernel ``csrc/bottleneck.cu`` (wgmma on TMA-staged tiles; or
+the call raises), a CPU one to the plain version.
+``bottleneck_chain.launches`` counts the kernel launches (three per block:
+the 1x1 down, the 3x3, the 1x1 up).
 
 ``chain_geometry`` and ``chain_vmem_bytes`` are the TPU kernel's own sizes,
 integer for integer: the trunk's fit gate reads them, so the port fuses a
@@ -136,12 +137,19 @@ def _check(x, w1, b1, w3, b3, w2, b2):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, w1, b1, w3, b3, w2, b2):
+def _lib():
     lib = cuda_build.load("bottleneck.cu")
     fn = lib.i2vsgg_bottleneck_chain_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
+    lib.i2vsgg_bottleneck_smem_bytes.restype = ctypes.c_int
+    lib.i2vsgg_bottleneck_smem_bytes.argtypes = []
+    return lib
+
+
+def _launch(x, w1, b1, w3, b3, w2, b2):
+    fn = _lib().i2vsgg_bottleneck_chain_forward
     bsz, h, w, c = x.shape
     n, _, m = w1.shape
     out = x.clone()                       # the chain runs in place on it

@@ -17,16 +17,19 @@ weights are rounded to bf16, products accumulate in f32, the epilogue is
 ``max(y * mul + add, 0)`` (the v2 mode: ``max(y + add, 0)`` with bf16
 weights ``bf16(w * mul)``) in f32, and the output is bf16 NHWC.
 
-On a CUDA tensor every entry launches the hand-written kernels of
-``csrc/conv1.cu`` (or raises); on a CPU tensor it runs the plain version
-(``F.conv2d`` in f32 on the bf16-rounded operands). The module counter
-``launches`` counts kernel launches: one per conv, plus one for the stem's
-pool pass.
+On a CUDA tensor every entry launches the hand-written kernel of
+``csrc/conv1.cu`` once, the stem's pool fused (or raises); on a CPU tensor
+it runs the plain version (``F.conv2d`` in f32 on the bf16-rounded
+operands). The module counter ``launches`` counts kernel launches: one per
+call. The kernel's operands (``Conv1Weights``: the K-major bf16 weight and
+the f32 affine) come from ``prepare_conv1``; the entries below prepare them
+per call, ``ResNetTrunk`` once per set of weights (``conv1_apply``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -243,23 +246,56 @@ def _check(x, weight, mul, add, planes_hw):
 
 def _lib():
     lib = cuda_build.load("conv1.cu")
-    for name in ("i2vsgg_conv1_forward", "i2vsgg_stem_pool_forward"):
-        getattr(lib, name).restype = ctypes.c_int
+    lib.i2vsgg_conv1_forward.restype = ctypes.c_int
     lib.i2vsgg_conv1_forward.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.i2vsgg_stem_pool_forward.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.i2vsgg_conv1_smem_bytes.restype = ctypes.c_int
+    lib.i2vsgg_conv1_smem_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
-def _raise_on(err: int, what: str):
+class Conv1Weights(NamedTuple):
+    """conv1's weights prepared for the kernel, once per set of weights
+    (``prepare_conv1``): ``w_k`` (64, 208) bf16 K-major (K = tap * 4 + c,
+    tap = dr * 7 + dc, 49 taps padded to 52, c < 3, zeros elsewhere) and
+    the f32 epilogue ``mul`` (None in the v2 mode) and ``add``; ``weight``
+    (64, 3, 7, 7) bf16 is what the plain version convolves with (the folded
+    ``bf16(w * mul)`` in the v2 mode)."""
+    w_k: torch.Tensor
+    weight: torch.Tensor
+    mul: torch.Tensor | None
+    add: torch.Tensor
+
+
+def prepare_conv1(weight, mul, add, v2: bool = False) -> Conv1Weights:
+    """The kernel's operands from ``conv1.weight`` (64, 3, 7, 7) and the
+    FrozenBN affine (``mul`` None: the epilogue adds ``add`` only);
+    ``v2``: the B5 mode, the scale folded into the bf16
+    weights (``fold_v2_weight``) and the epilogue adding ``add`` only."""
+    if tuple(weight.shape) != (64, 3, 7, 7):
+        raise ValueError(f"weight must be (64, 3, 7, 7), got "
+                         f"{tuple(weight.shape)}")
+    for name, v in (("mul", mul), ("add", add)):
+        if v is not None and tuple(v.shape) != (64,):
+            raise ValueError(f"{name} must be (64,), got {tuple(v.shape)}")
+    if v2:
+        weight, mul = fold_v2_weight(weight, mul), None
+    wb = weight.detach().to(torch.bfloat16)
+    w_k = F.pad(wb.permute(0, 2, 3, 1).reshape(64, 49, 3), (0, 1, 0, 3))
+    return Conv1Weights(
+        w_k.reshape(64, 208).contiguous(), wb,
+        None if mul is None else mul.detach().float().contiguous(),
+        add.detach().float().contiguous())
+
+
+def _raise_on(err: int):
     if err != 0:
-        raise RuntimeError(f"conv1 {what} kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"conv1 kernel launch failed: cudaError {err}")
 
 
-def _launch_conv(x, wb, mul, add, planes_hw):
-    """One launch of the conv kernel -> (B, Ho, Wo, 64) bf16 NHWC."""
+def _launch(x, prep: Conv1Weights, planes_hw, stem: bool):
+    """One launch: conv + affine + ReLU, with the stem's pool when
+    ``stem`` -> (B, Ho, Wo, 64) or (B, Hp, Wp, 64) bf16 NHWC."""
     global launches
     lib = _lib()
     if planes_hw is None:
@@ -270,80 +306,70 @@ def _launch_conv(x, wb, mul, add, planes_hw):
         h, w = planes_hw
         src, hq, wq = _IN_PLANES, x.shape[4], x.shape[5]
     g = conv1_plane_geometry(h, w)
-    # (7, 7, 3, 64): the K index (dr * 7 + dc) * 3 + c, 64 outputs minor
-    w_k = wb.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
-    mode = _MODE_AFFINE if mul is not None else _MODE_BIAS
-    mul_f = (mul if mul is not None else add).float().contiguous()
-    add_f = add.float().contiguous()
-    out = torch.empty((b, g.ho, g.wo, 64), dtype=torch.bfloat16,
-                      device=x.device)
+    oh, ow = g.ho, g.wo
+    if stem:
+        if g.ho < 2 or g.wo < 2:
+            raise ValueError(f"a {h}x{w} image is too small for the stem's "
+                             "3x3/2 pool")
+        oh, ow = (g.ho - 2) // 2 + 1, (g.wo - 2) // 2 + 1
+    mode = _MODE_AFFINE if prep.mul is not None else _MODE_BIAS
+    mul = prep.mul if prep.mul is not None else prep.add
+    out = torch.empty((b, oh, ow, 64), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.i2vsgg_conv1_forward(
-            x.data_ptr(), w_k.data_ptr(), mul_f.data_ptr(), add_f.data_ptr(),
-            out.data_ptr(), src, mode, b, h, w, hq, wq, stream)
-    _raise_on(err, "conv")
+            x.data_ptr(), prep.w_k.data_ptr(), mul.data_ptr(),
+            prep.add.data_ptr(), out.data_ptr(), src, mode, int(stem), b, h,
+            w, hq, wq, stream)
+    _raise_on(err)
     launches += 1
     return out
 
 
-def _launch_pool(y):
-    global launches
-    lib = _lib()
-    b, ho, wo, c = y.shape
-    out = torch.empty((b, (ho - 2) // 2 + 1, (wo - 2) // 2 + 1, c),
-                      dtype=torch.bfloat16, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.i2vsgg_stem_pool_forward(y.data_ptr(), out.data_ptr(), b,
-                                           ho, wo, c, stream)
-    _raise_on(err, "stem pool")
-    launches += 1
-    return out
-
-
-def _dispatch(x, weight, mul, add, planes_hw, stem, plain):
-    _check(x, weight, mul, add, planes_hw)
+def conv1_apply(x, prep: Conv1Weights, planes_hw=None, stem: bool = False):
+    """conv1 + BN + ReLU (+ the stem's pool when ``stem``) with prepared
+    weights, on (B, H, W, 3) f32 images (``planes_hw`` None) or on parity
+    planes of a ``planes_hw`` image: one kernel launch on a CUDA tensor,
+    the plain version on a CPU one."""
+    _check(x, prep.weight, prep.mul, prep.add, planes_hw)
     if x.device.type == "cuda":
-        y = _launch_conv(x, weight, mul, add, planes_hw)
-        return _launch_pool(y) if stem else y
+        if prep.w_k.device != x.device:
+            raise ValueError("inputs and parameters must be on one device")
+        return _launch(x, prep, planes_hw, stem)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    return plain()
+    if planes_hw is None:
+        fn = conv1_stem_plain if stem else conv1_bn_relu_plain
+        return fn(x, prep.weight, prep.mul, prep.add)
+    fn = conv1_stem_planes_plain if stem else conv1_bn_relu_planes_plain
+    return fn(x, *planes_hw, prep.weight, prep.mul, prep.add)
 
 
 def conv1_bn_relu(x, weight, mul, add):
     """conv1 + BN + ReLU on (B, H, W, 3) f32 images -> (B, Ho, Wo, 64)
     bf16 (``conv1_bn_relu_pallas``)."""
-    return _dispatch(x, weight, mul, add, None, False,
-                     lambda: conv1_bn_relu_plain(x, weight, mul, add))
+    return conv1_apply(x, prepare_conv1(weight, mul, add))
 
 
 def conv1_bn_relu_planes(planes, h: int, w: int, weight, mul, add):
     """The same on parity planes of an (h, w) image
     (``conv1_bn_relu_pallas_planes``)."""
-    return _dispatch(planes, weight, mul, add, (h, w), False,
-                     lambda: conv1_bn_relu_planes_plain(planes, h, w, weight,
-                                                        mul, add))
+    return conv1_apply(planes, prepare_conv1(weight, mul, add), (h, w))
 
 
 def conv1_stem(x, weight, mul, add):
     """conv1 + BN + ReLU + the caffe ceil-mode 3x3/2 maxpool on images ->
     (B, Hp, Wp, 64) bf16 (``conv1_stem_pallas``)."""
-    return _dispatch(x, weight, mul, add, None, True,
-                     lambda: conv1_stem_plain(x, weight, mul, add))
+    return conv1_apply(x, prepare_conv1(weight, mul, add), stem=True)
 
 
 def conv1_stem_planes(planes, h: int, w: int, weight, mul, add):
     """The stem on parity planes (``conv1_stem_pallas_planes``)."""
-    return _dispatch(planes, weight, mul, add, (h, w), True,
-                     lambda: conv1_stem_planes_plain(planes, h, w, weight,
-                                                     mul, add))
+    return conv1_apply(planes, prepare_conv1(weight, mul, add), (h, w),
+                       stem=True)
 
 
 def conv1_bn_relu_v2(x, weight, mul, add):
     """The v2 mode (``conv1_bn_relu_pallas_v2``): weights ``bf16(w * mul)``
     folded in f32, epilogue ``max(y + add, 0)``, on images."""
-    wf = fold_v2_weight(weight, mul)
-    return _dispatch(x, wf, None, add, None, False,
-                     lambda: conv1_bn_relu_plain(x, wf, None, add))
+    return conv1_apply(x, prepare_conv1(weight, mul, add, v2=True))

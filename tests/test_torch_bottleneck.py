@@ -311,3 +311,94 @@ def test_res50_trunk_with_the_switch_matches_jax(monkeypatch, res50_trunk,
     chain_close(bb.nchw_to_nhwc(c4_t).float().numpy(), c4)
     assert tuple(whole[0].shape) == c4.shape
     assert tuple(whole[1].shape) == tap.shape
+
+
+def _stage_case(seed=1):
+    """The stage test's JAX stage (res50 layer3 widths halved: C 512, M
+    128, 3 blocks) with its parameters and input."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(1, 10, 12, 256).astype(np.float32)
+    stage = jax_bb.ResNetStage(planes=128, blocks=3, stride=1,
+                               dtype=jnp.bfloat16)
+    return stage, _jax_stage_params(rs, stage, jnp.asarray(x)), x
+
+
+@pytest.mark.parametrize("stored", ["float32", "bfloat16"])
+def test_folded_tail_kept_and_bit_equal_to_a_fold_per_call(stored):
+    """The stage folds its tail once per set of weights: the second call
+    returns the kept fold, bit-equal to a fold made afresh."""
+    _, params, _ = _stage_case()
+    port = bb.ResNetStage(256, 128, 3, 1, torch.bfloat16)
+    if stored == "bfloat16":
+        bf16_storage_cast(port)
+    port.load_state_dict(params_from_jax(params))
+    kept = port.folded_tail()
+    assert port.folded_tail() is kept
+    fresh = port._fold_tail()
+    for a, b in zip(kept, fresh):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert not a.requires_grad
+
+
+def _changed(port, params, change):
+    """Apply ``change`` to the port stage; return the JAX parameters that
+    now describe it."""
+    from i2vsgg_tpu.utils.params import bf16_storage_cast as jax_cast
+    new = jax.tree_util.tree_map(np.array, params)
+    if change == "load_state_dict":
+        new["block1"]["conv2"]["kernel"] = -new["block1"]["conv2"]["kernel"]
+        new["block2"]["bn3"]["mean"] = new["block2"]["bn3"]["mean"] + 0.5
+        port.load_state_dict(params_from_jax(new))
+    elif change == "in_place":
+        with torch.no_grad():
+            port.block2.conv1.weight.mul_(0.5)
+            port.block1.bn2.var.add_(1.0)
+        new["block2"]["conv1"]["kernel"] = new["block2"]["conv1"]["kernel"] * 0.5
+        new["block1"]["bn2"]["var"] = new["block1"]["bn2"]["var"] + 1.0
+    elif change == "bf16_storage_cast":
+        bf16_storage_cast(port)
+        new = jax.tree_util.tree_map(np.asarray, jax_cast(new))
+    elif change == "to":
+        bf16_storage_cast(port)
+        port.load_state_dict(params_from_jax(new))
+        port.folded_tail()                   # kept for the bf16 storages
+        port.float()                         # new storages, the same values
+        new = jax.tree_util.tree_map(np.asarray, jax_cast(new))
+    return new
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place",
+                                    "bf16_storage_cast", "to"])
+def test_folded_tail_refolds_after_a_weight_change(monkeypatch, change):
+    """After a weight change the next forward folds again and matches the
+    JAX stage on the new weights: nothing stale is served."""
+    stage, params, x = _stage_case()
+    port = bb.ResNetStage(256, 128, 3, 1, torch.bfloat16)
+    port.load_state_dict(params_from_jax(params))
+    monkeypatch.setenv("I2VSGG_PALLAS_BOTTLENECK", "1")
+    with torch.no_grad():
+        port(nchw(x))
+    stale = port.folded_tail()
+    new = _changed(port, params, change)
+    with torch.no_grad():
+        got = bb.nchw_to_nhwc(port(nchw(x))).float().numpy()
+    assert port.folded_tail() is not stale
+    for a, b in zip(port.folded_tail(), port._fold_tail()):
+        assert torch.equal(a, b)
+    want = stage.apply({"params": new}, jnp.asarray(x))
+    chain_close(got, want)
+
+
+def test_folded_tail_refuses_int8_after_a_kept_fold(monkeypatch):
+    """``quantize_trunk_params`` after a kept fold: the int8 refusal still
+    raises, the kept fold is not served."""
+    from i2vsgg_tpu_torch.utils.params import quantize_trunk_params
+    _, params, x = _stage_case()
+    port = bb.ResNetStage(256, 128, 3, 1, torch.bfloat16)
+    port.load_state_dict(params_from_jax(params))
+    monkeypatch.setenv("I2VSGG_PALLAS_BOTTLENECK", "1")
+    with torch.no_grad():
+        port(nchw(x))
+        quantize_trunk_params(port, "")
+        with pytest.raises(ValueError, match="int8"):
+            port(nchw(x))

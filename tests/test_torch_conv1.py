@@ -202,3 +202,101 @@ def test_trunk_env_switch_matches_jax_and_planes(trunks, monkeypatch):
     # (unrounded) conv1, so the outputs differ
     plain, _ = port(torch.from_numpy(x))
     assert not torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_kernel_weight_layout_computes_conv1(v2):
+    """``prepare_conv1``'s K-major weight (K = tap * 4 + c) in the kernel's
+    implicit GEMM, emulated here in f64 over the plane window, gives the
+    plain version's conv1 (one bf16 ulp, >= 99.9 % bit-equal): the
+    kernel's operand layout, checked on the CPU."""
+    b, h, w = 1, 21, 27
+    x, w_hwio, mul, add = make_case((b, h, w))
+    wt, mul_t, add_t = port_params(w_hwio, mul, add)
+    prep = conv1.prepare_conv1(wt, mul_t, add_t, v2=v2)
+    assert tuple(prep.w_k.shape) == (64, 208)
+    assert prep.w_k.dtype == torch.bfloat16 and (prep.mul is None) == v2
+    g = conv1.conv1_plane_geometry(h, w)
+    planes = conv1.pack_conv1_planes(torch.from_numpy(x))[0].double()
+    cols = torch.zeros(g.ho, g.wo, 52, 4, dtype=torch.float64)
+    for dr in range(7):
+        for dc in range(7):
+            cols[:, :, dr * 7 + dc, :3] = planes[
+                dr % 2, dc % 2, :, dr // 2:dr // 2 + g.ho,
+                dc // 2:dc // 2 + g.wo].permute(1, 2, 0)
+    y = cols.reshape(-1, 208) @ prep.w_k.double().t()
+    if prep.mul is not None:
+        y = y * prep.mul.double()
+    got = torch.relu(y + prep.add.double()).to(torch.bfloat16)
+    plain = (conv1.conv1_bn_relu_v2_plain if v2
+             else conv1.conv1_bn_relu_plain)
+    ref = plain(torch.from_numpy(x), wt, mul_t, add_t)
+    assert_one_ulp(got.reshape(1, g.ho, g.wo, 64), ref.float().numpy())
+
+
+def test_trunk_conv1_weights_kept_and_bit_equal_to_per_call(trunks):
+    """The trunk prepares conv1's operands once per set of weights: the
+    second call returns the kept ones, bit-equal to ``prepare_conv1`` made
+    afresh from the same parameters."""
+    _, _, port, _ = trunks
+    kept = port.conv1_weights()
+    assert port.conv1_weights() is kept
+    fresh = conv1.prepare_conv1(port.conv1.weight, *port.bn1.affine())
+    for a, b in zip(kept, fresh):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place",
+                                    "bf16_storage_cast", "to"])
+def test_trunk_conv1_after_a_weight_change_matches_jax(trunks, change):
+    """After a weight change the trunk's next forward on planes prepares
+    conv1 again: its stem matches the JAX stem kernel (interpret mode) on
+    the new weights to the conv1 bound, and the whole trunk equals, bit for
+    bit, a trunk built afresh with the new weights: nothing stale is
+    served."""
+    import copy
+
+    from i2vsgg_tpu.utils.params import bf16_storage_cast as jax_cast
+    from i2vsgg_tpu_torch.utils.params import bf16_storage_cast
+    _, params, port, x = trunks
+    port = copy.deepcopy(port)
+    planes = conv1.Conv1Planes.pack(x)
+    port(planes)
+    stale = port.conv1_weights()
+    new = jax.tree_util.tree_map(np.array, params)
+    fresh = ResNetTrunk(depth=10, dtype=torch.float32)
+    if change == "load_state_dict":
+        new["conv1"]["kernel"] = new["conv1"]["kernel"][..., ::-1].copy()
+        new["bn1"]["bias"] = new["bn1"]["bias"] + 1.0
+        port.load_state_dict(params_from_jax(new))
+    elif change == "in_place":
+        with torch.no_grad():
+            port.conv1.weight.mul_(-0.5)
+            port.bn1.scale.mul_(2.0)
+        new["conv1"]["kernel"] = new["conv1"]["kernel"] * -0.5
+        new["bn1"]["scale"] = new["bn1"]["scale"] * 2.0
+    else:
+        bf16_storage_cast(port)
+        bf16_storage_cast(fresh)
+        if change == "to":
+            port(planes)                     # kept for the bf16 storage
+            port.float()
+            fresh.float()
+        new = jax.tree_util.tree_map(np.asarray, jax_cast(new))
+    fresh.load_state_dict(params_from_jax(new))
+    got, got_tap = port(planes)
+    assert port.conv1_weights() is not stale
+    want, want_tap = fresh(planes)
+    assert torch.equal(got, want) and torch.equal(got_tap, want_tap)
+    mul, add = fresh.bn1.affine()
+    h, w = x.shape[1:3]
+    ref = jk.conv1_stem_pallas_planes(
+        jnp.asarray(jk.pack_conv1_planes_np(x, native=False)), h, w,
+        jnp.asarray(np.asarray(new["conv1"]["kernel"], np.float32)),
+        jnp.asarray(mul.numpy()), jnp.asarray(add.numpy()), interpret=True)
+    stem = bb_nhwc(port._stem(planes))
+    assert_one_ulp(stem.to(torch.bfloat16), ref)
+
+
+def bb_nhwc(x):
+    return x.permute(0, 2, 3, 1)

@@ -92,7 +92,10 @@ def _conv1_case(cuda, shape, seed=0):
 
 @pytest.mark.parametrize("entry", ["bn_relu", "bn_relu_planes", "stem",
                                    "stem_planes", "v2"])
-@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70), (1, 600, 960)])
+# odd sizes: Ho, Wo, Hp and Wp not multiples of the kernel's tiles (8 x 16
+# pooled, 16 x 32 conv outputs), a clipped last pooled row and column
+@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70), (1, 600, 960),
+                                   (1, 37, 61), (3, 67, 131), (1, 5, 7)])
 def test_conv1_kernel_vs_plain(cuda, shape, entry):
     import chip_smoke
     from i2vsgg_tpu_torch.ops import conv1
@@ -106,10 +109,10 @@ def test_conv1_kernel_vs_plain(cuda, shape, entry):
                            conv1.conv1_bn_relu_planes_plain,
                            (planes, h, w, weight, mul, add), 1),
         "stem": (conv1.conv1_stem, conv1.conv1_stem_plain,
-                 (x, weight, mul, add), 2),
+                 (x, weight, mul, add), 1),
         "stem_planes": (conv1.conv1_stem_planes,
                         conv1.conv1_stem_planes_plain,
-                        (planes, h, w, weight, mul, add), 2),
+                        (planes, h, w, weight, mul, add), 1),
         "v2": (conv1.conv1_bn_relu_v2, conv1.conv1_bn_relu_v2_plain,
                (x, weight, mul, add), 1),
     }
@@ -120,17 +123,30 @@ def test_conv1_kernel_vs_plain(cuda, shape, entry):
     chip_smoke.held_one_ulp(got, plain(*args), entry)
 
 
-def test_conv1_planes_and_images_bit_identical(cuda):
+@pytest.mark.parametrize("shape", [(2, 50, 70), (1, 37, 61), (3, 67, 131)])
+def test_conv1_planes_and_images_bit_identical(cuda, shape):
+    """Both source forms give the same bits, in both epilogue modes (the
+    v2 mode through ``conv1_apply`` on planes), pooled and unpooled."""
+    import chip_smoke
     from i2vsgg_tpu_torch.ops import conv1
-    x, weight, mul, add = _conv1_case(cuda, (2, 50, 70), seed=1)
+    _, h, w = shape
+    x, weight, mul, add = _conv1_case(cuda, shape, seed=1)
     host = conv1.Conv1Planes.pack(x.cpu().numpy()).to(cuda)
     assert torch.equal(host.planes, conv1.pack_conv1_planes(x))
     assert torch.equal(conv1.conv1_stem(x, weight, mul, add),
-                       conv1.conv1_stem_planes(host.planes, 50, 70, weight,
+                       conv1.conv1_stem_planes(host.planes, h, w, weight,
                                                mul, add))
     assert torch.equal(conv1.conv1_bn_relu(x, weight, mul, add),
-                       conv1.conv1_bn_relu_planes(host.planes, 50, 70,
+                       conv1.conv1_bn_relu_planes(host.planes, h, w,
                                                   weight, mul, add))
+    v2 = conv1.prepare_conv1(weight, mul, add, v2=True)
+    for stem in (False, True):
+        images = conv1.conv1_apply(x, v2, None, stem)
+        assert torch.equal(images, conv1.conv1_apply(host.planes, v2, (h, w),
+                                                     stem))
+        plain = conv1.conv1_apply(x.cpu(), conv1.Conv1Weights(
+            *(t if t is None else t.cpu() for t in v2)), None, stem)
+        chip_smoke.held_one_ulp(images, plain.to(cuda), f"v2 stem={stem}")
 
 
 def test_conv1_wrappers_refuse(cuda):
@@ -212,22 +228,19 @@ def test_roi_align_wrapper_refuses(cuda):
 def _chain_case(cuda, b, h, w, c, m, n, seed=0):
     """A map and folded chain weights of the JAX chain test's scale (x ~
     N(0, 1), weights and biases ~ 0.05 N(0, 1)) in the kernel's types."""
-    g = torch.Generator(device=cuda).manual_seed(seed)
-
-    def r(*s):
-        return torch.randn(*s, generator=g, device=cuda) * 0.05
-
-    x = torch.randn(b, h, w, c, generator=g, device=cuda).bfloat16()
-    bf = torch.bfloat16
-    return x, (r(n, c, m).to(bf), r(n, m), r(n, 9, m, m).to(bf), r(n, m),
-               r(n, m, c).to(bf), r(n, c))
+    import chip_smoke
+    return chip_smoke.chain_test_case(cuda, b, h, w, c, m, n, seed)
 
 
 @pytest.mark.parametrize("b,h,w,c,m,n", [
     (2, 9, 13, 128, 128, 3),       # odd sizes: partial tiles, the halo
     (1, 15, 20, 256, 128, 2),
     (4, 38, 60, 1024, 256, 1),     # the main path's shape, one block
-    (4, 38, 60, 1024, 256, 22)])   # ... and its 22-block layer3 tail
+    (4, 38, 60, 1024, 256, 22),    # ... and its 22-block layer3 tail
+    # P not a multiple of the 128-row tile, H and W not multiples of the
+    # 3x3's 8 x 16 pixel block, at both (C, M) widths
+    (1, 37, 61, 512, 128, 2),
+    (3, 37, 61, 1024, 256, 1)])
 def test_bottleneck_chain_kernel_vs_plain(cuda, b, h, w, c, m, n):
     """The kernel against its plain version (f32 without TF32) as
     ``chip_smoke.held_chain`` holds it: every block alone on the chain's own

@@ -18,17 +18,19 @@ SGG head's pooling (``pool``, ``cli/args.py``'s default, or ``align``);
 ``--bf16-params`` stores the weights in bf16 (``bf16_storage_cast``, as
 bench.py's flag of that name does); ``--pallas-bottleneck`` sets
 ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's identity tail runs as the chain
-kernel (spans ``fold``, the per-call weight fold, and ``chain``, inside
-``trunk``). The int8 levers are bench.py's flags of the same names, applied
-in its order after ``--bf16-params``: ``--int8-fc6`` builds the SGG head's
-fc6/fc7 as ``DenseInt8`` with int8-stored weights
-(``quantize_dense_params``); ``--int8-trunk-scope 1:<tokens>`` stores the
-in-scope trunk convs in int8 (``quantize_trunk_params``) and sets
-``I2VSGG_INT8_TRUNK``; ``--int8-static-acts`` gives them static activation
-scales from a calibration file (``runs/calib/act_scales_res101.json``), or
-unit scales with ``1``. The span ``int8`` covers every int8 conv and fc
-(activation quantization, the int8 GEMM, the rescale), inside ``trunk``,
-``det_head`` and ``sgg_head``. The passes:
+kernel (spans ``fold``, the weight fold, and ``chain``, inside ``trunk``;
+the stage folds once per set of weights, so after the warm-up request the
+``fold`` span launches nothing). The int8 levers are bench.py's flags of
+the same names, applied in its order after ``--bf16-params``:
+``--int8-fc6`` builds the SGG head's fc6/fc7 as ``DenseInt8`` with
+int8-stored weights (``quantize_dense_params``); ``--int8-trunk-scope
+1:<tokens>`` stores the in-scope trunk convs in int8
+(``quantize_trunk_params``) and sets ``I2VSGG_INT8_TRUNK``;
+``--int8-static-acts`` gives them static activation scales from a
+calibration file (``runs/calib/act_scales_res101.json``), or unit scales
+with ``1``. The span ``int8`` covers every int8 conv and fc (activation
+quantization, the int8 GEMM, the rescale), inside ``trunk``, ``det_head``
+and ``sgg_head``. The passes:
 
 1. plain: host clock per request, ending in a synchronize (as
    ``chip_smoke.py`` times it);
