@@ -1723,15 +1723,18 @@ def main() -> int:
     # v2 mode B5), whose output is the full (4, 300, 480, 64) map
     x32 = torch.as_tensor(video[-1][1], device=dev)
     prep_v2 = c1.prepare_conv1(weight, mul, add, v2=True)
-    for mode, kern, plain, x_in, run in (
+    # each with its kernel instantiation (source form, pool) for the build
+    # facts
+    for mode, kern, plain, x_in, run, inst in (
             ("stem_images", c1.conv1_stem, c1.conv1_stem_plain, x32,
-             lambda: c1.conv1_apply(x32, prep, None, True)),
+             lambda: c1.conv1_apply(x32, prep, None, True), (1, 1)),
             ("bn_relu_planes", lambda *a: c1.conv1_bn_relu_planes(
                 pl, h, w, *a[1:]), lambda *a: c1.conv1_bn_relu_planes_plain(
                 pl, h, w, *a[1:]), pl,
-             lambda: c1.conv1_apply(pl, prep, (h, w), False)),
+             lambda: c1.conv1_apply(pl, prep, (h, w), False), (0, 0)),
             ("v2_images", c1.conv1_bn_relu_v2, c1.conv1_bn_relu_v2_plain,
-             x32, lambda: c1.conv1_apply(x32, prep_v2, None, False))):
+             x32, lambda: c1.conv1_apply(x32, prep_v2, None, False),
+             (1, 0))):
         out = kern(x_in, weight, mul, add)
         if not torch.equal(run(), out):
             raise AssertionError(f"conv1 {mode} on prepared weights != the "
@@ -1741,10 +1744,15 @@ def main() -> int:
         nb = (x_in.numel() * x_in.element_size() + 147 * 64 * 2 + 2 * 64 * 4
               + out.numel() * out.element_size())
         bd, _ = bound_of(nb, flops, H100_BF16_OPS_PER_S)
+        built = {k: v for k, v in ptxas_report("conv1.cu").items()
+                 if f"conv1_kernelILi{inst[0]}ELb{inst[1]}E" in k}.popitem()[1]
         c1k["modes"][mode] = {"ms": km, "plain_ms": pm, "bound_ms": bd,
-                              "bytes": nb}
+                              "bytes": nb, **built, "smem_bytes":
+                              c1._lib().i2vsgg_conv1_smem_bytes(inst[0])}
         log(f"conv1 {mode}: kernel {km * 1e3:.2f} us, plain {pm * 1e3:.2f} "
-            f"us, bound {bd * 1e3:.3f} us ({nb} B) [{card}]")
+            f"us, bound {bd * 1e3:.3f} us ({nb} B); {built['registers']} "
+            f"registers, {c1k['modes'][mode]['smem_bytes']} B of shared "
+            f"memory, {built['spill_bytes']} B spilled [{card}]")
 
     phase("9 the third slice's path: bf16-stored weights, "
           "I2VSGG_PALLAS_BOTTLENECK=1 (layer3's tail on the chain kernel), "

@@ -455,7 +455,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+// cuTensorMapEncodeTiled, looked up at run time (nothing linked with -lcuda)
 EncodeTiled encode_fn() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
