@@ -21,8 +21,10 @@ along four paths:
   as conv1 parity planes packed on the host (``--host_planes``), the SGG
   head under ``pooling="align"``; then the same program fed f32 images under
   ``I2VSGG_PALLAS_CONV1=1`` (bit-equal), the bucketed program with buckets
-  (4, 8), Stage C (per-frame tuples and ``association``) over the video, and
-  the uint8 upload (``dequantize_image_u8``);
+  (4, 8), Stage C (per-frame tuples and ``association``) over the video,
+  the uint8 upload (``dequantize_image_u8``), and a bucket below
+  ``max_det`` (phase 6f: weights that leave one foreground class, the SGG
+  head under align and under pool, both RoI kernels at a smaller R);
 * phase 9, the third slice's path: the same video with bf16-stored weights
   (``bf16_storage_cast``) and ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's
   22-block identity tail runs as the chain kernel; then the same weights
@@ -38,7 +40,11 @@ along four paths:
   version on the path's own frames.
 
 Each path's kernel launch counters are set to 0 just before it and read just
-after. Every phase prints a line with the elapsed seconds before it starts.
+after; every RoI kernel launch of a served path must be in the kernel's
+staged mode (the map slice in shared memory). Phases 3, 3c, 5b and 7 hold
+the RoI kernels in both modes (staged, and the first design's per-bin /
+per-cell blocks, kept for maps no slice of which fits) and time both, and
+each channel slice, on the same inputs. Every phase prints a line with the elapsed seconds before it starts.
 Any failure raises and the script exits non-zero; without a card, or away
 from the package, it exits non-zero before printing any result.
 
@@ -179,6 +185,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, match: str = "", reps: int = 20) -> float:
+    """Device ms per call of ``fn`` spent in the kernels whose name contains
+    ``match`` (every kernel of the call for ""), from ``torch.profiler``:
+    the kernel's own time, without the host's launch overhead that
+    ``cuda_ms`` of back-to-back calls includes when a call's device work is
+    shorter than its host work."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if match in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no device time in {match!r}")
+    return total / 1e3 / reps
 
 
 def roi_pool_work(fmap: torch.Tensor, rois: torch.Tensor, p: int = 7):
@@ -709,16 +735,46 @@ def fused_tail_blocks(trunk, h: int, w: int) -> int:
 
 
 def check_kernel_vs_plain(fmap, rois, what: str) -> float:
+    """RoIPool's kernel, in the mode and slice it chooses and in the
+    per-bin mode, ``torch.equal`` to its plain version."""
     from i2vsgg_tpu_torch.ops.roi_pool import roi_pool, roi_pool_plain
     got = roi_pool(fmap, rois)
+    plan = roi_pool.last_plan
+    per_bin = roi_pool(fmap, rois, channel_slice=-1)
     exp = roi_pool_plain(fmap, rois)
     torch.cuda.synchronize()
     err = float((got.float() - exp.float()).abs().max()) if got.numel() else 0.0
-    if not torch.equal(got, exp):
-        raise AssertionError(f"roi_pool kernel != plain on {what}: "
+    if not (torch.equal(got, exp) and torch.equal(per_bin, exp)):
+        raise AssertionError(f"roi_pool kernel != plain on {what} ({plan}): "
                              f"max abs err {err}")
-    log(f"roi_pool {what}: bit-exact (torch.equal), out {tuple(got.shape)}")
+    log(f"roi_pool {what}: bit-exact (torch.equal) in the {plan['mode']} "
+        f"mode (slice {plan['slice']}, {plan['smem_bytes']} B of shared "
+        f"memory) and the per-bin mode, out {tuple(got.shape)}")
     return err
+
+
+def build_facts(source: str, entry: str) -> dict:
+    """Registers and spill bytes of the kernel entry of ``csrc/<source>``
+    whose mangled name contains ``entry``."""
+    found = [v for k, v in ptxas_report(source).items() if entry in k]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} entries of {source} match "
+                             f"{entry}")
+    return found[0]
+
+
+def slice_times(run, match: str, slices=(8, 16, 32)) -> dict:
+    """Device ms of ``run(channel_slice)``'s kernel (``kernel_ms``) at each
+    channel slice (None where the slice does not fit in shared memory)."""
+    out = {}
+    for sl in slices:
+        try:
+            run(sl)
+        except RuntimeError:
+            out[str(sl)] = None
+            continue
+        out[str(sl)] = kernel_ms(lambda: run(sl), match)
+    return out
 
 
 def build_kernels():
@@ -893,9 +949,17 @@ class Counters:
     def reset(self):
         for obj, attr in self.mods.values():
             setattr(obj, attr, 0)
+            for mode in getattr(obj, "launches_by_mode", ()):
+                obj.launches_by_mode[mode] = 0
 
     def read(self) -> dict:
         return {k: getattr(obj, attr) for k, (obj, attr) in self.mods.items()}
+
+    def modes(self) -> dict:
+        """The RoI kernels' launches by mode since the last reset."""
+        return {k: dict(obj.launches_by_mode)
+                for k, (obj, _) in self.mods.items()
+                if hasattr(obj, "launches_by_mode")}
 
 
 def serve_requests(program, requests, to_input, counters, expect: dict,
@@ -916,9 +980,38 @@ def serve_requests(program, requests, to_input, counters, expect: dict,
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
+    for k, by_mode in counters.modes().items():
+        if by_mode["staged"] != got[k]:
+            raise AssertionError(f"{what}: {k} launches by mode {by_mode}: "
+                                 "not all staged")
     log(f"{what}: launches {got} in {len(requests)} requests; request ms "
         f"{', '.join(f'{x:.2f}' for x in times)}")
     return outs, times
+
+
+def bucketed_vs_fused(fused_outs, bk_outs) -> float:
+    """The bucketed program against the fused one (as
+    tests/test_torch_serve.py::test_bucketed_program_matches_fused holds
+    them): detections equal, the same valid pairs, their rel_prob within
+    1e-3. Returns the largest rel_prob difference."""
+    worst = 0.0
+    for a, o in zip(fused_outs, bk_outs):
+        for k in ("boxes", "scores", "classes", "det_valid"):
+            if not torch.equal(a[k], o[k]):
+                raise AssertionError(f"bucketed: {k} differs from the fused "
+                                     "program")
+        for f in range(a["det_valid"].shape[0]):
+            full, part = ({(int(i), int(j)): x["rel_prob"][f, n]
+                           for n, (i, j) in enumerate(zip(x["ix1"], x["ix2"]))
+                           if x["pair_valid"][f, n]} for x in (a, o))
+            if set(full) != set(part):
+                raise AssertionError("bucketed: valid pairs differ")
+            for key in full:
+                worst = max(worst, float((full[key].float()
+                                          - part[key].float()).abs().max()))
+    if not worst <= 1e-3:
+        raise AssertionError(f"bucketed: rel_prob off by {worst} > 1e-3")
+    return worst
 
 
 def steady_ms(times):
@@ -1135,12 +1228,14 @@ def main() -> int:
     kernels["conv1"] = {"max_abs_err": err}
 
     phase("3c roi_align kernel vs plain: edge rois at the main path's three "
-          "shapes")
+          "shapes (the SGG site's as the f32 copy and widened from bf16), "
+          "staged and per-cell modes")
     err = 0.0
-    for fshape, dt, grid in (((4, 38, 60, 1024), torch.bfloat16,
-                              (0, 2, 4, 6)),
-                             ((4, 38, 60, 512), torch.bfloat16, None),
-                             ((1, 38, 60, 1024), torch.float32, None)):
+    for fshape, dt, grid, od in (
+            ((4, 38, 60, 1024), torch.bfloat16, (0, 2, 4, 6), None),
+            ((4, 38, 60, 512), torch.bfloat16, None, None),
+            ((1, 38, 60, 1024), torch.float32, None, None),
+            ((1, 38, 60, 1024), torch.bfloat16, None, torch.float32)):
         fmap = (torch.randn(*fshape, generator=g, device=dev) * 4).to(dt)
         n_img = fshape[0]
         edge = align_edge_rois(dev, n_img).reshape(n_img, -1, 5)
@@ -1150,15 +1245,29 @@ def main() -> int:
                          torch.maximum(rnd[..., :2], rnd[..., 2:])], -1)
         rnd = torch.cat([edge[:, :1, :1].expand(-1, 116, 1), rnd], -1)
         rois = torch.cat([edge, rnd], 1).reshape(-1, 5).contiguous()
-        got = roi_align_mod.roi_align_avg(fmap, rois, grid=grid)
-        ref = roi_align_mod.roi_align_avg_plain(fmap, rois, grid=grid)
-        what = f"roi_align {fshape} {dt} grid {grid}, R={rois.shape[0]}"
-        if dt == torch.float32:
-            err = max(err, held_f32(got, ref, what, float(fmap.abs().max())))
-            gat = roi_align_mod.roi_align_avg_gather(fmap, rois)
-            held_f32(got, gat, what + " vs gather", float(fmap.abs().max()))
+        got = roi_align_mod.roi_align_avg(fmap, rois, grid=grid,
+                                          out_dtype=od)
+        plan = roi_align_mod.roi_align_avg.last_plan
+        f_ref = fmap if od is None else fmap.to(od)
+        ref = roi_align_mod.roi_align_avg_plain(f_ref, rois, grid=grid)
+        what = (f"roi_align {fshape} {dt}{' to ' + str(od) if od else ''} "
+                f"grid {grid}, R={rois.shape[0]}, {plan['mode']} slice "
+                f"{plan['slice']}")
+        if got.dtype == torch.float32:
+            err = max(err, held_f32(got, ref, what, float(f_ref.abs().max())))
+            gat = roi_align_mod.roi_align_avg_gather(f_ref, rois)
+            held_f32(got, gat, what + " vs gather", float(f_ref.abs().max()))
         else:
             err = max(err, held_one_ulp(got, ref, what))
+        if od is not None and not torch.equal(
+                got, roi_align_mod.roi_align_avg(f_ref, rois, grid=grid)):
+            raise AssertionError(f"{what}: the widening mode != the kernel "
+                                 "on the f32 copy")
+        if not torch.equal(got, roi_align_mod.roi_align_avg(
+                fmap, rois, grid=grid, out_dtype=od, channel_slice=-1)):
+            raise AssertionError(f"{what}: staged != per-cell mode")
+    log("staged == per-cell bit for bit on every shape; the widening mode "
+        "== the kernel on the f32 copy")
     kernels["roi_align"] = {"max_abs_err": err}
 
     phase("3d bottleneck chain kernel vs plain at (4, 38, 60, 1024), n 22, "
@@ -1479,24 +1588,48 @@ def main() -> int:
         program(*requests[-1])
     finally:
         sgg_mod.roi_pool = roi_pool_fn
-    k_ms = p_ms = bound_ms = 0.0
+    k_ms = p_ms = bound_ms = per_bin_ms = call_ms = 0.0
+    by_slice = {}
     bound_by = "bytes"
     for fmap, rois in seen:                       # the request's 4 frames
         kernels["roi_pool"]["max_abs_err"] = max(
             kernels["roi_pool"]["max_abs_err"],
             check_kernel_vs_plain(fmap, rois, "main-path inputs"))
-        k_ms += cuda_ms(lambda: roi_pool_fn(fmap, rois), 200)
-        p_ms += cuda_ms(lambda: roi_pool_mod.roi_pool_plain(fmap, rois), 5, 1)
+        roi_pool_fn(fmap, rois)
+        plan = roi_pool_mod.roi_pool.last_plan
+        k_ms += kernel_ms(lambda: roi_pool_fn(fmap, rois), "roi_pool_")
+        call_ms += cuda_ms(lambda: roi_pool_fn(fmap, rois), 200)
+        # the first design (the per-bin mode) on the same inputs
+        per_bin_ms += kernel_ms(lambda: roi_pool_fn(
+            fmap, rois, channel_slice=-1), "roi_pool_")
+        for sl, t in slice_times(lambda sl: roi_pool_fn(
+                fmap, rois, channel_slice=sl), "roi_pool_").items():
+            by_slice[sl] = None if t is None else by_slice.get(sl, 0.0) + t
+        p_ms += kernel_ms(lambda: roi_pool_mod.roi_pool_plain(fmap, rois),
+                          reps=3)
         nbytes, compares = roi_pool_work(fmap, rois)
         bnd, bound_by = bound_of(nbytes, compares, H100_F32_OPS_PER_S)
         bound_ms += bnd
+    if plan["mode"] != "staged":
+        raise AssertionError(f"roi_pool on the main path's inputs: {plan}")
+    built = build_facts("roi_pool.cu", "roi_pool_staged_kernelI13__nv_"
+                        "bfloat16Li8E")
     log(f"main-path inputs: fmap {tuple(fmap.shape)} {fmap.dtype}, rois "
         f"{tuple(rois.shape)} x {len(seen)} frames")
-    log(f"roi_pool per request: {k_ms * 1e3:.2f} us "
-        f"({k_ms * 1e3 / len(seen):.2f} per launch), plain {p_ms * 1e3:.2f} "
-        f"us, bound {bound_ms * 1e3:.3f} us [{card}]")
+    log(f"roi_pool per request (device time): {k_ms * 1e3:.2f} us "
+        f"({k_ms * 1e3 / len(seen):.2f} per launch; back-to-back calls "
+        f"{call_ms * 1e3:.2f} us, host included; slice {plan['slice']}, "
+        f"{plan['smem_bytes']} B of shared memory, {built['registers']} "
+        f"registers, {built['spill_bytes']} B spilled), per-bin mode (the "
+        f"first design) {per_bin_ms * 1e3:.2f} us, by slice "
+        f"{ {k: None if v is None else round(v * 1e3, 2) for k, v in by_slice.items()} } us, "
+        f"plain {p_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us [{card}]")
     kernels["roi_pool"].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=None)
+                               bound_by=bound_by, library_ms=None,
+                               per_bin_ms=per_bin_ms, slice_ms=by_slice,
+                               call_ms=call_ms,
+                               slice=plan["slice"],
+                               smem_bytes=plan["smem_bytes"], **built)
 
     phase("6 this slice's path: host-packed conv1 planes, SGG head under "
           "align, a 12-frame video in 3 requests")
@@ -1547,23 +1680,7 @@ def main() -> int:
                                     lambda r: (conv1_mod.Conv1Planes.pack(
                                         r[1]), r[2]), counters, per_request,
                                     "bucketed (4, 8)")
-    worst = 0.0
-    for a, o in zip(main_outs, bk_outs):
-        for k in ("boxes", "scores", "classes", "det_valid"):
-            if not torch.equal(a[k], o[k]):
-                raise AssertionError(f"bucketed: {k} differs from the fused "
-                                     "program")
-        for f in range(b):
-            full, part = ({(int(i), int(j)): x["rel_prob"][f, n]
-                           for n, (i, j) in enumerate(zip(x["ix1"], x["ix2"]))
-                           if x["pair_valid"][f, n]} for x in (a, o))
-            if set(full) != set(part):
-                raise AssertionError("bucketed: valid pairs differ")
-            for key in full:
-                worst = max(worst, float((full[key].float()
-                                          - part[key].float()).abs().max()))
-    if not worst <= 1e-3:
-        raise AssertionError(f"bucketed: rel_prob off by {worst} > 1e-3")
+    worst = bucketed_vs_fused(main_outs, bk_outs)
     ms["bucketed_planes_align"] = steady_ms(times)
     log(f"buckets chosen {[o['bucket'] for o in bk_outs]}; detections equal, "
         f"valid pairs' rel_prob within {worst:.3g} (tol 1e-3); steady "
@@ -1626,13 +1743,51 @@ def main() -> int:
         f"true size, to its zero padding); outputs bit-equal; steady "
         f"{ms['uint8_env_align']:.2f} ms/request")
 
+    phase("6f a bucket below max_det: the bucketed program (buckets (4, 8)) "
+          "against the fused one on weights that leave one foreground class "
+          "(background and class 1 logits raised), at most 2 detections a "
+          "frame; the SGG head under align on host planes, then under pool "
+          "on f32 images")
+    det_sparse = copy.deepcopy(det)
+    with torch.no_grad():
+        det_sparse.cls_score.bias[:2] += 1e4
+    kw_sparse = dict(kw, max_per_class=2)
+    sparse = {}
+    for pooling, sgg_m, to_in, per in (
+            ("align", sgg_align, lambda r: (conv1_mod.Conv1Planes.pack(r[1]),
+                                            r[2]), per_request),
+            ("pool", sgg, lambda r: (r[1], r[2]),
+             dict(NO_LAUNCHES, roi_pool=b, roi_align=2))):
+        fused = serve.make_frame_program(det_sparse, sgg_m, prd, cfg,
+                                         **kw_sparse)
+        bucketed = serve.make_bucketed_program(det_sparse, sgg_m, prd, cfg,
+                                               buckets=(4, 8), **kw_sparse)
+        ref_outs, _ = serve_requests(fused, video, to_in, counters, per,
+                                     f"one foreground class, fused, {pooling}")
+        sp_outs, times = serve_requests(bucketed, video, to_in, counters, per,
+                                        f"one foreground class, bucketed, "
+                                        f"{pooling}")
+        chosen = [o["bucket"] for o in sp_outs]
+        if not all(c < FULL["max_det"] for c in chosen):
+            raise AssertionError(f"buckets chosen {chosen}: none below "
+                                 f"max_det {FULL['max_det']}")
+        worst = bucketed_vs_fused(ref_outs, sp_outs)
+        n_valid = [int(o["det_valid"].sum()) for o in sp_outs]
+        sparse[pooling] = {"buckets": chosen, "valid_detections": n_valid,
+                           "max_rel_prob_diff": worst,
+                           "ms": steady_ms(times)}
+        log(f"{pooling}: buckets chosen {chosen}, valid detections a request "
+            f"{n_valid}; detections equal, valid pairs' rel_prob within "
+            f"{worst:.3g} (tol 1e-3); steady {sparse[pooling]['ms']:.2f} "
+            "ms/request")
+
     phase("7 conv1 and roi_align on the main path's own inputs: exactness "
           "and time per request")
     ra_fn = roi_align_mod.roi_align_avg
     sites = []
 
     def rec_align(features, rois, *a, **k):
-        sites.append((features, rois, k.get("grid")))
+        sites.append((features, rois, k.get("grid"), k.get("out_dtype")))
         return ra_fn(features, rois, *a, **k)
 
     frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = rec_align
@@ -1643,32 +1798,98 @@ def main() -> int:
         frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = ra_fn
     torch.cuda.synchronize()
     ra = kernels["roi_align"]
-    ra.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, sites=[])
-    for fmap, rois, grid in sites:
-        got = ra_fn(fmap, rois, grid=grid)
-        ref = roi_align_mod.roi_align_avg_plain(fmap, rois, grid=grid)
-        what = f"roi_align {tuple(fmap.shape)} {fmap.dtype} grid {grid}"
-        if fmap.dtype == torch.float32:
-            e = held_f32(got, ref, what, float(fmap.abs().max()))
+    ra.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+              per_cell_ms=0.0, call_ms=0.0, sites=[])
+    # the SGG head's sites (one a frame) take the bf16 map as it comes and
+    # widen it: no f32 copy
+    sgg_sites = [x for x in sites if x[3] is not None]
+    if len(sgg_sites) != b or any(
+            f.dtype != torch.bfloat16 or od != torch.float32
+            for f, _, _, od in sgg_sites):
+        raise AssertionError("the SGG site's calls: "
+                             f"{[(f.dtype, od) for f, _, _, od in sites]}")
+    log(f"the SGG head's {b} sites receive the bf16 map with "
+        "out_dtype=float32 (no f32 copy)")
+    built_by = {}
+    for fmap, rois, grid, od in sites:
+        od = od or fmap.dtype
+        got = ra_fn(fmap, rois, grid=grid, out_dtype=od)
+        plan = roi_align_mod.roi_align_avg.last_plan
+        if plan["mode"] != "staged":
+            raise AssertionError(f"roi_align on the main path's inputs: "
+                                 f"{plan}")
+        f_ref = fmap.to(od)                  # the f32 copy where it widens
+        ref = roi_align_mod.roi_align_avg_plain(f_ref, rois, grid=grid)
+        what = (f"roi_align {tuple(fmap.shape)} {fmap.dtype} to {od} grid "
+                f"{grid}")
+        if od == torch.float32:
+            e = held_f32(got, ref, what + " vs plain on the f32 copy",
+                         float(f_ref.abs().max()))
         else:
             e = held_one_ulp(got, ref, what)
+        copy_ms = None
+        if od != fmap.dtype:
+            if not torch.equal(got, ra_fn(f_ref, rois, grid=grid)):
+                raise AssertionError(f"{what}: != the kernel on the f32 copy")
+            # the former route of this site: the f32 copy, then the first
+            # design (the per-cell mode) on it
+            copy_ms = kernel_ms(lambda: ra_fn(fmap.float(), rois, grid=grid,
+                                              channel_slice=-1))
         ra["max_abs_err"] = max(ra["max_abs_err"], e)
-        k_ms = cuda_ms(lambda: ra_fn(fmap, rois, grid=grid), 200)
-        p_ms = cuda_ms(lambda: roi_align_mod.roi_align_avg_plain(
-            fmap, rois, grid=grid), 10, 1)
+        k_ms = kernel_ms(lambda: ra_fn(fmap, rois, grid=grid, out_dtype=od),
+                         "roi_align_")
+        c_ms = cuda_ms(lambda: ra_fn(fmap, rois, grid=grid, out_dtype=od),
+                       200)
+        # the first design (the per-cell mode) on the same inputs
+        pc_ms = kernel_ms(lambda: ra_fn(fmap, rois, grid=grid, out_dtype=od,
+                                        channel_slice=-1), "roi_align_")
+        by_slice = slice_times(lambda sl: ra_fn(
+            fmap, rois, grid=grid, out_dtype=od, channel_slice=sl),
+            "roi_align_")
+        p_ms = kernel_ms(lambda: roi_align_mod.roi_align_avg_plain(
+            f_ref, rois, grid=grid), reps=3)
         nbytes, flops = roi_align_work(fmap, rois, grid)
+        if od != fmap.dtype:                 # the f32 output's extra bytes
+            nbytes += rois.shape[0] * got[0].numel() * (
+                od.itemsize - fmap.element_size())
         bnd, by = bound_of(nbytes, flops, H100_F32_OPS_PER_S)
+        inst = ("roi_align_staged_kernelI13__nv_bfloat16"
+                + ("fLi8E" if od == torch.float32 else "S1_Li8E"))
+        built_by[inst] = build_facts("roi_align.cu", inst)
         ra["ms"] += k_ms
+        ra["call_ms"] += c_ms
+        ra["per_cell_ms"] += pc_ms
         ra["plain_ms"] += p_ms
         ra["bound_ms"] += bnd
         ra["bound_by"] = by
         ra["sites"].append({"fmap": list(fmap.shape),
-                            "dtype": str(fmap.dtype), "rois": rois.shape[0],
-                            "grid": grid, "ms": k_ms, "plain_ms": p_ms,
-                            "bound_ms": bnd, "bytes": nbytes})
-        log(f"{what}, R={rois.shape[0]}: kernel {k_ms * 1e3:.2f} us, plain "
-            f"{p_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({nbytes} B) "
-            f"[{card}]")
+                            "dtype": str(fmap.dtype), "out_dtype": str(od),
+                            "rois": rois.shape[0], "grid": grid, "ms": k_ms,
+                            "call_ms": c_ms,
+                            "per_cell_ms": pc_ms, "copy_route_ms": copy_ms,
+                            "slice_ms": by_slice, "slice": plan["slice"],
+                            "smem_bytes": plan["smem_bytes"],
+                            "plain_ms": p_ms, "bound_ms": bnd,
+                            "bytes": nbytes, **built_by[inst]})
+        log(f"{what}, R={rois.shape[0]}: kernel {k_ms * 1e3:.2f} us of "
+            f"device time (back-to-back calls {c_ms * 1e3:.2f} us; slice "
+            f"{plan['slice']}, {plan['smem_bytes']} B of shared memory, "
+            f"{built_by[inst]['registers']} registers, "
+            f"{built_by[inst]['spill_bytes']} B spilled), per-cell mode (the "
+            f"first design) {pc_ms * 1e3:.2f} us"
+            + (f", f32 copy + per-cell mode on it (the former route) "
+               f"{copy_ms * 1e3:.2f} us"
+               if copy_ms is not None else "")
+            + f", by slice { {k: None if v is None else round(v * 1e3, 2) for k, v in by_slice.items()} } us"
+            f", plain {p_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
+            f"({nbytes} B) [{card}]")
+    ra["registers"] = max(v["registers"] for v in built_by.values())
+    ra["spill_bytes"] = max(v["spill_bytes"] for v in built_by.values())
+    ra["smem_bytes"] = max(x["smem_bytes"] for x in ra["sites"])
+    log(f"roi_align per request (device time): {ra['ms'] * 1e3:.2f} us "
+        f"(back-to-back calls {ra['call_ms'] * 1e3:.2f} us), per-cell mode "
+        f"{ra['per_cell_ms'] * 1e3:.2f} us, bound {ra['bound_ms'] * 1e3:.3f} "
+        f"us [{card}]")
     if len(sites) != per_request["roi_align"]:
         raise AssertionError(f"{len(sites)} roi_align calls per request")
 
@@ -1904,6 +2125,7 @@ def main() -> int:
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
+        "below_max_det": sparse,
         "chain_vs_unfused": agreement, "int8_vs_bf16": int8_vs_bf16,
         "wall_s": time.time() - T0}}), flush=True)
     meta = {
@@ -1941,7 +2163,9 @@ def main() -> int:
                      "library_call": meta[name][2], "per": "request",
                      **{key: k[key] for key in ("sites", "modes", "phases",
                                                 "registers", "smem_bytes",
-                                                "spill_bytes",
+                                                "spill_bytes", "slice",
+                                                "slice_ms", "per_bin_ms",
+                                                "per_cell_ms", "call_ms",
                                                 "cudnn_tail_ms",
                                                 "cudnn_tail_graph_ms",
                                                 "chain_check",

@@ -133,8 +133,10 @@ class VRDHead(nn.Module):
         m = obj_rois.shape[0]
         all_rois = torch.cat([obj_rois, union_rois], dim=0).contiguous()
         if self.pooling == "align":
+            # JAX pools an f32 copy of the map; the widening mode is the
+            # same function without the copy
             pooled = roi_align_avg(fmap.contiguous(), all_rois, p, p,
-                                   1.0 / 16.0)
+                                   1.0 / 16.0, out_dtype=torch.float32)
         else:
             pooled = roi_pool(fmap.contiguous(), all_rois, p, p, 1.0 / 16.0)
         x = pooled.reshape(pooled.shape[0], -1).to(self.dtype)
@@ -192,10 +194,12 @@ class SGGModel(nn.Module):
         ``serve.make_union_dedup`` — union rois are pooled once per
         unordered pair (union boxes are symmetric) and fanned back out.
 
-        The JAX module pools an f32 copy of the feature map. ``pool`` takes
-        the map as it comes: a max is one of its inputs, so the pooled values
-        are the same in any dtype and the copy is saved. ``align`` keeps the
-        f32 copy, whose dtype sets that of its interpolation weights.
+        The JAX module pools an f32 copy of the feature map. The port takes
+        the map as it comes: ``pool`` because a max is one of its inputs, so
+        the pooled values are the same in any dtype; ``align`` because
+        ``roi_align_avg(..., out_dtype=torch.float32)`` widens each value
+        exactly and builds its weights in f32, the function of pooling the
+        copy.
         """
         m = obj_boxes.shape[0]
         zeros = torch.zeros((m, 1), dtype=obj_boxes.dtype,
@@ -213,8 +217,7 @@ class SGGModel(nn.Module):
                             im_info[1], margin=10.0)
         union_rois = torch.cat([torch.zeros_like(u[:, :1]), u], dim=1)
         det_masks = dual_mask(im_info[0], im_info[1], obj_boxes)    # (M,32,32)
-        fmap = base_feat if self.vrd.pooling == "pool" else base_feat.float()
-        out = self.vrd(fmap, obj_rois, union_rois, ix1, ix2, prd_vecs,
+        out = self.vrd(base_feat, obj_rois, union_rois, ix1, ix2, prd_vecs,
                        u_map=u_map, det_masks=det_masks)
         out["pair_valid"] = pair_valid
         return out

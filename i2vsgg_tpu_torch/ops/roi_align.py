@@ -16,12 +16,21 @@ cast to the feature dtype); ``roi_align_avg_gather`` is the 4-corner gather
 oracle. ``roi_align_avg`` is the op the models call: a CUDA feature map goes
 to the hand-written kernel ``csrc/roi_align.cu`` (or the call raises), a CPU
 one to ``roi_align_avg_plain``. ``roi_align_avg.launches`` counts the kernel
-launches.
+launches, ``roi_align_avg.launches_by_mode`` the same launches by the
+kernel's mode (``staged``: the map slice in shared memory; ``per_cell``:
+one block per output cell, for maps no slice of which fits), and
+``roi_align_avg.last_plan`` holds the last launch's mode, channel slice and
+shared memory.
+
+``out_dtype=torch.float32`` on a bf16/f16 map is the widening mode: the
+function of pooling ``features.float()`` (f32 weights, f32 output) without
+the copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -181,7 +190,7 @@ def roi_align_avg_plain(features: torch.Tensor, rois: torch.Tensor,
     return out.reshape(r, gh, gw, c).to(features.dtype)
 
 
-def _check(features, rois, ph, pw, grid):
+def _check(features, rois, ph, pw, grid, out_dtype):
     if features.dim() != 4:
         raise ValueError(f"features must be (B, H, W, C), got "
                          f"{tuple(features.shape)}")
@@ -204,50 +213,85 @@ def _check(features, rois, ph, pw, grid):
         raise ValueError(f"pooled size {ph}x{pw}: square, at most 15")
     if grid is not None and not all(0 <= int(g) < ph for g in grid):
         raise ValueError(f"grid {grid} outside [0, {ph})")
+    if out_dtype not in (features.dtype, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} on a {features.dtype} map: "
+                        "only the map's dtype or the widening to float32")
 
 
-def _launch(features, rois, p, spatial_scale, grid):
-    lib = cuda_build.load("roi_align.cu")
-    fn = lib.i2vsgg_roi_align_avg_forward
+@functools.cache
+def _forward():
+    """The kernel's C launcher, built and typed once per process."""
+    fn = cuda_build.load("roi_align.cu").i2vsgg_roi_align_avg_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    return fn
+
+
+_MODES = ("staged", "per_cell")
+
+
+def _launch(features, rois, p, spatial_scale, grid, out_dtype,
+            channel_slice):
+    fn = _forward()
     b, h, w, c = features.shape
     r = rois.shape[0]
     sel = tuple(range(p)) if grid is None else tuple(int(g) for g in grid)
     code = sum(g << (4 * i) for i, g in enumerate(sel))   # 4 bits a cell
-    out = torch.empty((r, len(sel), len(sel), c), dtype=features.dtype,
+    out = torch.empty((r, len(sel), len(sel), c), dtype=out_dtype,
                       device=features.device)
     if r == 0:
         return out
+    plan = (ctypes.c_int * 3)()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODES[features.dtype], b, h, w, c, r, p, len(sel),
-                 code, float(spatial_scale), stream)
+                 _DTYPE_CODES[features.dtype],
+                 int(out_dtype != features.dtype), b, h, w, c, r, p,
+                 len(sel), code, float(spatial_scale), int(channel_slice),
+                 plan, stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
+    if plan[0] < 0:                      # an empty output: nothing launched
+        return out
+    mode = _MODES[plan[0]]
     roi_align_avg.launches += 1
+    roi_align_avg.launches_by_mode[mode] += 1
+    roi_align_avg.last_plan = {"mode": mode, "slice": plan[1],
+                               "smem_bytes": plan[2]}
     return out
 
 
 def roi_align_avg(features: torch.Tensor, rois: torch.Tensor,
                   pooled_height: int = 7, pooled_width: int = 7,
                   spatial_scale: float = 1.0 / 16.0,
-                  grid: tuple | None = None) -> torch.Tensor:
+                  grid: tuple | None = None, out_dtype=None,
+                  channel_slice: int = 0) -> torch.Tensor:
     """RoIAlignAvg (contract of ``roi_align_avg_plain``). features: (B, H, W,
     C) NHWC in f32/bf16/f16; rois: (R, 5) f32 grouped per image.
+
+    ``out_dtype``: the map's dtype (the default), or ``torch.float32`` on a
+    bf16/f16 map, which is exactly ``roi_align_avg_plain(features.float(),
+    ...)``; anything else is refused. ``channel_slice`` (CUDA only): 0 lets
+    the kernel choose its mode and slice, > 0 asks for that channel slice
+    (a multiple of 16 bytes of the map's dtype where C is), < 0 for the
+    per-cell mode.
 
     A CUDA feature map goes to the kernel, which counts one launch in
     ``roi_align_avg.launches``; a CPU one to ``roi_align_avg_plain``.
     """
-    _check(features, rois, pooled_height, pooled_width, grid)
+    out_dtype = features.dtype if out_dtype is None else out_dtype
+    _check(features, rois, pooled_height, pooled_width, grid, out_dtype)
     if features.device.type == "cuda":
-        return _launch(features, rois, pooled_height, spatial_scale, grid)
+        return _launch(features, rois, pooled_height, spatial_scale, grid,
+                       out_dtype, channel_slice)
     if features.device.type != "cpu":
         raise ValueError(f"unsupported device {features.device}")
-    return roi_align_avg_plain(features, rois, pooled_height, pooled_width,
-                               spatial_scale, grid)
+    return roi_align_avg_plain(features.to(out_dtype), rois, pooled_height,
+                               pooled_width, spatial_scale, grid)
 
 
 roi_align_avg.launches = 0
+roi_align_avg.launches_by_mode = dict.fromkeys(_MODES, 0)
+roi_align_avg.last_plan = None

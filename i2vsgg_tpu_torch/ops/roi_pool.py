@@ -14,12 +14,17 @@ Semantics (torchvision ROIPool math, as the SGG relation head uses it,
 ``roi_pool`` is the op the model calls. For a CUDA feature map it launches
 the hand-written kernel ``csrc/roi_pool.cu`` (or raises); it takes the plain
 version ``roi_pool_plain`` only for CPU tensors. ``roi_pool.launches`` counts
-the kernel launches.
+the kernel launches, ``roi_pool.launches_by_mode`` the same launches by the
+kernel's mode (``staged``: the map slice in shared memory; ``per_bin``: one
+block per output bin, for maps no slice of which fits), and
+``roi_pool.last_plan`` holds the last launch's mode, channel slice and
+shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -96,35 +101,57 @@ def _check(features: torch.Tensor, rois: torch.Tensor):
         raise ValueError("features (NHWC) and rois must be contiguous")
 
 
-def _launch(features, rois, ph, pw, spatial_scale):
-    lib = cuda_build.load("roi_pool.cu")
-    fn = lib.i2vsgg_roi_pool_forward
+@functools.cache
+def _forward():
+    """The kernel's C launcher, built and typed once per process."""
+    fn = cuda_build.load("roi_pool.cu").i2vsgg_roi_pool_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    return fn
+
+
+_MODES = ("staged", "per_bin")
+
+
+def _launch(features, rois, ph, pw, spatial_scale, channel_slice):
+    fn = _forward()
     b, h, w, c = features.shape
     r = rois.shape[0]
     out = torch.empty((r, ph, pw, c), dtype=features.dtype,
                       device=features.device)
     if r == 0:
         return out
+    plan = (ctypes.c_int * 3)()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(),
                  _DTYPE_CODES[features.dtype], b, h, w, c, r, ph, pw,
-                 float(spatial_scale), stream)
+                 float(spatial_scale), int(channel_slice), plan, stream)
     if err != 0:
         raise RuntimeError(f"roi_pool kernel launch failed: cudaError {err}")
+    if plan[0] < 0:                      # an empty output: nothing launched
+        return out
+    mode = _MODES[plan[0]]
     roi_pool.launches += 1
+    roi_pool.launches_by_mode[mode] += 1
+    roi_pool.last_plan = {"mode": mode, "slice": plan[1],
+                          "smem_bytes": plan[2]}
     return out
 
 
 def roi_pool(features: torch.Tensor, rois: torch.Tensor,
              pooled_height: int = 7, pooled_width: int = 7,
-             spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+             spatial_scale: float = 1.0 / 16.0,
+             channel_slice: int = 0) -> torch.Tensor:
     """Max RoIPool. features: (B, H, W, C) NHWC in f32/bf16/f16;
     rois: (R, 5) f32 ``[batch_idx, x1, y1, x2, y2]`` in input-image coords.
     Returns (R, PH, PW, C) in the feature dtype.
+
+    ``channel_slice`` (CUDA only): 0 lets the kernel choose its mode and
+    slice, > 0 asks for that channel slice (a multiple of 16 bytes of the
+    map's dtype where C is), < 0 for the per-bin mode.
 
     A CUDA feature map goes to the kernel, which counts one launch in
     ``roi_pool.launches``; a CPU one to ``roi_pool_plain``.
@@ -132,7 +159,7 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor,
     _check(features, rois)
     if features.device.type == "cuda":
         return _launch(features, rois, pooled_height, pooled_width,
-                       spatial_scale)
+                       spatial_scale, channel_slice)
     if features.device.type != "cpu":
         raise ValueError(f"unsupported device {features.device}")
     return roi_pool_plain(features, rois, pooled_height, pooled_width,
@@ -140,3 +167,5 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor,
 
 
 roi_pool.launches = 0
+roi_pool.launches_by_mode = dict.fromkeys(_MODES, 0)
+roi_pool.last_plan = None

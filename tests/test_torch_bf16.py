@@ -58,8 +58,10 @@ from i2vsgg_tpu_torch import config as port_config
 from i2vsgg_tpu_torch import serve
 from i2vsgg_tpu_torch.models import backbones as bb
 from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
+from i2vsgg_tpu_torch.models import sgg as sgg_mod
 from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
 from i2vsgg_tpu_torch.ops import bottleneck as chain
+from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
 from i2vsgg_tpu_torch.utils.params import bf16_storage_cast, keep_fp32
 from i2vsgg_tpu_torch.utils.weights import params_from_jax
 import chip_smoke
@@ -279,6 +281,51 @@ def test_bf16_sgg_head_on_jax_detections_matches_jax(setting):
             T(base[f:f + 1]), T(info), T(boxes), T(ix1).long(),
             T(ix2).long(), T(pv), T(s["prd"]),
             pair_static=tuple(T(a).long() for a in pair_static))
+        close(torch.softmax(got["scores"].float(), -1),
+              jax.nn.softmax(exp["scores"].astype(jnp.float32), -1),
+              REL_PROB_TOL)
+
+
+def test_bf16_sgg_head_under_align_pools_the_map_without_a_copy(setting):
+    """The SGG head under align hands RoIAlignAvg the bf16 map as it comes
+    with out_dtype=float32; its outputs equal those of the former route,
+    which pooled an f32 copy of the map, and match JAX's head."""
+    s = setting
+    o = s["jax_program"]
+    ix1, ix2 = jax_serve.make_pair_indices(MD)
+    pair_static = jax_serve.make_union_dedup(ix1, ix2)
+    base = s["jax_out"]["base_feat"]
+    calls = []
+
+    def recording(features, rois, *a, **k):
+        calls.append((features.dtype, k.get("out_dtype")))
+        return roi_align_avg(features, rois, *a, **k)
+
+    def copy_route(features, rois, *a, out_dtype=None, **k):
+        return roi_align_avg(features.float(), rois, *a, **k)
+
+    for f in range(B):
+        info = s["im_info"][f]
+        boxes = np.asarray(o["boxes"][f]) * info[2]
+        pv = np.asarray(o["pair_valid"][f])
+        args = (T(info), T(boxes), T(ix1).long(), T(ix2).long(), T(pv),
+                T(s["prd"]))
+        kw = dict(pair_static=tuple(T(a).long() for a in pair_static))
+        fmap = T(base[f:f + 1])
+        assert fmap.dtype == torch.bfloat16
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sgg_mod, "roi_align_avg", recording)
+            got = s["sgg_t"].head_on_features(fmap, *args, **kw)
+            mp.setattr(sgg_mod, "roi_align_avg", copy_route)
+            before = s["sgg_t"].head_on_features(fmap, *args, **kw)
+        assert calls[-1] == (torch.bfloat16, torch.float32)
+        for key in got:
+            assert torch.equal(got[key], before[key]), key
+        exp = s["sgg"].apply(
+            {"params": s["sgg_params"]}, jnp.asarray(base[f:f + 1]),
+            jnp.asarray(info), jnp.asarray(boxes), jnp.asarray(ix1),
+            jnp.asarray(ix2), jnp.asarray(pv), jnp.asarray(s["prd"]),
+            pair_static=pair_static, method=JaxSGGModel.head_on_features)
         close(torch.softmax(got["scores"].float(), -1),
               jax.nn.softmax(exp["scores"].astype(jnp.float32), -1),
               REL_PROB_TOL)

@@ -225,6 +225,145 @@ def test_roi_align_wrapper_refuses(cuda):
         roi_align_avg(fmap, rois, grid=(0, 9))
 
 
+def _align_site_rois(cuda, n_img, n_rnd, seed):
+    """The edge rois, then ``n_rnd`` random boxes an image (some past the
+    map), grouped per image."""
+    import chip_smoke
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    edge = chip_smoke.align_edge_rois(cuda, n_img).reshape(n_img, -1, 5)
+    rnd = torch.rand(n_img, n_rnd, 4, generator=g, device=cuda) * \
+        torch.tensor([1000.0, 640.0, 1000.0, 640.0], device=cuda) - 20
+    rnd = torch.cat([torch.minimum(rnd[..., :2], rnd[..., 2:]),
+                     torch.maximum(rnd[..., :2], rnd[..., 2:])], -1)
+    rnd = torch.cat([edge[:, :1, :1].expand(-1, n_rnd, 1), rnd], -1)
+    return torch.cat([edge, rnd], 1).reshape(-1, 5).contiguous()
+
+
+@pytest.mark.parametrize("fshape,dtype,out_dtype,n,grid", [
+    ((4, 38, 60, 1024), torch.bfloat16, None, 128, (0, 2, 4, 6)),   # det
+    ((4, 38, 60, 512), torch.bfloat16, None, 128, None),            # ic
+    ((1, 38, 60, 1024), torch.float32, None, 36, None),     # SGG, f32 copy
+    ((1, 38, 60, 1024), torch.bfloat16, torch.float32, 36, None),   # SGG
+])
+def test_roi_align_main_path_shapes(cuda, fshape, dtype, out_dtype, n, grid):
+    """The main path's three sites (and the SGG site's former f32 copy):
+    the staged mode, held to the plain version by the usual rules, and
+    bit-equal to the per-cell mode (the first design's arithmetic)."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import (roi_align_avg,
+                                                roi_align_avg_plain)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fmap = (torch.randn(*fshape, generator=g, device=cuda) * 4).to(dtype)
+    rois = _align_site_rois(cuda, fshape[0], n - 12, 4)
+    od = out_dtype or dtype
+    before = dict(roi_align_avg.launches_by_mode)
+    got = roi_align_avg(fmap, rois, grid=grid, out_dtype=od)
+    assert roi_align_avg.last_plan["mode"] == "staged"
+    assert roi_align_avg.launches_by_mode["staged"] == before["staged"] + 1
+    assert got.dtype == od and got.shape[0] == rois.shape[0]
+    ref = roi_align_avg_plain(fmap.to(od), rois, grid=grid)
+    if od == torch.float32:
+        chip_smoke.held_f32(got, ref, "site", float(fmap.float().abs().max()))
+    else:
+        chip_smoke.held_one_ulp(got, ref, "site")
+    per_cell = roi_align_avg(fmap, rois, grid=grid, out_dtype=od,
+                             channel_slice=-1)
+    assert roi_align_avg.last_plan["mode"] == "per_cell"
+    assert torch.equal(got, per_cell)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("grid", [None, (0, 2, 4, 6)])
+def test_roi_align_widening_equals_the_kernel_on_the_f32_copy(cuda, dtype,
+                                                              grid):
+    """out_dtype=float32 on a bf16/f16 map is the kernel run on
+    ``map.float()``, bit for bit, in both modes and a taller map."""
+    from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for fshape in ((1, 38, 60, 1024), (2, 45, 30, 48), (1, 20, 30, 36)):
+        fmap = (torch.randn(*fshape, generator=g, device=cuda) * 4).to(dtype)
+        rois = _align_site_rois(cuda, fshape[0], 24, 6)
+        for sl in (0, -1):
+            got = roi_align_avg(fmap, rois, grid=grid,
+                                out_dtype=torch.float32, channel_slice=sl)
+            want = roi_align_avg(fmap.float(), rois, grid=grid,
+                                 channel_slice=sl)
+            assert got.dtype == torch.float32
+            assert torch.equal(got, want), (fshape, sl)
+
+
+@pytest.mark.parametrize("fshape,dtype,mode", [
+    ((1, 90, 130, 16), torch.float32, "staged"),     # only 4 channels fit
+    ((1, 130, 130, 16), torch.bfloat16, "per_cell"),  # no slice fits
+    ((2, 38, 60, 512), torch.bfloat16, "staged"),    # slices asked for
+])
+def test_roi_align_narrow_slices_and_the_per_cell_mode(cuda, fshape, dtype,
+                                                       mode):
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import (roi_align_avg,
+                                                roi_align_avg_plain)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    fmap = (torch.randn(*fshape, generator=g, device=cuda) * 4).to(dtype)
+    rois = _align_site_rois(cuda, fshape[0], 40, 7)
+    before = dict(roi_align_avg.launches_by_mode)
+    got = roi_align_avg(fmap, rois)
+    assert roi_align_avg.last_plan["mode"] == mode
+    assert roi_align_avg.launches_by_mode[mode] == before[mode] + 1
+    if fshape[1] == 90:
+        assert roi_align_avg.last_plan["slice"] == 4
+    ref = roi_align_avg_plain(fmap, rois)
+    if dtype == torch.float32:
+        chip_smoke.held_f32(got, ref, "narrow", float(fmap.abs().max()))
+    else:
+        chip_smoke.held_one_ulp(got, ref, "narrow")
+    for sl in (8, 16, 32, -1):
+        if fshape[1] != 38 and sl > 0:
+            continue
+        assert torch.equal(roi_align_avg(fmap, rois, channel_slice=sl), got)
+    with pytest.raises(RuntimeError):            # not a multiple of 8 bf16
+        roi_align_avg(fmap.bfloat16(), rois, channel_slice=12)
+
+
+@pytest.mark.parametrize("case", ["b2", "narrow", "per_bin", "slices"])
+def test_roi_pool_staged_and_per_bin_modes(cuda, case):
+    """torch.equal to the plain version: two images (rois of both, and
+    batch indices clamped into range), a map where only a narrow slice
+    fits, one where none fits (the per-bin mode), and every slice asked
+    for at the serving shape."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_pool import roi_pool, roi_pool_plain
+    g = torch.Generator(device=cuda).manual_seed(8)
+    shape, dtype = {"b2": ((2, 38, 60, 1024), torch.bfloat16),
+                    "narrow": ((1, 100, 120, 8), torch.float32),
+                    "per_bin": ((1, 150, 150, 64), torch.bfloat16),
+                    "slices": ((1, 38, 60, 1024), torch.bfloat16)}[case]
+    fmap = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    rois = chip_smoke.edge_rois(cuda)
+    rnd = torch.rand(64, 4, generator=g, device=cuda) * torch.tensor(
+        [shape[2] * 16.0, shape[1] * 16.0] * 2, device=cuda)
+    rnd = torch.cat([torch.zeros_like(rnd[:, :1]),
+                     torch.minimum(rnd[:, :2], rnd[:, 2:]),
+                     torch.maximum(rnd[:, :2], rnd[:, 2:])], 1)
+    rois = torch.cat([rois, rnd]).contiguous()
+    if case == "b2":
+        rois[::3, 0] = 1.0
+        rois[5, 0] = 7.0                   # clamped to the last image
+        rois[6, 0] = -3.0                  # clamped to the first
+    want = roi_pool_plain(fmap, rois)
+    mode = "per_bin" if case == "per_bin" else "staged"
+    before = dict(roi_pool.launches_by_mode)
+    assert torch.equal(roi_pool(fmap, rois), want)
+    assert roi_pool.last_plan["mode"] == mode
+    assert roi_pool.launches_by_mode[mode] == before[mode] + 1
+    if case == "narrow":
+        assert roi_pool.last_plan["slice"] == 4
+    if case == "slices":
+        for sl in (8, 16, 32, -1):
+            assert torch.equal(roi_pool(fmap, rois, channel_slice=sl), want)
+        with pytest.raises(RuntimeError):        # not a multiple of 8 bf16
+            roi_pool(fmap, rois, channel_slice=12)
+
+
 def _chain_case(cuda, b, h, w, c, m, n, seed=0):
     """A map and folded chain weights of the JAX chain test's scale (x ~
     N(0, 1), weights and biases ~ 0.05 N(0, 1)) in the kernel's types."""

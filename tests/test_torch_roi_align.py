@@ -114,3 +114,31 @@ def test_wrapper_cpu_path_and_refusals():
         ra.roi_align_avg(f, rois, grid=(0, 7))           # outside the grid
     with pytest.raises(ValueError):
         ra.roi_align_avg(f[:, :1], rois)                 # a 1-row map
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("grid", [None, (0, 2, 4, 6)])
+def test_widening_mode_equals_plain_on_the_f32_copy(dtype, grid):
+    """out_dtype=float32 on a bf16/f16 map is the function of pooling
+    ``map.float()`` (f32 weights, f32 output), bit for bit, on the edge
+    rois of two images."""
+    g = torch.Generator().manual_seed(4)
+    f = (torch.randn(2, 38, 60, 32, generator=g) * 4).to(dtype)
+    rois = chip_smoke.align_edge_rois("cpu", 2)
+    got = ra.roi_align_avg(f, rois, grid=grid, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ra.roi_align_avg_plain(f.float(), rois,
+                                                   grid=grid))
+    # the same map's own dtype is the default
+    assert torch.equal(ra.roi_align_avg(f, rois, grid=grid, out_dtype=dtype),
+                       ra.roi_align_avg(f, rois, grid=grid))
+
+
+def test_wrapper_refuses_a_narrowing_out_dtype():
+    f = torch.randn(1, 10, 12, 8)
+    rois = chip_smoke.align_edge_rois("cpu", 1)
+    for fmap, out_dtype in ((f, torch.bfloat16), (f, torch.float16),
+                            (f.bfloat16(), torch.float16),
+                            (f.bfloat16(), torch.float64)):
+        with pytest.raises(TypeError):
+            ra.roi_align_avg(fmap, rois, out_dtype=out_dtype)
