@@ -37,7 +37,8 @@ along four paths:
   with the calibration file's static activation scales; then phase 9's
   weights on the same images, for agreement and time. Phase 11b holds the
   int8 conv1 kernel (B6, which no path dispatches, as in JAX) to its plain
-  version on the path's own frames.
+  version on the path's own frames and on clamped and tied inputs, and
+  times it by device time.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -715,6 +716,30 @@ def conv1_int8_work(x: torch.Tensor, out: torch.Tensor) -> tuple:
     nbytes = (x.numel() * x.element_size() + 64 * 160 + 2 * 64 * 4
               + out.numel() * out.element_size())
     return nbytes, 2 * b * ho * wo * c * 147
+
+
+def int8_edge_images(shape, seed: int = 0) -> np.ndarray:
+    """Mean-subtracted f32 images (B, H, W, 3) on which B6's quantizer,
+    ``clamp(round(x + (mean - 128)), -128, 127)``, takes every branch: a
+    third integer pixels, a third whose shifted f32 sum is exactly k + 0.5
+    (rounded half to even; k from -131 to 130, so ties also meet the
+    clamp), a third uniform in (-400, 400), mostly clamped or fractional."""
+    from i2vsgg_tpu_torch.ops.conv1_int8 import DEFAULT_PIXEL_MEANS
+    rng = np.random.RandomState(seed)
+    means = np.asarray(DEFAULT_PIXEL_MEANS, np.float32)
+    shift = means - np.float32(128.0)
+    x = rng.randint(0, 256, (*shape, 3)).astype(np.float32) - means
+    half = rng.randint(-131, 131, x.shape).astype(np.float32) + 0.5
+    tie = (half.astype(np.float64) - shift).astype(np.float32)
+    for _ in range(4):              # step to the f32 whose sum is the tie
+        s = tie + shift
+        tie = np.where(s > half, np.nextafter(tie, np.float32(-np.inf)),
+                       np.where(s < half, np.nextafter(tie, np.float32(np.inf)),
+                                tie))
+    tie = np.where(tie + shift == half, tie, x)
+    wide = rng.uniform(-400.0, 400.0, x.shape).astype(np.float32)
+    pick = rng.randint(0, 3, x.shape)
+    return np.where(pick == 1, tie, np.where(pick == 2, wide, x))
 
 
 def fused_tail_blocks(trunk, h: int, w: int) -> int:
@@ -2089,8 +2114,8 @@ def main() -> int:
         f"host planes, chain off) [{card}]")
 
     phase("11b conv1_int8 (B6) kernel vs plain on the int8 path's frames "
-          "(4, 600, 960) and conv1 weights: bit-equal; time, bound, cuDNN's "
-          "bf16 conv1")
+          "(4, 600, 960) and conv1 weights, and on clamped and tied inputs: "
+          "bit-equal; device time, bound, build facts, cuDNN's bf16 conv1")
     x8 = torch.as_tensor(video[-1][1], device=dev)   # integer pixels - means
     w1 = det_i8.trunk.conv1.weight.detach()
     mul1, add1 = det_i8.trunk.bn1.affine()
@@ -2101,7 +2126,14 @@ def main() -> int:
         raise AssertionError(
             f"conv1_int8 kernel != plain: max abs err "
             f"{float((got8.float() - want8.float()).abs().max())}")
-    k_ms = cuda_ms(lambda: c8_mod.conv1_int8_apply(x8, *params8), 50)
+    xe = torch.as_tensor(int8_edge_images(tuple(x8.shape[:3])), device=dev)
+    if not torch.equal(c8_mod.conv1_int8_apply(xe, *params8),
+                       c8_mod.conv1_bn_relu_int8_plain(xe, *params8)):
+        raise AssertionError("conv1_int8 kernel != plain on clamped and tied "
+                             "inputs")
+    k_ms = kernel_ms(lambda: c8_mod.conv1_int8_apply(x8, *params8),
+                     "conv1_int8")
+    call_ms = cuda_ms(lambda: c8_mod.conv1_int8_apply(x8, *params8), 50)
     p_ms = cuda_ms(lambda: c8_mod.conv1_bn_relu_int8_plain(x8, *params8), 10,
                    1)
     xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)   # NCHW view, channels-last
@@ -2112,13 +2144,20 @@ def main() -> int:
         xb, wf, bias1, stride=2, padding=3), 50)
     nbytes, ops = conv1_int8_work(x8, got8)
     bnd, by = bound_of(nbytes, ops, H100_INT8_OPS_PER_S)
+    built = build_facts("conv1_int8.cu", "conv1_int8_kernel")
     kernels["conv1_int8"].update(
-        max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
-        library_ms=None, cudnn_bf16_conv1_ms=cudnn_ms)
-    log(f"conv1_int8 on {tuple(x8.shape)}: bit-equal to plain; kernel "
-        f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, cuDNN bf16 conv "
-        f"(+ affine) {cudnn_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}: "
-        f"{nbytes} B, {ops} int8 ops) [{card}]")
+        max_abs_err=0.0, ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        cudnn_bf16_conv1_ms=cudnn_ms,
+        smem_bytes=c8_mod._lib().i2vsgg_conv1_int8_smem_bytes(), **built)
+    log(f"conv1_int8 on {tuple(x8.shape)}: bit-equal to plain, also on "
+        f"clamped and tied inputs; kernel {k_ms * 1e3:.2f} us of device time "
+        f"({call_ms * 1e3:.2f} us back to back), {100 * bnd / k_ms:.1f} % of "
+        f"its bound {bnd * 1e3:.3f} us ({by}: {nbytes} B, {ops} int8 ops); "
+        f"{built['registers']} registers, "
+        f"{kernels['conv1_int8']['smem_bytes']} B of shared memory, "
+        f"{built['spill_bytes']} B spilled; plain {p_ms * 1e3:.2f} us, cuDNN "
+        f"bf16 conv (+ affine) {cudnn_ms * 1e3:.2f} us [{card}]")
 
     phase("12 results")
     print(json.dumps({"serving": {

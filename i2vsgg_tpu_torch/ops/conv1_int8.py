@@ -1,5 +1,5 @@
 """ResNet conv1 (7x7, stride 2, pad 3) + FrozenBN affine + ReLU as an int8
-im2col GEMM — counterpart of the JAX package's Pallas kernel
+implicit GEMM — counterpart of the JAX package's Pallas kernel
 ``i2vsgg_tpu/ops/pallas/conv1_int8_kernel.py::conv1_bn_relu_int8_pallas``
 (B6).
 

@@ -467,12 +467,20 @@ def _int8_image_case(device, shape, seed=0):
     return x.contiguous(), weight, mul, add
 
 
-@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70), (1, 7, 9),
-                                   (1, 1, 1), (3, 37, 301), (1, 600, 960)])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 96),        # 4 tiles of 16 x 32 outputs: fewer than the SMs
+    (2, 50, 70),        # Ho 25, Wo 35: partial tiles in both axes
+    (1, 7, 9), (1, 1, 1),
+    (2, 5, 1), (1, 9, 2), (3, 4, 3),   # 1-3 pixels wide: all halo but one
+    (3, 37, 301),       # Ho 19, Wo 151
+    (16, 200, 300),     # 560 tiles: more than two a block, partial edges
+    (1, 600, 960),
+    (4, 600, 960)])     # the int8 path's frames: 1140 tiles
 def test_conv1_int8_kernel_bit_equal_to_plain(cuda, shape):
     """B6 against its plain version on the same parameters: bit-equal, at
-    odd sizes (a partial last tile, rows and columns where the whole
-    window is halo), B = 1 and the serving frame."""
+    odd sizes (partial tiles at Ho and Wo, rows and columns where the whole
+    window is halo, fewer tiles than SMs and more than the persistent
+    blocks, so that their loop wraps), B = 1 and the serving frames."""
     from i2vsgg_tpu_torch.ops import conv1_int8 as c8
     x, weight, mul, add = _int8_image_case(cuda, shape)
     params = c8.conv1_int8_params(weight, mul, add)
@@ -485,6 +493,24 @@ def test_conv1_int8_kernel_bit_equal_to_plain(cuda, shape):
                          (shape[2] - 1) // 2 + 1, 64)
     assert torch.equal(got, want)
     # and the plain version on the card equals the one on the CPU
+    assert torch.equal(want.cpu(), c8.conv1_bn_relu_int8_plain(
+        x.cpu(), *(t.cpu() for t in params)))
+
+
+@pytest.mark.parametrize("shape", [(1, 33, 47), (2, 50, 70), (4, 600, 960)])
+def test_conv1_int8_kernel_on_clamps_and_ties(cuda, shape):
+    """B6 bit-equal to its plain version on images that are not integer
+    pixels (``chip_smoke.int8_edge_images``): shifted sums beyond the int8
+    range (the clamp) and exactly k + 0.5 (half to even)."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops import conv1_int8 as c8
+    _, weight, mul, add = _int8_image_case(cuda, (1, 8, 8))
+    x = torch.from_numpy(chip_smoke.int8_edge_images(shape)).to(cuda)
+    params = c8.conv1_int8_params(weight, mul, add)
+    got = c8.conv1_int8_apply(x, *params)
+    want = c8.conv1_bn_relu_int8_plain(x, *params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
     assert torch.equal(want.cpu(), c8.conv1_bn_relu_int8_plain(
         x.cpu(), *(t.cpu() for t in params)))
 

@@ -20,7 +20,8 @@ read at forward time. Checked here:
 * the env switch's scope (substring of the joined path, ``@3x3``) quantizes
   the convs ``quantize_trunk_params`` does: the two paths are bit-equal;
 * the plain B6 (``ops/conv1_int8.py``) against
-  ``conv1_bn_relu_int8_pallas(interpret=True)`` at the JAX test's shapes;
+  ``conv1_bn_relu_int8_pallas(interpret=True)`` at the JAX test's shapes,
+  and on non-integer inputs that take the clamp and the half-to-even tie;
 * the whole int8 frame program at res10 64x80 bf16 (bounds below);
 * ``ResNetStage`` refuses int8 weights under the chain switch, and the
   CPU quality-gate and calibration modes raise.
@@ -327,20 +328,12 @@ def test_env_scope_equals_hoisted_weights(monkeypatch, trees, scope):
     assert torch.equal(env[1], plain[1]) == ("layer2" not in scope)
 
 
-@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70)])
-def test_conv1_int8_plain_matches_pallas_interpret(shape):
-    """The plain B6 against the interpret-mode Pallas kernel, at the JAX
-    test's shapes and inputs: the int8 weights and activation taps are
-    equal, the outputs within one bf16 ulp plus 2**-16 max|ref| and at
-    least 99.9 % bit-equal (``K_o`` is a 3-term f32 sum, then a 49-term
-    one, whose order may differ)."""
-    b, h, w_ = shape
-    rng = np.random.RandomState(0)
-    raw = rng.randint(0, 256, (b, h, w_, 3)).astype(np.float32)
-    x = raw - np.asarray(DEFAULT_PIXEL_MEANS, np.float32)
-    w = rng.randn(7, 7, 3, 64).astype(np.float32) * 0.1
-    scale = rng.rand(64).astype(np.float32) + 0.5
-    bias = rng.randn(64).astype(np.float32)
+def _b6_vs_pallas(x, w, scale, bias):
+    """The plain B6 against the interpret-mode Pallas kernel on (B, H, W, 3)
+    mean-subtracted images ``x``, HWIO weights ``w`` and the BN affine: the
+    int8 weights and activations equal JAX's, the outputs within one bf16 ulp
+    plus 2**-16 max|ref| and at least 99.9 % bit-equal (``K_o`` is a 3-term
+    f32 sum, then a 49-term one, whose order may differ)."""
     want = np.asarray(conv1_bn_relu_int8_pallas(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
         jnp.asarray(bias), interpret=True), np.float32)
@@ -370,6 +363,38 @@ def test_conv1_int8_plain_matches_pallas_interpret(shape):
     bound = 2.0 ** -7 * np.abs(want) + 2.0 ** -16 * np.abs(want).max()
     assert (np.abs(g - want) <= bound).all()
     assert np.mean(g == want) >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 50, 70)])
+def test_conv1_int8_plain_matches_pallas_interpret(shape):
+    """The plain B6 against the interpret-mode Pallas kernel, at the JAX
+    test's shapes and inputs (integer pixels), as ``_b6_vs_pallas`` holds
+    it."""
+    b, h, w_ = shape
+    rng = np.random.RandomState(0)
+    raw = rng.randint(0, 256, (b, h, w_, 3)).astype(np.float32)
+    x = raw - np.asarray(DEFAULT_PIXEL_MEANS, np.float32)
+    w = rng.randn(7, 7, 3, 64).astype(np.float32) * 0.1
+    scale = rng.rand(64).astype(np.float32) + 0.5
+    bias = rng.randn(64).astype(np.float32)
+    _b6_vs_pallas(x, w, scale, bias)
+
+
+def test_conv1_int8_plain_matches_pallas_on_clamps_and_ties():
+    """The same parity on inputs that are not integer pixels
+    (``chip_smoke.int8_edge_images`` at (1, 33, 47)): the shifted sums
+    reach past the int8 range, so the clamp is taken, and fall exactly on
+    k + 0.5, so rounding half to even is taken, both checked here."""
+    x = chip_smoke.int8_edge_images((1, 33, 47))
+    shifted = x + (np.asarray(DEFAULT_PIXEL_MEANS, np.float32)
+                   - np.float32(128.0))
+    assert np.mean(shifted == np.floor(shifted) + 0.5) > 0.25   # ties
+    assert (shifted > 127.5).any() and (shifted < -128.5).any()  # clamps
+    rng = np.random.RandomState(1)
+    w = rng.randn(7, 7, 3, 64).astype(np.float32) * 0.1
+    scale = rng.rand(64).astype(np.float32) + 0.5
+    bias = rng.randn(64).astype(np.float32)
+    _b6_vs_pallas(x, w, scale, bias)
 
 
 def test_int8_products_exact_on_the_cpu():
