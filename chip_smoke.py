@@ -10,21 +10,22 @@ It builds the port's CUDA kernels from ``i2vsgg_tpu_torch/csrc`` with nvcc
 int8 conv1; one nvcc each, in parallel), holds each kernel against its plain
 PyTorch version, checks small programs on the card against the same programs
 on the CPU (f32; bf16 with bf16-stored weights and the chain; the int8
-levers), and serves the fused det+SGG frame program
-(``i2vsgg_tpu_torch.serve``) at full width: ResNet-101 with ic+gc context,
-16 classes, 26 predicates, 600x960 frames in bf16, rpn post-NMS 128 /
-pre-NMS 512, 8 detections with 8 per class, with seeded random weights,
-along four paths:
+levers; the VGG16 and non-fused detectors), and serves the fused det+SGG
+frame program (``i2vsgg_tpu_torch.serve``) at full width: ResNet-101 (and
+in phase 12 VGG16) with ic+gc context, 16 classes, 26 predicates, 600x960
+frames in bf16, rpn post-NMS 128 / pre-NMS 512, 8 detections with 8 per
+class, with seeded random weights, along five paths:
 
 * phase 5: f32 images and the SGG head on RoIPool (the first slice's path);
-* phase 6, this slice's path: a 12-frame synthetic video in 3 requests, fed
-  as conv1 parity planes packed on the host (``--host_planes``), the SGG
-  head under ``pooling="align"``; then the same program fed f32 images under
-  ``I2VSGG_PALLAS_CONV1=1`` (bit-equal), the bucketed program with buckets
-  (4, 8), Stage C (per-frame tuples and ``association``) over the video,
-  the uint8 upload (``dequantize_image_u8``), and a bucket below
-  ``max_det`` (phase 6f: weights that leave one foreground class, the SGG
-  head under align and under pool, both RoI kernels at a smaller R);
+* phase 6, the second slice's path: a 12-frame synthetic video in 3
+  requests, fed as conv1 parity planes packed on the host
+  (``--host_planes``), the SGG head under ``pooling="align"``; then the
+  same program fed f32 images under ``I2VSGG_PALLAS_CONV1=1`` (bit-equal),
+  the bucketed program with buckets (4, 8), Stage C (per-frame tuples and
+  ``association``) over the video, the uint8 upload
+  (``dequantize_image_u8``), and a bucket below ``max_det`` (phase 6f:
+  weights that leave one foreground class, the SGG head under align and
+  under pool, both RoI kernels at a smaller R);
 * phase 9, the third slice's path: the same video with bf16-stored weights
   (``bf16_storage_cast``) and ``I2VSGG_PALLAS_BOTTLENECK=1``, so layer3's
   22-block identity tail runs as the chain kernel; then the same weights
@@ -38,7 +39,16 @@ along four paths:
   weights on the same images, for agreement and time. Phase 11b holds the
   int8 conv1 kernel (B6, which no path dispatches, as in JAX) to its plain
   version on the path's own frames and on clamped and tied inputs, and
-  times it by device time.
+  times it by device time;
+* phase 12, the eighth slice's paths: the same video as f32 images through
+  the frame program and the bucketed program (buckets (4, 8)) of 12a a
+  VGG16 detector (ic+gc, align/7, class-agnostic boxes; the SGG head on
+  RoIPool over its 512 channels) and 12b a ResNet-101 detector on the
+  non-fused path (``POOLING_MODE=pool``: RoIPool at the detector site, the
+  stride-2 layer4 on 7x7 maps, netD_pixel's full pass; the SGG head under
+  align, ``spatial_type=0``, no object visual branch). Each RoI call of a
+  request is held to its plain version on its own inputs and timed; 12c
+  runs both programs at 64x80 on the card and on the CPU.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -121,25 +131,34 @@ def smi_name_power() -> str | None:
 
 
 def build_models(spec: dict, cfg, generator: torch.Generator,
-                 pooling: str = "pool", int8_fc: bool = False):
+                 pooling: str = "pool", int8_fc: bool = False,
+                 class_agnostic: bool = False, vrd: dict | None = None):
     """Detector + SGG model of ``spec`` with seeded random weights (on the
     CPU). The RPN and class logits are scaled up so that scores spread out
-    and no top-k or NMS decision sits on a float near-tie. ``int8_fc``
-    builds the SGG head's fc6/fc7 as ``DenseInt8`` (the same weights)."""
+    and no top-k or NMS decision sits on a float near-tie; VGG16's convs get
+    the ReLU gain (x sqrt 2) so that its map does not fade over thirteen
+    layers. ``int8_fc`` builds the SGG head's fc6/fc7 as ``DenseInt8`` (the
+    same weights); ``class_agnostic`` gives the detector a 4-wide
+    ``bbox_pred``; ``vrd`` holds further ``VRDHead`` arguments
+    (``in_channels``, ``spatial_type``, ``use_obj_visual``)."""
     from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
-    from i2vsgg_tpu_torch.models.layers import init_weights, torch_dtype
+    from i2vsgg_tpu_torch.models.layers import Conv, init_weights, torch_dtype
     from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
-    det = FasterRCNN_DA(spec["num_classes"], cfg, spec["backbone"], ic=True,
-                        gc=True)
+    det = FasterRCNN_DA(spec["num_classes"], cfg, spec["backbone"],
+                        class_agnostic=class_agnostic, ic=True, gc=True)
     sgg = SGGModel(VRDHead(emb_dim=spec["emb_dim"], fc_dim=spec["fc_dim"],
                            pooling=pooling,
                            dtype=torch_dtype(cfg.COMPUTE_DTYPE),
-                           int8_fc=int8_fc))
+                           int8_fc=int8_fc, **(vrd or {})))
     init_weights(det, generator)
     init_weights(sgg, generator)
     with torch.no_grad():
         det.rpn.cls_score.weight.mul_(40.0)
         det.cls_score.weight.mul_(40.0)
+        if spec["backbone"] == "vgg16":
+            for m in det.trunk.modules():
+                if isinstance(m, Conv):
+                    m.weight.mul_(2.0 ** 0.5)
     prd = torch.randn(spec["num_rel"], 300, generator=generator).numpy()
     return det, sgg, prd
 
@@ -805,14 +824,24 @@ def fused_tail_blocks(trunk, h: int, w: int) -> int:
     return n
 
 
-def check_kernel_vs_plain(fmap, rois, what: str) -> float:
+def roi_pool_plain_chunked(fmap, rois, *args, chunk: int = 64):
+    """``roi_pool_plain`` over ``chunk`` rois at a time (each roi's output
+    depends on that roi only): its row sweep holds (R, P, H, W, C) values,
+    about 16 GB at the detector site's 512 rois."""
+    from i2vsgg_tpu_torch.ops.roi_pool import roi_pool_plain
+    return torch.cat([roi_pool_plain(fmap, rois[i:i + chunk], *args)
+                      for i in range(0, rois.shape[0], chunk)])
+
+
+def check_kernel_vs_plain(fmap, rois, what: str, *args) -> float:
     """RoIPool's kernel, in the mode and slice it chooses and in the
-    per-bin mode, ``torch.equal`` to its plain version."""
-    from i2vsgg_tpu_torch.ops.roi_pool import roi_pool, roi_pool_plain
-    got = roi_pool(fmap, rois)
+    per-bin mode, ``torch.equal`` to its plain version (``args``: pooled
+    height and width, spatial scale)."""
+    from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
+    got = roi_pool(fmap, rois, *args)
     plan = roi_pool.last_plan
-    per_bin = roi_pool(fmap, rois, channel_slice=-1)
-    exp = roi_pool_plain(fmap, rois)
+    per_bin = roi_pool(fmap, rois, *args, channel_slice=-1)
+    exp = roi_pool_plain_chunked(fmap, rois, *args)
     torch.cuda.synchronize()
     err = float((got.float() - exp.float()).abs().max()) if got.numel() else 0.0
     if not (torch.equal(got, exp) and torch.equal(per_bin, exp)):
@@ -1097,6 +1126,183 @@ def same_outputs(a: dict, b: dict, what: str):
             raise AssertionError(f"{what}: {k} differs")
 
 
+def recorded_roi_sites(program, inputs) -> list:
+    """One call of ``program(*inputs)`` with both RoI ops recorded where the
+    models call them -> [(op, site, fmap, rois, args, kwargs)], ``site``
+    "det" for the detector's calls and "sgg" for the SGG head's."""
+    from i2vsgg_tpu_torch.models import faster_rcnn as frcnn_mod
+    from i2vsgg_tpu_torch.models import sgg as sgg_mod
+    seen = []
+
+    def rec(op, site, fn):
+        def call(features, rois, *a, **k):
+            seen.append((op, site, features, rois, a, k))
+            return fn(features, rois, *a, **k)
+        return call
+
+    saved = {(m, op): getattr(m, op) for m in (frcnn_mod, sgg_mod)
+             for op in ("roi_align_avg", "roi_pool")}
+    for (m, op), fn in saved.items():
+        setattr(m, op, rec(op.replace("_avg", ""),
+                           "det" if m is frcnn_mod else "sgg", fn))
+    try:
+        program(*inputs)
+    finally:
+        for (m, op), fn in saved.items():
+            setattr(m, op, fn)
+    torch.cuda.synchronize()
+    return seen
+
+
+def held_roi_site(op, fmap, rois, a, k, what: str) -> dict:
+    """One recorded RoI call held to its plain version on its own inputs
+    (RoIPool ``torch.equal`` in its chosen and per-bin modes; RoIAlignAvg
+    within one bf16 ulp, or rtol 1e-5 for an f32 output, and bit-equal to
+    its per-cell mode), then timed: the kernel's and the plain version's
+    device time and the bound of the work on these inputs. The kernel must
+    run staged."""
+    from i2vsgg_tpu_torch.ops import roi_align as ra_mod
+    from i2vsgg_tpu_torch.ops import roi_pool as rp_mod
+    p = a[0] if a else 7
+    if op == "roi_pool":
+        fn = rp_mod.roi_pool
+        err = check_kernel_vs_plain(fmap, rois, what, *a)
+
+        def plain():
+            return roi_pool_plain_chunked(fmap, rois, *a)
+        nbytes, ops = roi_pool_work(fmap, rois, p)
+    else:
+        fn = ra_mod.roi_align_avg
+        grid, od = k.get("grid"), k.get("out_dtype") or fmap.dtype
+        got = fn(fmap, rois, *a, **k)
+        f_ref = fmap.to(od)
+
+        def plain():
+            return ra_mod.roi_align_avg_plain(f_ref, rois, *a, grid=grid)
+        if od == torch.float32:
+            err = held_f32(got, plain(), what, float(f_ref.abs().max()))
+        else:
+            err = held_one_ulp(got, plain(), what)
+        if not torch.equal(got, fn(fmap, rois, *a, **k, channel_slice=-1)):
+            raise AssertionError(f"{what}: staged != per-cell mode")
+        nbytes, ops = roi_align_work(fmap, rois, grid, p)
+        if od != fmap.dtype:                 # the f32 output's extra bytes
+            nbytes += got.numel() * (od.itemsize - fmap.element_size())
+    fn(fmap, rois, *a, **k)
+    plan = dict(fn.last_plan)
+    if plan["mode"] != "staged":
+        raise AssertionError(f"{what}: {plan}")
+    bnd, by = bound_of(nbytes, ops, H100_F32_OPS_PER_S)
+    return {"fmap": list(fmap.shape), "dtype": str(fmap.dtype),
+            "rois": rois.shape[0], "max_abs_err": err,
+            "ms": kernel_ms(lambda: fn(fmap, rois, *a, **k), op + "_"),
+            "slice_ms": slice_times(lambda sl: fn(
+                fmap, rois, *a, **k, channel_slice=sl), op + "_"),
+            "plain_ms": kernel_ms(plain, reps=3), "bound_ms": bnd,
+            "bound_by": by, "bytes": nbytes, **plan}
+
+
+def serve_slice8(name, det, sgg, prd, cfg, video, to_input, counters,
+                 per_request: dict, card: str, **kw) -> dict:
+    """Phase 12's steps for one configuration: the frame program and the
+    bucketed program (buckets (4, 8)) over the video, each request's output
+    checked and the bucketed program held to the frame program; then each
+    RoI call of one request held to its plain version on its own inputs
+    and timed (``held_roi_site``), summed per request by op and site."""
+    from i2vsgg_tpu_torch import serve
+    program = serve.make_frame_program(det, sgg, prd, cfg, **kw)
+    outs, times = serve_requests(program, video, to_input, counters,
+                                 per_request, f"{name}, frame program")
+    for out in outs:
+        check_outputs(out, FULL)
+    bucketed = serve.make_bucketed_program(det, sgg, prd, cfg,
+                                           buckets=(4, 8), **kw)
+    bk_outs, bk_times = serve_requests(bucketed, video, to_input, counters,
+                                       per_request,
+                                       f"{name}, bucketed (4, 8)")
+    for out in bk_outs:
+        check_outputs(out, FULL)
+    worst = bucketed_vs_fused(outs, bk_outs)
+    rec = {"ms_per_request": steady_ms(times),
+           "bucketed_ms_per_request": steady_ms(bk_times),
+           "buckets": [o["bucket"] for o in bk_outs],
+           "bucketed_max_rel_prob_diff": worst,
+           "valid_detections": int(outs[-1]["det_valid"].sum()),
+           "sites": {}}
+    log(f"{name}: buckets chosen {rec['buckets']}; detections equal to the "
+        f"frame program's, valid pairs' rel_prob within {worst:.3g} (tol "
+        f"1e-3); steady {rec['ms_per_request']:.2f} ms/request (bucketed "
+        f"{rec['bucketed_ms_per_request']:.2f}), valid detections "
+        f"{rec['valid_detections']} [{card}]")
+    for op, site, fmap, rois, a, k in recorded_roi_sites(
+            program, to_input(video[-1])):
+        what = f"{name} {op} {site} site {tuple(fmap.shape)} {fmap.dtype}"
+        one = held_roi_site(op, fmap, rois, a, k, what)
+        key = f"{op} {site}"
+        tot = rec["sites"].setdefault(key, dict(
+            one, launches_per_request=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            bytes=0, slice_ms=dict.fromkeys(one["slice_ms"], 0.0)))
+        tot["launches_per_request"] += 1
+        for f in ("ms", "plain_ms", "bound_ms", "bytes"):
+            tot[f] += one[f]
+        for sl, v in one["slice_ms"].items():    # None: the slice did not fit
+            tot["slice_ms"][sl] = (None if v is None or tot["slice_ms"][sl]
+                                   is None else tot["slice_ms"][sl] + v)
+        tot["max_abs_err"] = max(tot["max_abs_err"], one["max_abs_err"])
+    calls = {op: sum(t["launches_per_request"] for key, t in
+                     rec["sites"].items() if key.startswith(op + " "))
+             for op in ("roi_align", "roi_pool")}
+    if calls != {op: per_request[op] for op in calls}:
+        raise AssertionError(f"{name}: RoI calls a request {calls}, expected "
+                             f"{per_request}")
+    for key, t in rec["sites"].items():
+        by_slice = {k: None if v is None else round(v * 1e3, 2)
+                    for k, v in t["slice_ms"].items()}
+        log(f"{name} {key}: {t['launches_per_request']} launches a request, "
+            f"fmap {tuple(t['fmap'])} {t['dtype']}, {t['rois']} rois a "
+            f"launch; {t['ms'] * 1e3:.2f} us of device time a request "
+            f"(slice {t['slice']}, {t['smem_bytes']} B of shared memory; by "
+            f"slice {by_slice} us), "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: {t['bytes']} B), "
+            f"max abs err vs plain {t['max_abs_err']:.3g} [{card}]")
+    return rec
+
+
+def small_card_vs_cpu(name, spec, cfg, extra: dict, per: dict, counters,
+                      dev, images, im_info):
+    """The frame program of ``spec`` (``build_models(..., **extra)``, seed
+    1) on the card and on the CPU (plain kernels), f32 with TF32 off: the
+    card's RoI launches must be ``per``, and its output is held to the
+    CPU's and to the witness (``whole_program_checks``: detections matched
+    first)."""
+    from i2vsgg_tpu_torch import serve
+    kw = dict(max_det=spec["max_det"], max_per_class=spec["max_per_class"])
+    det_c, sgg_c, prd = build_models(spec, cfg,
+                                     torch.Generator().manual_seed(1), **extra)
+    det_g, sgg_g = copy.deepcopy(det_c), copy.deepcopy(sgg_c)
+    ref = serve.make_frame_program(det_c, sgg_c, prd, cfg, device="cpu",
+                                   **kw)(images, im_info)
+    with tf32_off():
+        counters.reset()
+        got = serve.make_frame_program(det_g, sgg_g, prd, cfg, device=dev,
+                                       **kw)(images, im_info)
+        launched = {k: counters.read()[k] for k in per}
+        witness, _ = witness_outputs(det_c, sgg_c, det_g, prd, cfg, images,
+                                     im_info, dev, **kw)
+    if launched != per:
+        raise AssertionError(f"{name}: launches {launched}, expected {per}")
+    checks = whole_program_checks({k: v.cpu() for k, v in got.items()}, ref,
+                                  witness, name)
+    for what, err, tol in checks:
+        log(f"{name} {what}: {err:.3g} (tol {tol:g})")
+    bad = [what for what, err, tol in checks if not err <= tol]
+    if bad:
+        raise AssertionError(f"{name}, card vs CPU: {bad} out of bounds")
+    log(f"{name}: launches on the card {launched}; valid detections "
+        f"{int(ref['det_valid'].sum())} of {ref['det_valid'].numel()}")
+
+
 # ----------------------------------------------------------------------------
 # ``--chain-depths``: how deep the chain kernel may let the tensor cores
 # accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
@@ -1209,7 +1415,6 @@ def main() -> int:
         from i2vsgg_tpu_torch import serve
         from i2vsgg_tpu_torch.config import Config, cfg_from_list
         from i2vsgg_tpu_torch.data.pipeline import dequantize_image_u8
-        from i2vsgg_tpu_torch.models import faster_rcnn as frcnn_mod
         from i2vsgg_tpu_torch.models import sgg as sgg_mod
         from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
         from i2vsgg_tpu_torch.ops import bottleneck as chain_mod
@@ -1649,17 +1854,8 @@ def main() -> int:
 
     phase("5b roi_pool on the main path's own inputs: exactness and time")
     roi_pool_fn = roi_pool_mod.roi_pool
-    seen = []
-
-    def recording(features, rois, *a, **k):
-        seen.append((features, rois))
-        return roi_pool_fn(features, rois, *a, **k)
-
-    sgg_mod.roi_pool = recording
-    try:
-        program(*requests[-1])
-    finally:
-        sgg_mod.roi_pool = roi_pool_fn
+    seen = [(f, r) for op, _, f, r, _, _ in recorded_roi_sites(
+        program, requests[-1]) if op == "roi_pool"]
     k_ms = p_ms = bound_ms = per_bin_ms = call_ms = 0.0
     by_slice = {}
     bound_by = "bytes"
@@ -1856,19 +2052,10 @@ def main() -> int:
     phase("7 conv1 and roi_align on the main path's own inputs: exactness "
           "and time per request")
     ra_fn = roi_align_mod.roi_align_avg
-    sites = []
-
-    def rec_align(features, rois, *a, **k):
-        sites.append((features, rois, k.get("grid"), k.get("out_dtype")))
-        return ra_fn(features, rois, *a, **k)
-
-    frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = rec_align
-    try:
-        planes = conv1_mod.Conv1Planes.pack(video[-1][1])
-        program(planes, video[-1][2])
-    finally:
-        frcnn_mod.roi_align_avg = sgg_mod.roi_align_avg = ra_fn
-    torch.cuda.synchronize()
+    planes = conv1_mod.Conv1Planes.pack(video[-1][1])
+    sites = [(f, r, k.get("grid"), k.get("out_dtype"))
+             for op, _, f, r, _, k in recorded_roi_sites(
+                 program, (planes, video[-1][2])) if op == "roi_align"]
     ra = kernels["roi_align"]
     ra.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
               per_cell_ms=0.0, call_ms=0.0, sites=[])
@@ -2210,14 +2397,55 @@ def main() -> int:
         f"{built['spill_bytes']} B spilled; plain {p_ms * 1e3:.2f} us, cuDNN "
         f"bf16 conv (+ affine) {cudnn_ms * 1e3:.2f} us [{card}]")
 
-    phase("12 results")
+    phase("12 the eighth slice's paths, served at full width on the video "
+          "as f32 images: 12a VGG16 (ic+gc, align/7, class-agnostic boxes; "
+          "SGG head on RoIPool over 512 channels), 12b ResNet-101 on the "
+          "non-fused path (POOLING_MODE=pool; SGG head under align, "
+          "spatial_type 0, no object visual branch)")
+    slice8 = {}
+    for name, spec, cfg12, extra, per in (
+            ("12a vgg16", dict(FULL, backbone="vgg16"), cfg,
+             dict(class_agnostic=True, vrd=dict(in_channels=512)),
+             dict(NO_LAUNCHES, roi_align=1, roi_pool=b)),
+            ("12b res101 pool", FULL, cfg.replace(POOLING_MODE="pool"),
+             dict(pooling="align",
+                  vrd=dict(spatial_type=0, use_obj_visual=False)),
+             dict(NO_LAUNCHES, roi_pool=1, roi_align=b))):
+        phase(f"{name}: frame program and bucketed program, 3 requests; "
+              "each RoI call held to its plain version and timed")
+        t = time.time()
+        det12, sgg12, prd12 = build_models(
+            spec, cfg12, torch.Generator().manual_seed(12), **extra)
+        if det12.fused:
+            raise AssertionError(f"{name}: the detector takes the fused path")
+        log(f"models built in {time.time() - t:.2f} s")
+        slice8[name] = serve_slice8(name, det12, sgg12, prd12, cfg12, video,
+                                    images_in, counters, per, card, **kw)
+        del det12, sgg12
+        torch.cuda.empty_cache()
+
+    phase("12c small programs of 12a and 12b: card vs CPU (64x80, 4 "
+          "classes, f32, TF32 off), detections matched before comparing")
+    for name, spec, cfg12, extra, per in (
+            ("small vgg16", dict(SMALL, backbone="vgg16"), cfg_s,
+             dict(class_agnostic=True, vrd=dict(in_channels=512)),
+             dict(roi_align=1, roi_pool=SMALL["frames"])),
+            ("small res101 pool", dict(SMALL, backbone="res101"),
+             cfg_s.replace(POOLING_MODE="pool"),
+             dict(pooling="align",
+                  vrd=dict(spatial_type=0, use_obj_visual=False)),
+             dict(roi_pool=1, roi_align=SMALL["frames"]))):
+        small_card_vs_cpu(name, spec, cfg12, extra, per, counters, dev,
+                          imgs_s, info_s)
+
+    phase("13 results")
     print(json.dumps({"serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
         "below_max_det": sparse,
         "chain_vs_unfused": agreement, "int8_vs_bf16": int8_vs_bf16,
-        "wall_s": time.time() - T0}}), flush=True)
+        "slice8": slice8, "wall_s": time.time() - T0}}), flush=True)
     meta = {
         "roi_pool": ("i2vsgg_tpu_torch/csrc/roi_pool.cu",
                      "i2vsgg_tpu/ops/pallas/roi_pool_kernel.py:134",
@@ -2241,6 +2469,11 @@ def main() -> int:
                        "none: no single PyTorch call computes the int8 conv1; "
                        "yardstick: cuDNN's bf16 conv1 with the BN scale "
                        "folded and the shift as bias (cudnn_bf16_conv1_ms)")}
+    for name in ("roi_pool", "roi_align"):
+        kernels[name]["phase12_sites"] = [
+            dict(t, path=path, site=key.split()[1])
+            for path, rec in slice8.items()
+            for key, t in rec["sites"].items() if key.startswith(name + " ")]
     line = []
     for name in ("roi_pool", "roi_align", "conv1", "bottleneck",
                  "conv1_int8"):
@@ -2259,7 +2492,8 @@ def main() -> int:
                                                 "cudnn_tail_ms",
                                                 "cudnn_tail_graph_ms",
                                                 "chain_check",
-                                                "cudnn_bf16_conv1_ms")
+                                                "cudnn_bf16_conv1_ms",
+                                                "phase12_sites")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

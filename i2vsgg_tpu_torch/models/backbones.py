@@ -1,10 +1,13 @@
-"""ResNet trunk and head — counterpart of ``i2vsgg_tpu/models/backbones.py``
-(the serving program's float and int8 paths).
+"""ResNet and VGG16 trunks and heads — counterpart of
+``i2vsgg_tpu/models/backbones.py`` (the serving program's float and int8
+paths).
 
 * caffe-convention ``Bottleneck``: the stride sits on the FIRST 1x1 conv;
 * every BatchNorm is frozen, i.e. a constant affine (``FrozenBatchNorm``);
 * ``ResNetTrunk`` = conv1..layer3 and returns ``(c4, layer2 tap)``;
-  ``ResNetHead`` = layer4 + spatial mean.
+  ``ResNetHead`` = layer4 + spatial mean;
+* ``VGG16Trunk`` = conv1_1..conv5_3 and returns ``(conv5_3, conv4_3 tap)``;
+  ``VGG16Head`` = fc6/fc7 over the flattened pooled rois.
 
 Public inputs and outputs are NHWC, as in the JAX package. Inside, tensors
 are NCHW views of channels-last memory (``permute`` of an NHWC tensor), which
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from i2vsgg_tpu_torch.models.layers import Conv
+from i2vsgg_tpu_torch.models.layers import Conv, Dense
 from i2vsgg_tpu_torch.ops import conv1 as conv1_ops
 from i2vsgg_tpu_torch.ops.bottleneck import (bottleneck_chain,
                                              chain_vmem_bytes,
@@ -404,3 +407,61 @@ class ResNetHead(nn.Module):
     def forward(self, x, first_stride: int = 2):
         x = self.layer4(nhwc_to_nchw(x.to(self.dtype)), first_stride)
         return x.mean(dim=(2, 3))
+
+
+class VGG16Trunk(nn.Module):
+    """VGG16 conv1_1..conv5_3 (``conv0`` .. ``conv12``: 3x3, bias, ReLU),
+    a 2x2/2 max pool (floor) after each of the first four blocks and none
+    after the fifth, so the map is at stride 16 — the ``vgg16.yml``
+    backbone.
+
+    ``forward(images NHWC)`` -> (conv5_3 (B, H/16, W/16, 512), conv4_3 tap
+    (B, H/8, W/8, 512), taken before the fourth pool), both NHWC. The pools
+    floor: 600 rows give a 37-row map. Images only: the conv1 kernels'
+    ``Conv1Planes`` belong to the ResNet stem.
+    """
+
+    CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+           512, 512, 512, "M", 512, 512, 512)
+
+    def __init__(self, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        cin, i = 3, 0
+        for v in self.CFG:
+            if v != "M":
+                setattr(self, f"conv{i}", Conv(cin, v, 3, padding=1,
+                                               dtype=dtype))
+                cin, i = v, i + 1
+
+    def forward(self, images):
+        if isinstance(images, conv1_ops.Conv1Planes):
+            raise TypeError("VGG16Trunk takes an image batch: Conv1Planes "
+                            "feed the ResNet stem's conv1 kernel only")
+        x = nhwc_to_nchw(images.to(self.dtype))
+        tap, i, pools = None, 0, 0
+        for v in self.CFG:
+            if v == "M":
+                if pools == 3:
+                    tap = x
+                x = F.max_pool2d(x, 2, 2)
+                pools += 1
+            else:
+                x = F.relu(getattr(self, f"conv{i}")(x))
+                i += 1
+        return nchw_to_nhwc(x), nchw_to_nhwc(tap)
+
+
+class VGG16Head(nn.Module):
+    """fc6/fc7 (ReLU) over the pooled rois (R, P, P, C) flattened in NHWC
+    order -> (R, 4096). Dropout is the identity at inference."""
+
+    def __init__(self, in_features: int = 7 * 7 * 512,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.fc6 = Dense(in_features, 4096, dtype=dtype)
+        self.fc7 = Dense(4096, 4096, dtype=dtype)
+
+    def forward(self, x):
+        x = F.relu(self.fc6(x.reshape(x.shape[0], -1)))
+        return F.relu(self.fc7(x))

@@ -2,8 +2,9 @@
 ``i2vsgg_tpu/models/discriminators.py``.
 
 At inference the discriminators only supply context features: the
-instance-level ``NetDPixel`` through ``preconv``/``context_tail`` (the ic
-feature) and ``NetDStyle`` through its signed-sqrt, L2-normalised bilinear
+instance-level ``NetDPixel`` through its full pass on pooled rois (the
+non-fused path) or ``preconv``/``context_tail`` (the fused align path), the
+ic feature; and ``NetDStyle`` through its signed-sqrt, L2-normalised bilinear
 feature ``z`` (the gc feature). The gradient reversal and the LSGAN losses
 belong to the training slice.
 """
@@ -24,19 +25,40 @@ class NetDPixel(nn.Module):
     """Patch discriminator over pooled roi features, inference pieces.
     [resnet_instance_styleD_bilinear.py:38-83]
 
-    conv1 is a no-bias 1x1 (linear), so it commutes exactly with RoIAlign:
-    serving applies it once to the feature map (``preconv``) and pools 512
-    channels, then ``context_tail`` finishes the 128-d context feature.
+    Three no-bias 1x1 convs, ``in_channels`` (1024 for ResNet, 512 for
+    VGG16) -> 512 -> 128 -> 1. ``forward`` is the full pass on pooled rois;
+    the fused align path splits it at conv1, a no-bias 1x1 (linear) that
+    commutes exactly with RoIAlign: ``preconv`` applies it once to the
+    feature map, the 512 channels are pooled, and ``context_tail`` finishes
+    the 128-d context feature.
+
+    ``conv3`` exists only where the JAX tree has it: the non-fused path
+    evaluates the d-probability head and so creates it; the fused path
+    never touches it (``conv3=False``), and a strict state dict of either
+    tree loads.
     """
 
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, in_channels: int = 1024,
+                 conv3: bool = True):
         super().__init__()
-        self.conv1 = Conv(1024, 512, 1, bias=False, dtype=dtype, init_std=0.01)
+        self.conv1 = Conv(in_channels, 512, 1, bias=False, dtype=dtype,
+                          init_std=0.01)
         self.conv2 = Conv(512, 128, 1, bias=False, dtype=dtype, init_std=0.01)
+        if conv3:
+            self.conv3 = Conv(128, 1, 1, bias=False, dtype=dtype,
+                              init_std=0.01)
         self.dtype = dtype
 
+    def forward(self, pooled):
+        """(R, P, P, C) pooled rois -> (per-pixel probabilities (R, P, P, 1)
+        f32, the 128-d mean after conv2 (R, 128) f32: the ic feature)."""
+        x = F.relu(self.conv1(nhwc_to_nchw(pooled.to(self.dtype))))
+        x = F.relu(self.conv2(x))
+        prob = torch.sigmoid(nchw_to_nhwc(self.conv3(x)).float())
+        return prob, x.mean(dim=(2, 3)).float()
+
     def preconv(self, fmap):
-        """conv1 applied to the raw (B, H, W, 1024) feature map -> NHWC."""
+        """conv1 applied to the raw (B, H, W, C) feature map -> NHWC."""
         return nchw_to_nhwc(self.conv1(nhwc_to_nchw(fmap)))
 
     def context_tail(self, x512):

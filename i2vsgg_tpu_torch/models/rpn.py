@@ -21,12 +21,15 @@ from i2vsgg_tpu_torch.ops.nms import nms_indices
 
 class RPNHead(nn.Module):
     """3x3 conv + objectness / bbox-delta 1x1 convs. [rpn.py:27-36]
-    Inits normal(0, 0.01), zero bias. NHWC in, f32 NHWC out."""
+    Inits normal(0, 0.01), zero bias. NHWC in, f32 NHWC out.
+    ``in_channels``: the trunk's map width, 1024 for ResNet, 512 for
+    VGG16."""
 
-    def __init__(self, num_anchors: int = 9, dtype=torch.bfloat16):
+    def __init__(self, num_anchors: int = 9, dtype=torch.bfloat16,
+                 in_channels: int = 1024):
         super().__init__()
         a = num_anchors
-        self.conv = Conv(1024, 512, 3, padding=1, dtype=dtype,
+        self.conv = Conv(in_channels, 512, 3, padding=1, dtype=dtype,
                          init_std=0.01)
         self.cls_score = Conv(512, 2 * a, 1, dtype=dtype, init_std=0.01)
         self.bbox_pred = Conv(512, 4 * a, 1, dtype=dtype, init_std=0.01)

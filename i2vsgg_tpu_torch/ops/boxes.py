@@ -102,3 +102,19 @@ def dual_mask(im_h, im_w, boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
     row = (grid >= y1[..., None]) & (grid < y2[..., None])
     col = (grid >= x1[..., None]) & (grid < x2[..., None])
     return (row[..., :, None] & col[..., None, :]).to(f32)
+
+
+def relative_loc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """8-dim relative location of box ``a`` to box ``b`` (the
+    ``spatial_type=1`` feature): offsets over the other box's size, then
+    the logs of the size ratios. [resnet_SGG_emb.py:258-264]"""
+    sw = a[..., 2] - a[..., 0]
+    sh = a[..., 3] - a[..., 1]
+    ow = b[..., 2] - b[..., 0]
+    oh = b[..., 3] - b[..., 1]
+    xy = torch.stack([(a[..., 0] - b[..., 0]) / ow,
+                      (a[..., 1] - b[..., 1]) / oh,
+                      (b[..., 0] - a[..., 0]) / sw,
+                      (b[..., 1] - a[..., 1]) / sh], dim=-1)
+    wh = torch.log(torch.stack([sw / ow, sh / oh, ow / sw, oh / sh], dim=-1))
+    return torch.cat([xy, wh], dim=-1)

@@ -38,14 +38,24 @@ class Detections(NamedTuple):
 
 
 def decode_detections(rois, roi_valid, cls_prob, bbox_pred, im_info,
-                      cfg: Config, *, max_det: int = 100,
-                      max_per_class: int = 50) -> Detections:
+                      cfg: Config, *, class_agnostic: bool = False,
+                      max_det: int = 100, max_per_class: int = 50,
+                      score_thresh: float = 0.0) -> Detections:
     """Bbox decode + per-class NMS + per-image top-K, batched over images
     and classes. [test_net_instance_styleD_bilinear.py:143-221]
 
     rois (B, N, 5); roi_valid (B, N); cls_prob (B, N, C);
-    bbox_pred (B, N, 4C); im_info (B, 3) [h, w, scale] — boxes are rescaled
-    back by 1/scale. A class keeps the rois whose score is above 0.
+    bbox_pred (B, N, 4C), or (B, N, 4) from a class-agnostic detector;
+    im_info (B, 3) [h, w, scale] — boxes are rescaled back by 1/scale. A
+    class keeps the rois whose score is above ``score_thresh``.
+
+    ``class_agnostic``: every class takes box column 0. The columns are
+    read from ``bbox_pred``'s width, and with one column every class takes
+    it whatever ``class_agnostic`` says: the JAX function reads column
+    ``j`` for class ``j`` there (``i2vsgg_tpu/serve.py:69``), an
+    out-of-range gather that JAX clamps to column 0, so its frame program,
+    which never passes ``class_agnostic``, serves a class-agnostic detector
+    the same way. Without box regression every class takes the roi itself.
     """
     b, n, c = cls_prob.shape
     if max_det > (c - 1) * max_per_class:
@@ -54,20 +64,27 @@ def decode_detections(rois, roi_valid, cls_prob, bbox_pred, im_info,
     dev = cls_prob.device
     boxes = rois[..., 1:5]
     if cfg.TEST.BBOX_REG:
+        k = bbox_pred.shape[-1] // 4
+        if k not in (1, c) or bbox_pred.shape[-1] != 4 * k:
+            raise ValueError(f"bbox_pred width {bbox_pred.shape[-1]}: 4 or "
+                             f"4 * {c} classes")
         stds = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_STDS, device=dev)
         means = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_MEANS, device=dev)
-        d = bbox_pred.reshape(b, n, c, 4) * stds + means
-        pred = decode_boxes(boxes[:, :, None, :].expand(b, n, c, 4), d)
-        pred = clip_boxes(pred.reshape(b, n, c * 4),
-                          im_info[:, :2]).reshape(b, n, c, 4)
+        d = bbox_pred.reshape(b, n, k, 4) * stds + means
+        pred = decode_boxes(boxes[:, :, None, :].expand(b, n, k, 4), d)
+        pred = clip_boxes(pred.reshape(b, n, k * 4),
+                          im_info[:, :2]).reshape(b, n, k, 4)
     else:
-        pred = boxes[:, :, None, :].expand(b, n, c, 4)
-    pred = pred / im_info[:, 2, None, None, None]     # back to original scale
+        pred = boxes[:, :, None, :]
+    if class_agnostic:
+        pred = pred[:, :, :1]
+    pred = (pred / im_info[:, 2, None, None, None]     # back to original scale
+            ).expand(b, n, c, 4)
 
     # per class (background skipped): (B, C-1, N, ...)
     scores_c = cls_prob[..., 1:].transpose(1, 2)
     boxes_c = pred[:, :, 1:].transpose(1, 2)
-    ok = roi_valid[:, None, :] & (scores_c > 0.0)
+    ok = roi_valid[:, None, :] & (scores_c > score_thresh)
     keep, kv = nms_indices_unsorted(boxes_c, scores_c, cfg.TEST.NMS,
                                     max_out=max_per_class, valid=ok)
     safe = keep.clamp_min(0).to(torch.long)                   # (B, C-1, K)

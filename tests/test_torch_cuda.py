@@ -272,6 +272,54 @@ def test_roi_align_main_path_shapes(cuda, fshape, dtype, out_dtype, n, grid):
     assert torch.equal(got, per_cell)
 
 
+@pytest.mark.parametrize("fshape,p", [
+    ((4, 37, 60, 512), 7),      # VGG16's detector site at 600x960
+    ((4, 38, 60, 1024), 7),     # ResNet's non-fused align layout
+    ((4, 38, 60, 1024), 5),     # POOLING_SIZE 5
+])
+def test_roi_align_full_grid_detector_sites(cuda, fshape, p):
+    """RoIAlignAvg on the full PxP grid at the non-fused detector sites
+    (bf16, 128 grouped rois an image): staged, within one bf16 ulp of the
+    plain version, bit-equal to the per-cell mode."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_align import (roi_align_avg,
+                                                roi_align_avg_plain)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    fmap = (torch.randn(*fshape, generator=g, device=cuda) * 4).bfloat16()
+    rois = _align_site_rois(cuda, fshape[0], 116, 12)
+    got = roi_align_avg(fmap, rois, p, p)
+    assert roi_align_avg.last_plan["mode"] == "staged"
+    assert tuple(got.shape) == (rois.shape[0], p, p, fshape[3])
+    chip_smoke.held_one_ulp(got, roi_align_avg_plain(fmap, rois, p, p),
+                            "full-grid detector site")
+    assert torch.equal(got, roi_align_avg(fmap, rois, p, p, channel_slice=-1))
+
+
+@pytest.mark.parametrize("fshape", [(4, 38, 60, 1024), (1, 37, 60, 512)])
+def test_roi_pool_detector_and_vgg_sites(cuda, fshape):
+    """RoIPool at the detector site under POOLING_MODE=pool (B = 4, 128
+    grouped rois an image, 1024 channels) and at VGG16's SGG site (one
+    37-row, 512-channel map): staged, torch.equal to the plain version
+    (taken 64 rois at a time) and to the per-bin mode."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, h, w, _ = fshape
+    fmap = torch.randn(*fshape, generator=g, device=cuda).bfloat16()
+    n = 128 if b > 1 else 36
+    rnd = torch.rand(b, n, 4, generator=g, device=cuda) * torch.tensor(
+        [w * 16.0 + 40, h * 16.0 + 40] * 2, device=cuda) - 20
+    idx = torch.arange(b, device=cuda, dtype=torch.float32)
+    rois = torch.cat([idx[:, None, None].expand(b, n, 1),
+                      torch.minimum(rnd[..., :2], rnd[..., 2:]),
+                      torch.maximum(rnd[..., :2], rnd[..., 2:])], -1)
+    rois = rois.reshape(-1, 5).contiguous()
+    got = roi_pool(fmap, rois)
+    assert roi_pool.last_plan["mode"] == "staged"
+    assert torch.equal(got, chip_smoke.roi_pool_plain_chunked(fmap, rois))
+    assert torch.equal(got, roi_pool(fmap, rois, channel_slice=-1))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("grid", [None, (0, 2, 4, 6)])
 def test_roi_align_widening_equals_the_kernel_on_the_f32_copy(cuda, dtype,

@@ -270,3 +270,61 @@ def test_slice_four_path_runs_without_the_blocked_names():
         assert conv1_int8.launches == 0
         assert int8.int8_conv2d.calls == 0 and int8.int8_linear.calls == 0
     """)
+
+
+def test_slice_eight_paths_run_without_the_blocked_names():
+    """Phase 12's two configurations at chip_smoke.py's small size, end to
+    end on the CPU in the blocked interpreter: VGG16 (class-agnostic, the
+    SGG head on RoIPool over 512 channels) and ResNet under
+    POOLING_MODE=pool (the head under align, spatial_type 0, no object
+    visual branch), through the frame and bucketed programs, with
+    relative_loc and a spatial_type=1 head fed it; no RoI launch counted
+    there."""
+    run_isolated("""
+        import torch
+
+        import chip_smoke
+        from i2vsgg_tpu_torch import serve
+        from i2vsgg_tpu_torch.config import Config
+        from i2vsgg_tpu_torch.models.layers import init_weights
+        from i2vsgg_tpu_torch.models.sgg import VRDHead
+        from i2vsgg_tpu_torch.ops.boxes import relative_loc
+        from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
+        from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
+
+        cfg = Config().replace(
+            TEST=Config().TEST.__class__(RPN_PRE_NMS_TOP_N=100,
+                                         RPN_POST_NMS_TOP_N=16),
+            COMPUTE_DTYPE="float32")
+        spec = chip_smoke.SMALL
+        _, f32, info = chip_smoke.synthetic_video(spec, 0, n_frames=2)[0]
+        for backbone, cfg_v, extra in (
+                ("vgg16", cfg, dict(class_agnostic=True,
+                                    vrd=dict(in_channels=512))),
+                ("res10", cfg.replace(POOLING_MODE="pool"),
+                 dict(pooling="align", vrd=dict(spatial_type=0,
+                                                use_obj_visual=False)))):
+            det, sgg, prd = chip_smoke.build_models(
+                dict(spec, backbone=backbone), cfg_v,
+                torch.Generator().manual_seed(0), **extra)
+            assert not det.fused
+            for make, kw in ((serve.make_frame_program, {}),
+                             (serve.make_bucketed_program,
+                              dict(buckets=(2, 4)))):
+                out = make(det, sgg, prd, cfg_v, max_det=4, max_per_class=4,
+                           device="cpu", **kw)(f32, info)
+                chip_smoke.check_outputs(out, spec)
+        boxes = torch.tensor([[10.0, 20.0, 30.0, 60.0],
+                              [20.0, 10.0, 60.0, 30.0]])
+        loc = relative_loc(boxes[[0, 1]], boxes[[1, 0]])
+        head = init_weights(VRDHead(emb_dim=16, fc_dim=32, in_channels=512,
+                                    spatial_type=1),
+                            torch.Generator().manual_seed(1))
+        rois = torch.cat([torch.zeros(2, 1), boxes], 1)
+        with torch.no_grad():
+            res = head(torch.randn(1, 4, 5, 512), rois, rois,
+                       torch.tensor([0, 1]), torch.tensor([1, 0]),
+                       torch.randn(5, 300), spatial_fea=loc)
+        assert tuple(res["scores"].shape) == (2, 5)
+        assert roi_pool.launches == 0 and roi_align_avg.launches == 0
+    """)
