@@ -48,7 +48,20 @@ class, with seeded random weights, along five paths:
   stride-2 layer4 on 7x7 maps, netD_pixel's full pass; the SGG head under
   align, ``spatial_type=0``, no object visual branch). Each RoI call of a
   request is held to its plain version on its own inputs and timed; 12c
-  runs both programs at 64x80 on the card and on the CPU.
+  runs both programs at 64x80 on the card and on the CPU;
+* phase 13, the ninth slice's paths, the drivers a user runs
+  (``python -m i2vsgg_tpu_torch.tools.serve_video`` / ``test_sgg`` /
+  ``test_det``, called as ``main([...])``): 13a writes an MVidVRD devkit of
+  2 videos x 6 PNG frames at 360x640 (``write_devkit``) and times the PNG
+  decode by row filter; 13b saves seeded full-width weights with the port's
+  ``save_checkpoint`` (~1.1 GiB) and serves the devkit three times (the
+  default with the SGG head on RoIPool, ``--host_planes``, ``--buckets
+  4,8``), each request's outputs bit-equal to the frame program called
+  in-process on the same loader batches (``cudnn.deterministic`` set) and
+  ``frame_detections.json`` equal to their tuples; 13c runs ``test_sgg``
+  (GT boxes) and ``test_det``, whose files must parse; 13d runs
+  ``serve_video`` and ``test_sgg`` at the tiny size of
+  tests/test_drivers_e2e.py on the card and on the CPU.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -74,12 +87,15 @@ power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1304,6 +1320,465 @@ def small_card_vs_cpu(name, spec, cfg, extra: dict, per: dict, counters,
 
 
 # ----------------------------------------------------------------------------
+# phase 13: the drivers (``python -m i2vsgg_tpu_torch.tools.serve_video``,
+# ``...test_sgg``, ``...test_det``) on a devkit written here
+
+# the drivers' command line at full width (FULL's configuration) and at the
+# tiny size of tests/test_drivers_e2e.py (TINY_CFG)
+DRIVER_FULL = ["--dataset", "MVidVRD", "--net", "res101", "--ic", "--gc",
+               "--num_relations", str(FULL["num_rel"]), "--bs",
+               str(FULL["frames"]), "--cfg", "TEST.RPN_POST_NMS_TOP_N", "128",
+               "TEST.RPN_PRE_NMS_TOP_N", "512"]
+DRIVER_TINY = ["--dataset", "MVidVRD", "--net", "res10", "--ic", "--gc",
+               "--num_relations", str(FULL["num_rel"]), "--bs", "2",
+               "--compute_dtype", "float32", "--vrd_fc_dim", "128",
+               "--cfg", "TEST.RPN_PRE_NMS_TOP_N", "100",
+               "TEST.RPN_POST_NMS_TOP_N", "16",
+               "TEST.MAX_DETECTIONS_PER_IMAGE", "20",
+               "TRAIN.MAX_NUM_GT_BOXES", "6", "TRAIN.SCALES", "[96]",
+               "TEST.SCALES", "[96]"]
+DEVKIT = dict(videos=2, frames=6, height=360, width=640)
+
+
+def write_devkit(root: str, seed: int = 0) -> dict:
+    """An MVidVRD-shaped devkit under ``root`` (tests/fixtures.py's layout,
+    written with the port's ``write_png``, since this machine has no image
+    library): ``DEVKIT`` videos of PNG frames ``vid<v>_<fno>``, 2-3 objects
+    a video moving over a noisy background, their VOC XML, the test/val
+    split files, a per-frame GT relation pickle and the video-level
+    annotation JSON. Returns the two files' paths. (Six frames a video are
+    fewer than the ten that Stage C's association keeps a trajectory for:
+    the drivers link no video relation here; phase 6d runs Stage C on a
+    12-frame video.)"""
+    from i2vsgg_tpu_torch.data.image_io import write_png
+    from i2vsgg_tpu_torch.data.voc import VRD_CLASSES
+    rs = np.random.RandomState(seed)
+    base = os.path.join(root, "MVidVRD")
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    h, w, n_f = DEVKIT["height"], DEVKIT["width"], DEVKIT["frames"]
+    names, gt_rels, video_ann = [], {}, {}
+    for v in range(DEVKIT["videos"]):
+        vid = f"vid{v:02d}"
+        n_obj = rs.randint(2, 4)
+        cls = rs.randint(1, len(VRD_CLASSES), n_obj)
+        size = rs.randint(h // 6, h // 2, (n_obj, 2))          # (bh, bw)
+        start = rs.uniform(0, 1, (n_obj, 2)) * (
+            np.asarray([w, h]) - size[:, ::-1])
+        vel = rs.uniform(-12, 12, (n_obj, 2))
+        color = rs.randint(80, 256, (n_obj, 3))
+        trajs = [[] for _ in range(n_obj)]
+        for f in range(n_f):
+            index = f"{vid}_{f:04d}"
+            im = rs.randint(0, 60, (h, w, 3)).astype(np.uint8)
+            xml = ["<annotation>", f"<size><width>{w}</width><height>{h}"
+                   "</height><depth>3</depth></size>"]
+            for o in range(n_obj):
+                bh, bw = size[o]
+                x1, y1 = np.clip(start[o] + vel[o] * f, 0,
+                                 [w - bw, h - bh]).astype(int)
+                im[y1:y1 + bh, x1:x1 + bw] = color[o]
+                box = [int(x1), int(y1), int(x1 + bw - 1), int(y1 + bh - 1)]
+                trajs[o].append([float(c) for c in box])
+                xml += ["<object>", f"<name>{VRD_CLASSES[cls[o]]}</name>",
+                        "<difficult>0</difficult>", "<bndbox>"]
+                xml += [f"<{k}>{c + 1}</{k}>" for k, c in
+                        zip(("xmin", "ymin", "xmax", "ymax"), box)]
+                xml += ["</bndbox>", "</object>"]
+            xml.append("</annotation>")
+            write_png(os.path.join(base, "JPEGImages", index + ".png"), im)
+            with open(os.path.join(base, "Annotations", index + ".xml"),
+                      "w") as fh:
+                fh.write("\n".join(xml))
+            gt_rels[index] = [(0, int(rs.randint(FULL["num_rel"])), 1)]
+            names.append(index)
+        video_ann[vid] = [{"triplet": [int(cls[0]), 0, int(cls[1])],
+                           "duration": [0, n_f], "sub_traj": trajs[0],
+                           "obj_traj": trajs[1]}]
+    for split in ("test", "val", "trainval"):
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"),
+                  "w") as fh:
+            fh.write("\n".join(names) + "\n")
+    paths = {"gt_rels": os.path.join(base, "target_gt_rels.pkl"),
+             "video_ann": os.path.join(base, "video_annotations.json")}
+    with open(paths["gt_rels"], "wb") as fh:
+        pickle.dump(gt_rels, fh)
+    with open(paths["video_ann"], "w") as fh:
+        json.dump(video_ann, fh)
+    return paths
+
+
+def png_decode_ms(frame: np.ndarray, d: str) -> dict:
+    """Host ms to decode ``frame`` written with each PNG row filter (the
+    least of 3 reads), checked equal to the frame."""
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr, write_png
+    out = {}
+    for ft, name in enumerate(("none", "sub", "up", "average", "paeth")):
+        path = os.path.join(d, f"filter{ft}.png")
+        write_png(path, frame, ft)
+        best = float("inf")
+        for _ in range(3):
+            t = time.time()
+            got = imread_bgr(path)
+            best = min(best, 1e3 * (time.time() - t))
+        if not np.array_equal(got, frame):
+            raise AssertionError(f"PNG filter {name}: decoded != written")
+        out[name] = best
+    return out
+
+
+@contextlib.contextmanager
+def recorded_programs():
+    """Within the block, every program that ``serve.make_frame_program`` /
+    ``make_bucketed_program`` returns records each call's output (on the
+    CPU) and host ms (through the copy, which waits for the card). Yields
+    the list of (output, ms)."""
+    from i2vsgg_tpu_torch import serve
+    calls = []
+    saved = {n: getattr(serve, n) for n in ("make_frame_program",
+                                            "make_bucketed_program")}
+
+    def wrap(make):
+        def made(*a, **k):
+            program = make(*a, **k)
+
+            def recorded(*x):
+                t = time.time()
+                out = {key: v.cpu() if torch.is_tensor(v) else v
+                       for key, v in program(*x).items()}
+                calls.append((out, 1e3 * (time.time() - t)))
+                return out
+            return recorded
+        return made
+
+    for n, fn in saved.items():
+        setattr(serve, n, wrap(fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(serve, n, fn)
+
+
+@contextlib.contextmanager
+def recorded_detection_outputs():
+    """Within the block, the arguments of each ``detection_output`` call
+    of the port's ``serve_video`` (through ``serve.frame_relation_tuples``)
+    and ``test_sgg`` (``video.metrics``): one a frame."""
+    from i2vsgg_tpu_torch import serve
+    from i2vsgg_tpu_torch.video import metrics
+    calls, fn = [], metrics.detection_output
+
+    def rec(*a, **k):
+        calls.append([np.array(x) for x in a])
+        return fn(*a, **k)
+
+    serve.detection_output = metrics.detection_output = rec
+    try:
+        yield calls
+    finally:
+        serve.detection_output = metrics.detection_output = fn
+
+
+def driver_launches(counters, what: str, fn, expect: dict, n: int):
+    """Run ``fn`` (one driver run) with the launch counters set to 0 just
+    before and read just after: they must be ``expect`` per request for
+    ``n`` requests, every RoI launch staged. Returns fn's result and the
+    counts."""
+    counters.reset()
+    ret = fn()
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = {k: v * n for k, v in expect.items()}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    for k, by_mode in counters.modes().items():
+        if by_mode["staged"] != got[k]:
+            raise AssertionError(f"{what}: {k} launches by mode {by_mode}: "
+                                 "not all staged")
+    log(f"{what}: launches a request "
+        f"{ {k: v // n for k, v in got.items() if v} } ({n} requests)")
+    return ret, got
+
+
+def same_driver_frames(json_path: str, outs: list, what: str):
+    """The driver's ``frame_detections.json`` against the tuples of the
+    in-process outputs ``outs`` (one per batch of ``b`` frames, in the
+    devkit's frame order): equal after a JSON round trip."""
+    from i2vsgg_tpu_torch import serve
+    with open(json_path) as fh:
+        written = json.load(fh)
+    frames = [t for vid in sorted(written) for _, t in written[vid]]
+    mine = [serve.frame_relation_tuples(o, f) for o in outs
+            for f in range(o["det_valid"].shape[0])]
+    if json.loads(json.dumps(mine)) != frames:
+        raise AssertionError(f"{what}: frame_detections.json != the tuples "
+                             "of the in-process outputs")
+
+
+def matched_driver_outputs(card: list, cpu: list, what: str) -> dict:
+    """The tiny driver's per-batch program outputs on the card against the
+    CPU's, as phase 12c holds a program: detections matched first
+    (``matched_order``), then validity, classes and pairs equal, boxes
+    within 4 px, scores and rel_prob within 5e-2. Returns the largest
+    differences."""
+    worst = {"boxes": 0.0, "scores": 0.0, "rel_prob": 0.0}
+    for g, c in zip(card, cpu):
+        mine = reordered(g, matched_order(g, c))
+        for k in ("det_valid", "classes", "pair_valid"):
+            if not torch.equal(mine[k], c[k]):
+                raise AssertionError(f"{what} {k}: card != CPU")
+        valid = c["det_valid"]
+        for k in worst:
+            gap = (mine[k].float() - c[k].float()).abs()
+            if k != "rel_prob":
+                gap = gap * (valid[..., None] if k == "boxes" else valid)
+            worst[k] = max(worst[k], float(gap.max()))
+    for k, tol in (("boxes", 4.0), ("scores", 5e-2), ("rel_prob", 5e-2)):
+        if not worst[k] <= tol:
+            raise AssertionError(f"{what} {k}: card vs CPU {worst[k]} > "
+                                 f"{tol}")
+    return worst
+
+
+def drivers_on_card(dev, counters, card: str) -> dict:
+    """Phase 13: the port's drivers on this card (13a-13d; see the module
+    docstring). Returns the phase's record."""
+    from i2vsgg_tpu_torch import serve
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import DetectionLoader, prep_image
+    from i2vsgg_tpu_torch.data.roidb import combined_roidb
+    from i2vsgg_tpu_torch.models.glove import load_predicate_vectors
+    from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+    from i2vsgg_tpu_torch.tools import serve_video, test_det, test_sgg
+    from i2vsgg_tpu_torch.tools.common import config_from_args
+    from i2vsgg_tpu_torch.train.checkpoint import save_checkpoint
+    rec = {}
+    b = FULL["frames"]
+    n_frames = DEVKIT["videos"] * DEVKIT["frames"]
+    n_req = n_frames // b
+    work = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    saved_det = torch.backends.cudnn.deterministic
+    try:
+        phase("13a the dataset: an MVidVRD devkit of 2 videos x 6 PNG "
+              "frames, 360x640, written with image_io.write_png")
+        t = time.time()
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+        paths = write_devkit(os.environ["I2VSGG_DATA_ROOT"])
+        frame = imread_bgr(os.path.join(
+            os.environ["I2VSGG_DATA_ROOT"], "MVidVRD", "JPEGImages",
+            "vid00_0000.png"))
+        rec["png_decode_ms"] = png_decode_ms(frame, work)
+        t_r = time.time()
+        resized, _ = prep_image(frame, 600, (102.9801, 115.9465, 122.7717))
+        rec["resize_ms"] = 1e3 * (time.time() - t_r)
+        log(f"devkit written in {time.time() - t:.2f} s; host PNG decode of "
+            f"a 360x640 frame by row filter "
+            f"{ {k: round(v, 2) for k, v in rec['png_decode_ms'].items()} } "
+            f"ms, resize to {resized.shape[:2]} {rec['resize_ms']:.2f} ms "
+            f"(host CPU of the machine of {card})")
+
+        phase("13b serve_video at full width (res101 ic+gc, 16 classes, 26 "
+              "predicates, fc 4096, scale 600, rpn 128/512, max_det 8, bs 4) "
+              "from the port's checkpoints: default (RoIPool at the SGG "
+              "site), --host_planes, --buckets 4,8; each held bit for bit "
+              "to the frame program in-process on the same loader batches")
+        # the comparison needs one cuDNN algorithm per shape in both runs
+        torch.backends.cudnn.deterministic = True
+        args = set_dataset_args(parse_args(DRIVER_FULL), test=True)
+        cfg = config_from_args(args)
+        prd = load_predicate_vectors(args)
+        t = time.time()
+        det, sgg, _ = build_models(FULL, cfg,
+                                   torch.Generator().manual_seed(13))
+        ck = os.path.join(work, "ckpt")
+        save_checkpoint(os.path.join(ck, "det"), det.state_dict(), 1,
+                        {"pooling_mode": cfg.POOLING_MODE})
+        sgg_sd = {f"trunk.{k}": v for k, v in det.trunk.state_dict().items()}
+        sgg_sd.update(sgg.state_dict())
+        save_checkpoint(os.path.join(ck, "sgg"), sgg_sd, 1,
+                        {"vrd_pooling": "pool"})
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(ck) for f in fs)
+        log(f"weights built and saved in {time.time() - t:.2f} s "
+            f"({size / 2**30:.2f} GiB)")
+        det_ck, sgg_ck = (os.path.join(ck, n, "1") for n in ("det", "sgg"))
+        _, roidb, _, idx = combined_roidb(args.imdbval_name, training=False,
+                                          use_flipped=False)
+        loader = DetectionLoader(roidb, idx, cfg, b, training=False)
+        kw = dict(max_det=FULL["max_det"], device=dev)
+        rec["serve"] = {}
+        for name, extra, expect in (
+                ("default", [],
+                 dict(NO_LAUNCHES, roi_align=2, roi_pool=b)),
+                ("host_planes", ["--host_planes"],
+                 dict(NO_LAUNCHES, roi_align=2, roi_pool=b, conv1=1)),
+                ("buckets 4,8", ["--buckets", "4,8"],
+                 dict(NO_LAUNCHES, roi_align=2, roi_pool=b))):
+            out_dir = os.path.join(work, "out", name.replace(" ", "_"))
+            argv = DRIVER_FULL + ["--load_name", det_ck, "--sgg_load_name",
+                                  sgg_ck, "--max_det", str(FULL["max_det"]),
+                                  "--save_dir", out_dir] + extra
+            t = time.time()
+            with recorded_programs() as calls:
+                rels, launched = driver_launches(
+                    counters, f"serve_video {name}",
+                    lambda: serve_video.main(argv), expect, n_req)
+            wall = time.time() - t
+            if name.startswith("buckets"):
+                program = serve.make_bucketed_program(det, sgg, prd, cfg,
+                                                      buckets=(4, 8), **kw)
+            else:
+                program = serve.make_frame_program(det, sgg, prd, cfg, **kw)
+            mine = []
+            for batch, (out, _) in zip(loader, calls):
+                x = batch["image"]
+                if name == "host_planes":
+                    x = Conv1Planes.pack(x)
+                mine.append({k: v.cpu() if torch.is_tensor(v) else v
+                             for k, v in program(x, batch["im_info"])
+                             .items()})
+                same_outputs(out, mine[-1], f"serve_video {name} vs the "
+                             "in-process frame program")
+                if out.get("bucket") != mine[-1].get("bucket"):
+                    raise AssertionError(f"serve_video {name}: bucket "
+                                         f"{out.get('bucket')} in-process "
+                                         f"{mine[-1].get('bucket')}")
+                if out.get("bucket", FULL["max_det"]) == FULL["max_det"]:
+                    check_outputs(out, FULL)
+            if len(mine) != n_req or len(calls) != n_req:
+                raise AssertionError(f"serve_video {name}: {len(calls)} "
+                                     "requests served")
+            rel = os.path.join(out_dir, "serve", "MVidVRD_test")
+            same_driver_frames(os.path.join(rel, "frame_detections.json"),
+                               mine, f"serve_video {name}")
+            with open(os.path.join(rel, "video_relations.json")) as fh:
+                if json.load(fh) != json.loads(json.dumps(rels)):
+                    raise AssertionError("video_relations.json != the "
+                                         "driver's return")
+            ms = [m for _, m in calls]
+            r = {"launches": {k: v // n_req for k, v in launched.items()
+                              if v},
+                 "request_ms": ms, "wall_s": wall,
+                 "fps": 1e3 * n_frames / sum(ms),
+                 "fps_after_first": 1e3 * b * (n_req - 1) / sum(ms[1:]),
+                 "video_relations": sum(len(v) for v in rels.values()),
+                 "buckets": [o.get("bucket") for o, _ in calls]}
+            rec["serve"][name] = r
+            log(f"serve_video {name}: outputs bit-equal to the in-process "
+                f"frame program, frame_detections.json equal to its tuples; "
+                f"request ms {', '.join(f'{m:.2f}' for m in ms)}; host-side "
+                f"{r['fps']:.2f} frames/s ({r['fps_after_first']:.2f} after "
+                f"the first request), {wall:.2f} s for the whole run with "
+                f"model build and load; {r['video_relations']} video "
+                f"relations [{card}]")
+            del program
+        del det, sgg
+        torch.cuda.empty_cache()
+
+        phase("13c the evaluation drivers on the same devkit: test_sgg (GT "
+              "boxes, res101 trunk, SGG head on RoIPool) and test_det")
+        out_dir = os.path.join(work, "out", "eval")
+        metrics, sgg_launched = driver_launches(
+            counters, "test_sgg", lambda: test_sgg.main(
+                DRIVER_FULL + ["--load_name", sgg_ck, "--video_ann",
+                               paths["video_ann"], "--save_dir", out_dir]),
+            dict(NO_LAUNCHES, roi_pool=b), n_req)
+        ev = os.path.join(out_dir, "eval", "MVidVRD_test_SGG")
+        for f in ("frame_detections.json", "video_relations.json"):
+            with open(os.path.join(ev, f)) as fh:
+                json.load(fh)
+        aps, det_launched = driver_launches(
+            counters, "test_det", lambda: test_det.main(
+                DRIVER_FULL + ["--load_name", det_ck, "--save_dir",
+                               out_dir]),
+            dict(NO_LAUNCHES, roi_align=2), n_req)
+        ev = os.path.join(out_dir, "eval", "MVidVRD_test")
+        with open(os.path.join(ev, "detections.pkl"), "rb") as fh:
+            if len(pickle.load(fh)) != 16:
+                raise AssertionError("detections.pkl: not 16 classes")
+        results = [f for f in os.listdir(os.path.join(ev, "adapt"))
+                   if f.startswith("det_test_")]
+        if len(results) != 15:
+            raise AssertionError(f"test_det wrote {len(results)} result "
+                                 "files, not 15")
+        rec["test_sgg"] = {"mAP": float(metrics[0]),
+                           "recall": {str(k): float(v) for k, v in
+                                      metrics[1].items()},
+                           "launches": {k: v // n_req for k, v in
+                                        sgg_launched.items() if v}}
+        rec["test_det"] = {"mAP": float(aps["mAP"]),
+                           "launches": {k: v // n_req for k, v in
+                                        det_launched.items() if v}}
+        log(f"test_sgg: relation mAP {metrics[0]:.4f}, recall "
+            f"{rec['test_sgg']['recall']}; test_det: mAP "
+            f"{rec['test_det']['mAP']:.4f} "
+            "(random weights: printed, not held)")
+
+        phase("13d the same drivers at the tiny configuration (res10, 96 px, "
+              "TINY_CFG): card vs CPU, TF32 off")
+        args_t = set_dataset_args(parse_args(DRIVER_TINY), test=True)
+        cfg_t = config_from_args(args_t)
+        spec = dict(SMALL, num_classes=16, num_rel=FULL["num_rel"],
+                    fc_dim=128, emb_dim=300)
+        det_t, sgg_t, _ = build_models(spec, cfg_t,
+                                       torch.Generator().manual_seed(14))
+        with torch.no_grad():
+            det_t.rpn.bbox_pred.weight.mul_(0.1)
+            det_t.bbox_pred.weight.mul_(0.1)
+        save_checkpoint(os.path.join(ck, "det_tiny"), det_t.state_dict(), 1)
+        sd = {f"trunk.{k}": v for k, v in det_t.trunk.state_dict().items()}
+        sd.update(sgg_t.state_dict())
+        save_checkpoint(os.path.join(ck, "sgg_tiny"), sd, 1)
+        tiny = {}
+        for where in ("cuda", "cpu"):
+            argv = DRIVER_TINY + [
+                "--load_name", os.path.join(ck, "det_tiny", "1"),
+                "--sgg_load_name", os.path.join(ck, "sgg_tiny", "1"),
+                "--max_det", "4", "--device", where,
+                "--save_dir", os.path.join(work, "tiny", where)]
+            with tf32_off(), recorded_programs() as calls:
+                serve_video.main(argv)
+            argv = DRIVER_TINY + [
+                "--load_name", os.path.join(ck, "sgg_tiny", "1"),
+                "--video_ann", paths["video_ann"], "--device", where,
+                "--save_dir", os.path.join(work, "tiny", where)]
+            with tf32_off(), recorded_detection_outputs() as dets:
+                test_sgg.main(argv)
+            tiny[where] = ([o for o, _ in calls], dets)
+        worst = matched_driver_outputs(tiny["cuda"][0], tiny["cpu"][0],
+                                       "tiny serve_video")
+        worst_sgg = 0.0
+        for g, c in zip(*(tiny[w][1] for w in ("cuda", "cpu"))):
+            for k in (1, 2, 4, 5):                # boxes, classes, pairs
+                if not np.array_equal(g[k], c[k]):
+                    raise AssertionError("tiny test_sgg: GT boxes, classes "
+                                         "or pairs differ")
+            worst_sgg = max(worst_sgg, float(np.abs(g[0] - c[0]).max()))
+        if not worst_sgg <= 5e-2:
+            raise AssertionError(f"tiny test_sgg rel_prob: card vs CPU "
+                                 f"{worst_sgg} > 5e-2")
+        rec["tiny"] = dict(worst, test_sgg_rel_prob=worst_sgg)
+        log(f"tiny serve_video: validity, classes and pairs equal after "
+            f"matching; boxes {worst['boxes']:.3g} px (tol 4), scores "
+            f"{worst['scores']:.3g}, rel_prob {worst['rel_prob']:.3g} (tol "
+            f"5e-2); tiny test_sgg: GT pairs equal, rel_prob "
+            f"{worst_sgg:.3g} (tol 5e-2)")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+# ----------------------------------------------------------------------------
 # ``--chain-depths``: how deep the chain kernel may let the tensor cores
 # accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
 
@@ -2438,14 +2913,17 @@ def main() -> int:
         small_card_vs_cpu(name, spec, cfg12, extra, per, counters, dev,
                           imgs_s, info_s)
 
-    phase("13 results")
+    drivers = drivers_on_card(dev, counters, card)
+
+    phase("14 results")
     print(json.dumps({"serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
         "below_max_det": sparse,
         "chain_vs_unfused": agreement, "int8_vs_bf16": int8_vs_bf16,
-        "slice8": slice8, "wall_s": time.time() - T0}}), flush=True)
+        "slice8": slice8, "drivers": drivers,
+        "wall_s": time.time() - T0}}), flush=True)
     meta = {
         "roi_pool": ("i2vsgg_tpu_torch/csrc/roi_pool.cu",
                      "i2vsgg_tpu/ops/pallas/roi_pool_kernel.py:134",
@@ -2469,6 +2947,10 @@ def main() -> int:
                        "none: no single PyTorch call computes the int8 conv1; "
                        "yardstick: cuDNN's bf16 conv1 with the BN scale "
                        "folded and the shift as bias (cudnn_bf16_conv1_ms)")}
+    for name in ("roi_pool", "roi_align", "conv1"):
+        kernels[name]["phase13_launches"] = {
+            run: r["launches"].get(name, 0)
+            for run, r in drivers["serve"].items()}
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -2493,7 +2975,8 @@ def main() -> int:
                                                 "cudnn_tail_graph_ms",
                                                 "chain_check",
                                                 "cudnn_bf16_conv1_ms",
-                                                "phase12_sites")
+                                                "phase12_sites",
+                                                "phase13_launches")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -3,15 +3,17 @@
 The dataclasses and their defaults are the JAX package's, field for field
 (the reference's ``lib/model/utils/config.py`` keys). Unlike the original this
 copy does not use PyYAML: ``cfg_from_list`` parses each override value with
-``ast.literal_eval`` and keeps the raw string where that fails, so the module
-imports with the standard library alone. Loading ``cfgs/*.yml`` files
-(``cfg_from_file``) belongs to the drivers' slice of the port.
+``ast.literal_eval`` and keeps the raw string where that fails, and
+``cfg_from_file`` reads ``cfgs/*.yml`` with a small reader of the YAML subset
+those files use (nested mappings by indent, scalars, inline lists, ``#``
+comments), so the module imports with the standard library alone.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence, Tuple
 
@@ -188,3 +190,143 @@ def cfg_from_list(pairs: Sequence[str], base: Config | None = None) -> Config:
         node[parts[-1]] = _parse_value(raw)
         cfg = _merge_into(cfg, tree)
     return cfg
+
+
+# PyYAML's (YAML 1.1) resolvers for the plain scalars the subset admits
+_BOOL = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE", "on",
+                           "On", "ON")}
+_BOOL.update({v: False for v in ("no", "No", "NO", "false", "False",
+                                 "FALSE", "off", "Off", "OFF")})
+_NULL = ("~", "null", "Null", "NULL", "")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*(?:[eE][-+][0-9]+)?$")
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*)\s*:(?:\s+(.*))?$")
+
+
+class YamlSubsetError(ValueError):
+    """A line of a config file outside the YAML subset ``cfg_from_file``
+    reads."""
+
+
+def _yaml_scalar(text: str, where: str):
+    """One plain or quoted scalar, resolved as PyYAML's ``safe_load``
+    resolves it; a plain scalar that starts like a number but is none of
+    the forms read here (octal, hex, sexagesimal) is refused."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        body = text[1:-1]
+        if text[0] == "'":
+            return body.replace("''", "'")
+        if "\\" in body:
+            raise YamlSubsetError(f"{where}: escapes in double-quoted scalars "
+                                  "are outside the subset")
+        return body
+    if text[:1] in "'\"[]{}&*!|>%@`" or text.startswith("- "):
+        raise YamlSubsetError(f"{where}: {text!r} is outside the subset")
+    if text in _BOOL:
+        return _BOOL[text]
+    if text in _NULL:
+        return None
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    if text.lower() in (".inf", "+.inf", "-.inf", ".nan"):
+        return float(text.lower().replace(".", ""))
+    if re.match(r"[-+]?\.?[0-9]", text):
+        raise YamlSubsetError(f"{where}: numeric form {text!r} is outside "
+                              "the subset")
+    return text
+
+
+def _yaml_value(text: str, where: str):
+    """A value after ``key:``: an inline list ``[a, b]`` of scalars, or one
+    scalar."""
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise YamlSubsetError(f"{where}: unclosed inline list")
+        body = text[1:-1].strip()
+        if any(c in body for c in "[]{}"):
+            raise YamlSubsetError(f"{where}: nested collections are outside "
+                                  "the subset")
+        return [_yaml_scalar(v.strip(), where)
+                for v in body.split(",")] if body else []
+    return _yaml_scalar(text, where)
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a ``#`` comment (one that starts the line or follows
+    whitespace, outside quotes)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def read_yaml_subset(path: str) -> dict:
+    """Parse a config file in the YAML subset of ``cfgs/*.yml``: block
+    mappings nested by space indentation, plain or quoted scalars, inline
+    lists of scalars and ``#`` comments. Anything else (block sequences,
+    flow mappings, anchors, tags, multi-line scalars, documents, tabs,
+    duplicate keys) raises ``YamlSubsetError`` naming the file and line."""
+    root: dict = {}
+    stack = [(0, root)]                  # (indent, mapping) of open blocks
+    pending = None                       # (indent, key, parent): "key:" alone
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for no, raw in enumerate(lines, 1):
+        where = f"{path}:{no}"
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if "\t" in line[:len(line) - len(line.lstrip())]:
+            raise YamlSubsetError(f"{where}: tab indentation")
+        indent = len(line) - len(line.lstrip(" "))
+        text = line.strip()
+        if text in ("---", "...") or text.startswith("%"):
+            raise YamlSubsetError(f"{where}: documents and directives are "
+                                  "outside the subset")
+        if pending is not None:
+            p_indent, p_key, p_parent = pending
+            pending = None
+            if indent > p_indent:
+                child: dict = {}
+                p_parent[p_key] = child
+                stack.append((indent, child))
+            else:
+                p_parent[p_key] = None   # "key:" with nothing under it
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise YamlSubsetError(f"{where}: indentation does not match an "
+                                  "open mapping")
+        m = _KEY.match(text)
+        if not m:
+            raise YamlSubsetError(f"{where}: {text!r} is not a 'key: value' "
+                                  "line of the subset")
+        key, value = m.group(1), (m.group(2) or "").strip()
+        mapping = stack[-1][1]
+        if key in mapping:
+            raise YamlSubsetError(f"{where}: duplicate key {key!r}")
+        if value:
+            mapping[key] = _yaml_value(value, where)
+        else:
+            pending = (indent, key, mapping)
+            mapping[key] = None
+    return root
+
+
+def cfg_from_file(path: str, base: Config | None = None) -> Config:
+    """Load a config file (reference ``cfgs/*.yml`` format) over defaults,
+    as the JAX ``cfg_from_file`` does with PyYAML: top-level keys that are
+    not ``Config`` fields are dropped, and the rest merge through the same
+    rules as ``cfg_from_list``."""
+    base = base or Config()
+    data = read_yaml_subset(path)
+    data = {k: v for k, v in data.items()
+            if k in {f.name for f in dataclasses.fields(Config)}}
+    return _merge_into(base, data)

@@ -1,15 +1,47 @@
-"""Input-pipeline pieces the serving program needs — counterparts of
-``dequantize_image_u8`` and ``bucket_hw`` in ``i2vsgg_tpu/data/pipeline.py``.
+"""Host-side input pipeline — the port's counterpart of
+``i2vsgg_tpu/data/pipeline.py``: decode, mean subtraction, shortest-side
+resize, static padding into buckets, and the batched loader with its
+prefetch thread.
 
-The image decode and resize of that module (``imread_bgr``, ``prep_image``,
-``prep_image_u8``, ``DetectionLoader``) use cv2 and are not ported yet.
+cv2 is not on the card's machine, so the port decodes with
+``data/image_io.py`` (PNG; JPEG raises) and resizes with its own copy of
+``cv2.resize(..., interpolation=cv2.INTER_LINEAR)``:
+
+* the output is ``round(w * fx)`` x ``round(h * fy)`` and output pixel
+  ``d`` samples source ``(d + 0.5) / f - 0.5`` (computed in double, the
+  fraction then rounded to f32); horizontally the first and last source
+  pixels take weight 1 past the borders, vertically the two source rows are
+  clamped to the image and keep their weights;
+* f32 images (``prep_image``) interpolate in f32, within 1e-4 of cv2's
+  result on mean-subtracted frames (cv2 rounds its products in another
+  order; tests/test_torch_drivers.py);
+* uint8 images (``prep_image_u8``) follow cv2's fixed point: 11-bit
+  coefficients, the horizontal pass in int32, the vertical as
+  ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)`` then ``(x + 2) >> 2``
+  — bit-equal to cv2 at the scales the loader meets (tests/
+  test_torch_drivers.py), off by one on under 0.1 % of values at upscales
+  near 10x.
+
+The native C++ decode runtime of the JAX package is not ported. The
+loader's training branch (aspect-grouped batches) is copied for the
+training slice and unused by the drivers.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import queue as queue_mod
+import threading
+from typing import Dict, Iterator, List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from i2vsgg_tpu_torch.config import Config
+from i2vsgg_tpu_torch.data.image_io import imread_bgr
+
+__all__ = ["DEFAULT_BUCKETS", "DetectionLoader", "bucket_hw",
+           "dequantize_image_u8", "imread_bgr", "prep_image",
+           "prep_image_u8", "resize_linear"]
 
 # landscape bucket widths for height 608; portrait is the transpose.
 DEFAULT_BUCKETS = (608, 736, 896, 1056, 1216)
@@ -43,3 +75,195 @@ def bucket_hw(h: int, w: int, buckets: Sequence[int] = DEFAULT_BUCKETS,
     else:
         padded = buckets[-1]
     return (base, padded) if w >= h else (padded, base)
+
+
+def _axis_map(n_src: int, n_dst: int, scale: float):
+    """cv2's INTER_LINEAR source index and fraction of each output pixel
+    along one axis: ``(d + 0.5) / scale - 0.5`` in double, its floor, and
+    the fraction rounded to f32."""
+    f = (np.arange(n_dst, dtype=np.float64) + 0.5) * (1.0 / scale) - 0.5
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s).astype(np.float32)
+
+
+def resize_linear(im: np.ndarray, scale: float) -> np.ndarray:
+    """``cv2.resize(im, None, None, fx=scale, fy=scale,
+    interpolation=cv2.INTER_LINEAR)`` for an (H, W, C) f32 or uint8
+    image (see the module docstring for how close each is)."""
+    h, w = im.shape[:2]
+    dh, dw = int(round(h * scale)), int(round(w * scale))
+    sx, fx = _axis_map(w, dw, scale)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, w - 1)
+    sx1 = np.minimum(sx + 1, w - 1)
+    sy, fy = _axis_map(h, dh, scale)
+    r0, r1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    one = np.float32(1.0)
+    if im.dtype == np.uint8:
+        coef = np.float32(2048.0)                  # INTER_RESIZE_COEF_SCALE
+        a0 = np.rint((one - fx) * coef).astype(np.int32)[None, :, None]
+        a1 = np.rint(fx * coef).astype(np.int32)[None, :, None]
+        b0 = np.rint((one - fy) * coef).astype(np.int32)[:, None, None]
+        b1 = np.rint(fy * coef).astype(np.int32)[:, None, None]
+        src = im.astype(np.int32)
+        rows = src[:, sx] * a0 + src[:, sx1] * a1
+        v = (((rows[r0] >> 4) * b0) >> 16) + (((rows[r1] >> 4) * b1) >> 16)
+        return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+    if im.dtype != np.float32:
+        raise TypeError(f"resize_linear takes f32 or uint8, not {im.dtype}")
+    a0, a1 = (one - fx)[None, :, None], fx[None, :, None]
+    rows = im[:, sx] * a0 + im[:, sx1] * a1
+    b0, b1 = (one - fy)[:, None, None], fy[:, None, None]
+    return rows[r0] * b0 + rows[r1] * b1
+
+
+def prep_image(im_bgr: np.ndarray, target_size: int,
+               pixel_means: Sequence[float]) -> Tuple[np.ndarray, float]:
+    """Mean-subtract + shortest-side resize (f32). [blob.py:20-52]"""
+    im = im_bgr.astype(np.float32) - np.asarray(pixel_means, np.float32)
+    h, w = im.shape[:2]
+    im_scale = float(target_size) / min(h, w)
+    return resize_linear(im, im_scale), im_scale
+
+
+def prep_image_u8(im_bgr: np.ndarray, target_size: int
+                  ) -> Tuple[np.ndarray, float]:
+    """Shortest-side resize in uint8, without mean subtraction: the uint8
+    transport, dequantized on the device by ``dequantize_image_u8``."""
+    h, w = im_bgr.shape[:2]
+    im_scale = float(target_size) / min(h, w)
+    return resize_linear(im_bgr, im_scale), im_scale
+
+
+class DetectionLoader:
+    """Batched detection data iterator with a prefetch thread (the JAX
+    ``DetectionLoader`` without its native C++ decode path).
+
+    Eval (``training=False``): the roidb in order, batches of
+    ``batch_size`` (the last one ragged), each image mean-subtracted f32
+    (``image``) or, with ``uint8_transport``, resized uint8 BGR
+    (``image_u8``); each batch padded to the largest bucket shape of its
+    images, with ``im_info`` the true resized size. ``gt_truncate``:
+    "shuffle" (random permutation, then truncate) or "first" (the first
+    ``MAX_NUM_GT_BOXES`` in annotation order, which the SGG drivers need:
+    their relation triples index that order)."""
+
+    def __init__(self, roidb: List[Dict], ratio_index: np.ndarray,
+                 cfg: Config, batch_size: int = 1, training: bool = True,
+                 seed: int = 0, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 prefetch: int = 2, gt_truncate: str = "shuffle",
+                 uint8_transport: bool = False):
+        if gt_truncate not in ("shuffle", "first"):
+            raise ValueError(f"gt_truncate {gt_truncate!r}: 'shuffle' or "
+                             "'first'")
+        self.gt_truncate = gt_truncate
+        self.uint8_transport = uint8_transport
+        self.cfg = cfg
+        self.training = training
+        self.batch_size = batch_size
+        self.buckets = buckets
+        self.rng = np.random.RandomState(seed)
+        if training:
+            roidb_sorted = [roidb[i] for i in ratio_index]
+            self.entries = [e for e in roidb_sorted if not e.get("need_crop")]
+        else:
+            self.entries = list(roidb)
+        self.prefetch = prefetch
+
+    def __len__(self):
+        return len(self.entries) // self.batch_size if self.training \
+            else (len(self.entries) + self.batch_size - 1) // self.batch_size
+
+    def _load_one(self, entry: Dict):
+        im = imread_bgr(entry["image"])
+        if entry.get("flipped"):
+            im = im[:, ::-1, :]
+        target = (self.cfg.TRAIN.SCALES if self.training
+                  else self.cfg.TEST.SCALES)[0]
+        if self.uint8_transport:
+            im, scale = prep_image_u8(im, target)
+        else:
+            im, scale = prep_image(im, target, self.cfg.PIXEL_MEANS)
+        return im, scale, entry["boxes"] * scale, entry["gt_classes"]
+
+    def _pack_batch(self, items):
+        g = self.cfg.TRAIN.MAX_NUM_GT_BOXES
+        hw = [bucket_hw(im.shape[0], im.shape[1], self.buckets)
+              for im, *_ in items]
+        ph = max(h for h, w in hw)
+        pw = max(w for h, w in hw)
+        b = len(items)
+        img_dtype = np.uint8 if self.uint8_transport else np.float32
+        images = np.zeros((b, ph, pw, 3), img_dtype)
+        im_info = np.zeros((b, 3), np.float32)
+        gt = np.zeros((b, g, 5), np.float32)
+        num_boxes = np.zeros((b,), np.int32)
+        for i, (im, scale, boxes, classes) in enumerate(items):
+            h, w = im.shape[:2]
+            h, w = min(h, ph), min(w, pw)
+            images[i, :h, :w] = im[:h, :w]
+            im_info[i] = [h, w, scale]
+            n = len(boxes)
+            if n > g:
+                boxes, classes, n = self._truncate_gt(boxes, classes, g)
+            if n:
+                gt[i, :n, :4] = np.clip(boxes[:, :4], 0,
+                                        [w - 1, h - 1, w - 1, h - 1])
+                gt[i, :n, 4] = classes
+            num_boxes[i] = n
+        key = "image_u8" if self.uint8_transport else "image"
+        return {key: images, "im_info": im_info, "gt_boxes": gt,
+                "num_boxes": num_boxes}
+
+    def _truncate_gt(self, boxes, classes, g):
+        if self.gt_truncate == "first":
+            return boxes[:g], classes[:g], g
+        order = self.rng.permutation(len(boxes))[:g]
+        return boxes[order], classes[order], g
+
+    def _index_order(self) -> List[List[int]]:
+        n = len(self.entries)
+        bs = self.batch_size
+        if not self.training:
+            return [list(range(i, min(i + bs, n))) for i in range(0, n, bs)]
+        # aspect-grouped: consecutive (ratio-sorted) groups in random order
+        return [list(range(gidx * bs, (gidx + 1) * bs))
+                for gidx in self.rng.permutation(n // bs)]
+
+    def _produce(self, order, out_q, stop: threading.Event):
+        try:
+            for group in order:
+                if stop.is_set():
+                    return
+                batch = self._pack_batch([self._load_one(self.entries[i])
+                                          for i in group])
+                batch["indices"] = np.asarray(group, np.int64)
+                out_q.put(batch)
+        except Exception as e:                  # re-raised by the consumer
+            out_q.put(e)
+        finally:
+            out_q.put(None)
+
+    def __iter__(self) -> Iterator[Dict]:
+        order = self._index_order()
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        t = threading.Thread(target=self._produce, args=(order, q, stop),
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                if isinstance(batch, Exception):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
+            while t.is_alive():                 # unblock a full queue
+                try:
+                    q.get_nowait()
+                except queue_mod.Empty:
+                    t.join(timeout=0.05)

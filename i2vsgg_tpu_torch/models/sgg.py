@@ -217,11 +217,35 @@ class VRDHead(nn.Module):
 
 class SGGModel(nn.Module):
     """Relation model on a frozen detector's features (inference).
-    Parameter names: ``vrd.*`` as in the JAX module."""
+    Parameter names: ``vrd.*`` and, with a trunk, ``trunk.*``, as in the
+    JAX module.
 
-    def __init__(self, vrd: VRDHead):
+    ``trunk`` (a ``ResNetTrunk`` or ``VGG16Trunk``, optional) is Stage B's
+    own backbone, which ``forward`` runs before the head (the evaluation
+    driver, ``tools/test_sgg.py``); the fused serving program shares the
+    detector's trunk and calls ``head_on_features`` on its map instead."""
+
+    def __init__(self, vrd: VRDHead, trunk: nn.Module | None = None):
         super().__init__()
         self.vrd = vrd
+        if trunk is not None:
+            self.trunk = trunk
+
+    @torch.no_grad()
+    def forward(self, images, im_info, obj_boxes, classes, ix1, ix2,
+                pair_valid, prd_vecs, *, pair_static=None):
+        """Stage B on one frame: the trunk on ``images`` (1, H, W, 3) (the
+        preprocessed frame), then ``head_on_features`` on its stride-16 map.
+        ``classes`` (M,) is not read by the head (the JAX signature carries
+        it). [i2vsgg_tpu/models/sgg.py:266-283]"""
+        if not hasattr(self, "trunk"):
+            raise ValueError("SGGModel.forward needs the model built with a "
+                             "trunk; the serving program calls "
+                             "head_on_features on the detector's map")
+        base_feat, _ = self.trunk(images)
+        return self.head_on_features(base_feat, im_info, obj_boxes, ix1, ix2,
+                                     pair_valid, prd_vecs,
+                                     pair_static=pair_static)
 
     @torch.no_grad()
     def head_on_features(self, base_feat, im_info, obj_boxes, ix1, ix2,

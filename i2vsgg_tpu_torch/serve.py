@@ -81,8 +81,13 @@ def decode_detections(rois, roi_valid, cls_prob, bbox_pred, im_info,
     pred = (pred / im_info[:, 2, None, None, None]     # back to original scale
             ).expand(b, n, c, 4)
 
-    # per class (background skipped): (B, C-1, N, ...)
+    # per class (background skipped): (B, C-1, N, ...). A subnormal
+    # probability counts as 0, as under XLA, which flushes subnormals (a
+    # class score of 1e-43 would otherwise pass ``> score_thresh`` = 0)
     scores_c = cls_prob[..., 1:].transpose(1, 2)
+    tiny = torch.finfo(scores_c.dtype).tiny
+    scores_c = torch.where(scores_c.abs() < tiny,
+                           torch.zeros_like(scores_c), scores_c)
     boxes_c = pred[:, :, 1:].transpose(1, 2)
     ok = roi_valid[:, None, :] & (scores_c > score_thresh)
     keep, kv = nms_indices_unsorted(boxes_c, scores_c, cfg.TEST.NMS,

@@ -1,0 +1,62 @@
+"""What the port's drivers share: the config from the command line, the
+``--load_name`` convention (``<ckpt_dir>/<step>``) and the metadata the
+checkpoints carry."""
+
+from __future__ import annotations
+
+import os
+
+from i2vsgg_tpu_torch.config import Config, cfg_from_file, cfg_from_list
+from i2vsgg_tpu_torch.train.checkpoint import load_metadata
+
+
+def config_from_args(args, verbose: bool = False) -> Config:
+    """``args.cfg_file`` (``cfgs/<net>.yml``, where it exists) over the
+    defaults, then ``args.set_cfgs + args.extra_cfgs``, with
+    ``COMPUTE_DTYPE`` from ``--compute_dtype``."""
+    cfg = Config()
+    if os.path.exists(getattr(args, "cfg_file", "")):
+        cfg = cfg_from_file(args.cfg_file, cfg)
+        if verbose:
+            print(f"loaded config {args.cfg_file}")
+    return cfg_from_list(args.set_cfgs + args.extra_cfgs, cfg).replace(
+        COMPUTE_DTYPE=args.compute_dtype)
+
+
+def ckpt_of(load_name: str):
+    """``--load_name``'s (ckpt_dir, step), or None when none is given
+    (``""`` or the parser's default ``models``)."""
+    if load_name in ("", "models"):
+        return None
+    return os.path.dirname(load_name), int(os.path.basename(load_name))
+
+
+def metadata_of(load_name: str) -> dict:
+    """The checkpoint's metadata, or {} without a checkpoint or a metadata
+    file."""
+    ckpt = ckpt_of(load_name)
+    if ckpt is None:
+        return {}
+    try:
+        return load_metadata(*ckpt)
+    except FileNotFoundError:
+        return {}
+
+
+def vrd_pooling_of(load_name: str, default: str) -> str:
+    """The SGG head's pooling: the checkpoint's ``vrd_pooling`` where its
+    metadata records one (the head must pool as it was trained), else
+    ``default`` (``--vrd_pooling``)."""
+    meta = metadata_of(load_name)
+    if "vrd_pooling" in meta:
+        print(f"vrd pooling from checkpoint metadata: {meta['vrd_pooling']}")
+        return meta["vrd_pooling"]
+    return default
+
+
+def build_trunk(net: str, dtype):
+    """Stage B's own trunk for ``--net``."""
+    from i2vsgg_tpu_torch.models.backbones import ResNetTrunk, VGG16Trunk
+    if net == "vgg16":
+        return VGG16Trunk(dtype=dtype)
+    return ResNetTrunk(depth=int(net[3:]), dtype=dtype)

@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``i2vsgg_tpu_torch`` and ``chip_smoke.py``
 import torch, numpy and the standard library only — no JAX, flax, optax,
-PyYAML, ninja, cv2, PIL, ml_dtypes, and nothing of the JAX package
+orbax, PyYAML, ninja, cv2, PIL, ml_dtypes, and nothing of the JAX package
 ``i2vsgg_tpu`` (a machine with the card has none of them). Each case runs in
 a fresh interpreter with a ``sys.meta_path`` finder that refuses those
 names."""
@@ -17,7 +17,7 @@ BLOCKER = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "ninja",
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "ninja",
                "cv2", "PIL", "ml_dtypes", "i2vsgg_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
@@ -52,7 +52,8 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         import numpy as np
         import torch
 
-        for blocked in ("yaml", "cv2", "PIL", "ml_dtypes"):
+        for blocked in ("yaml", "cv2", "PIL", "ml_dtypes", "orbax", "jax",
+                        "flax"):
             try:
                 importlib.import_module(blocked)
             except ImportError:
@@ -74,6 +75,12 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         assert "i2vsgg_tpu_torch.utils.params" in names
         assert "i2vsgg_tpu_torch.ops.int8" in names
         assert "i2vsgg_tpu_torch.ops.conv1_int8" in names
+        for name in ("utils.torch_import", "train.checkpoint", "cli.args",
+                     "data.dataset_config", "data.voc", "data.factory",
+                     "data.roidb", "data.image_io", "data.pipeline",
+                     "models.glove", "eval.voc_eval", "tools.serve_video",
+                     "tools.test_sgg", "tools.test_det", "tools.common"):
+            assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
                              "TEST.RPN_POST_NMS_TOP_N", "16",
@@ -128,6 +135,16 @@ def test_roi_pool_cpu_path_and_missing_card():
         else:
             raise SystemExit("make_frame_program ran without a card")
         assert chip_smoke.main() != 0          # no result without a card
+
+        # the drivers default to the card, and raise without one
+        from i2vsgg_tpu_torch.tools import serve_video, test_det, test_sgg
+        for main in (serve_video.main, test_sgg.main, test_det.main):
+            try:
+                main(["--dataset", "MVidVRD", "--net", "res10"])
+            except RuntimeError as e:
+                assert "cuda" in str(e), e
+            else:
+                raise SystemExit(f"{main.__module__} ran without a card")
     """)
 
 
@@ -328,3 +345,71 @@ def test_slice_eight_paths_run_without_the_blocked_names():
         assert tuple(res["scores"].shape) == (2, 5)
         assert roi_pool.launches == 0 and roi_align_avg.launches == 0
     """)
+
+
+def test_drivers_run_as_modules_without_the_blocked_names(tmp_path):
+    """``python -m i2vsgg_tpu_torch.tools.{serve_video,test_sgg,test_det}``
+    with ``--device cpu`` on a small devkit that ``chip_smoke.write_devkit``
+    writes (PNG frames, no image library), from checkpoints in the port's
+    format, at chip_smoke's tiny driver configuration, in the blocked
+    interpreter."""
+    out = run_isolated(f"""
+        import json
+        import os
+        import runpy
+        import sys
+
+        import torch
+
+        import chip_smoke
+        from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+        from i2vsgg_tpu_torch.tools.common import config_from_args
+        from i2vsgg_tpu_torch.train.checkpoint import save_checkpoint
+
+        root = {str(tmp_path)!r}
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(root, "data")
+        chip_smoke.DEVKIT.update(height=72, width=128)
+        paths = chip_smoke.write_devkit(os.environ["I2VSGG_DATA_ROOT"])
+        args = set_dataset_args(parse_args(chip_smoke.DRIVER_TINY),
+                                test=True)
+        cfg = config_from_args(args)
+        spec = dict(chip_smoke.SMALL, num_classes=16, num_rel=26,
+                    fc_dim=128, emb_dim=300)
+        det, sgg, _ = chip_smoke.build_models(
+            spec, cfg, torch.Generator().manual_seed(0))
+        ck = os.path.join(root, "ckpt")
+        save_checkpoint(os.path.join(ck, "det"), det.state_dict(), 1,
+                        {{"pooling_mode": "align"}})
+        sd = {{"trunk." + k: v for k, v in det.trunk.state_dict().items()}}
+        sd.update(sgg.state_dict())
+        save_checkpoint(os.path.join(ck, "sgg"), sd, 1,
+                        {{"vrd_pooling": "align"}})
+        common = chip_smoke.DRIVER_TINY + ["--device", "cpu", "--save_dir",
+                                           os.path.join(root, "out")]
+        runs = {{
+            "serve_video": ["--load_name", os.path.join(ck, "det", "1"),
+                            "--sgg_load_name", os.path.join(ck, "sgg", "1"),
+                            "--max_det", "4", "--uint8_upload"],
+            "test_sgg": ["--load_name", os.path.join(ck, "sgg", "1"),
+                         "--video_ann", paths["video_ann"]],
+            "test_det": ["--load_name", os.path.join(ck, "det", "1")],
+        }}
+        for name, extra in runs.items():
+            sys.argv = [name] + common + extra
+            runpy.run_module("i2vsgg_tpu_torch.tools." + name,
+                             run_name="__main__")
+        for rel in ("serve/MVidVRD_test/frame_detections.json",
+                    "serve/MVidVRD_test/video_relations.json",
+                    "eval/MVidVRD_test_SGG/frame_detections.json",
+                    "eval/MVidVRD_test/adapt/det_test_person.txt"):
+            assert os.path.exists(os.path.join(root, "out", rel)), rel
+        frames = json.load(open(os.path.join(
+            root, "out", "serve/MVidVRD_test/frame_detections.json")))
+        assert sorted(frames) == ["vid00", "vid01"]
+        assert all(len(v) == 6 for v in frames.values())
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("drivers ran")
+    """)
+    assert "drivers ran" in out
