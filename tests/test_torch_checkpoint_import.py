@@ -14,7 +14,9 @@ torch_import.py``) on the CPU.
 * The trained reference head ``runs/parity_r4c/ref_head_s1.pth`` (skipped
   where the file is absent; loaded once for the module), imported by both
   packages — with and without the ``vrd.`` prefix — and run through
-  ``head_on_features`` on seeded 1024-channel features: rtol 1e-5.
+  ``head_on_features`` on seeded 1024-channel features: rtol 1e-5; and
+  how far the serving levers (bf16 storage, int8 fc6/fc7) move its output
+  against its f32 self (``-s`` prints the numbers).
 """
 
 import os
@@ -274,3 +276,74 @@ def test_trained_head_prefix_forms_agree(ref_head):
     for k, v in head.state_dict().items():
         if k != "fc6.weight":
             assert torch.equal(with_prefix[f"vrd.{k}"], v), k
+
+
+def test_trained_head_drift_under_serving_levers(ref_head):
+    """How far the serving levers move the trained head's output against
+    its f32 self (accuracy on the CPU, not speed; PERF.md records these
+    numbers): ``bf16_storage_cast`` (``--bf16_weights``, bf16 compute),
+    fc6/fc7 in int8 (``--int8_fc6``, ``quantize_dense_params``) and both.
+    Seeded post-ReLU-like features (|N(0, 1)|, 4 frames of (1, 38, 60,
+    1024), the stride-16 map of a 600x960 frame) with 8 random boxes each
+    (224 pairs) and the drivers' random predicate vectors: the trunk that
+    fed this head in training is not saved and no GloVe file is in the
+    repository, so this is the levers' arithmetic on this head, not its
+    task accuracy. Held to the bounds that the recorded numbers meet: the
+    relation probabilities move by under 1e-4, the raw cosines by under
+    1e-2, and no pair's top-1 predicate changes."""
+    from i2vsgg_tpu_torch.serve import make_pair_indices, pair_layout
+    from i2vsgg_tpu_torch.utils.params import (bf16_storage_cast,
+                                               quantize_dense_params)
+    sd, _, _ = ref_head
+    imported = torch_import.jwyang_vrd_params(sd)
+    heads = {}
+    for name, dtype, int8 in (("f32", torch.float32, False),
+                              ("bf16", torch.bfloat16, False),
+                              ("int8", torch.float32, True),
+                              ("bf16+int8", torch.bfloat16, True)):
+        head = VRDHead(dtype=dtype, int8_fc=int8)
+        torch_import.merge_imported(head, imported)
+        if dtype == torch.bfloat16:
+            bf16_storage_cast(head)
+        if int8:
+            quantize_dense_params(head)
+        heads[name] = SGGModel(head).eval()
+    dets, frames, h, w = 8, 4, 38, 60
+    prd = torch.from_numpy(np.random.RandomState(0).randn(26, 300).astype(
+        np.float32))
+    ix1, ix2, static = pair_layout(dets, "cpu")
+    pv = torch.ones(len(make_pair_indices(dets)[0]), dtype=torch.bool)
+    rs = np.random.RandomState(0)
+    cos = {k: [] for k in heads}
+    with torch.no_grad():
+        for _ in range(frames):
+            fmap = np.abs(rs.randn(1, h, w, 1024)).astype(np.float32)
+            ih, iw = 16.0 * h, 16.0 * w
+            xy = rs.uniform(0, 1, (dets, 2)) * [iw * 0.7, ih * 0.7]
+            wh = rs.uniform(0.1, 0.3, (dets, 2)) * [iw, ih]
+            boxes = np.concatenate([xy, np.minimum(xy + wh, [iw - 1,
+                                                             ih - 1])], 1)
+            args = (torch.from_numpy(fmap),
+                    torch.tensor([ih, iw, 1.0]),
+                    torch.from_numpy(boxes.astype(np.float32)))
+            for k, m in heads.items():
+                cos[k].append(m.head_on_features(
+                    *args, ix1, ix2, pv, prd, pair_static=static)[
+                        "scores"].float())
+    ref_cos = torch.cat(cos.pop("f32"))
+    ref = torch.softmax(ref_cos, -1)
+    top2 = ref.topk(2, -1).values
+    print(f"f32: {ref.shape[0]} pairs, rel_prob max {float(ref.max()):.4g}, "
+          f"median top-1 margin {float((top2[:, 0] - top2[:, 1]).median()):.3g}")
+    for k, c in cos.items():
+        c = torch.cat(c)
+        got = torch.softmax(c, -1)
+        d = (got - ref).abs()
+        cos_d = float((c - ref_cos).abs().max())
+        changed = float((got.argmax(-1) != ref.argmax(-1)).float().mean())
+        print(f"{k}: rel_prob max |d| {float(d.max()):.3g} (mean "
+              f"{float(d.mean()):.3g}), cosine max |d| {cos_d:.3g}, top-1 "
+              f"changed on {100 * changed:.2f} % of pairs")
+        assert float(d.max()) < 1e-4, k
+        assert cos_d < 1e-2, k
+        assert changed == 0.0, k

@@ -10,7 +10,11 @@ of both packages end to end at res10 on 96 px frames (``TINY`` below, the
 init saved with JAX's ``save_checkpoint`` and converted by
 ``tools/jax_to_torch_checkpoint.py``. Random weights tie, so the box
 deltas are scaled by 0.1 and the class logits by 40 (as the earlier port
-tests do).
+tests do). Each package reads its own copy of the fixture datasets and
+builds its own gt_roidb cache from the XML; the roidb test also has each
+read the other's cache. The serving levers run through both drivers too:
+``serve_video --bf16_weights --int8_fc6`` and ``test_det --int8_trunk
+mxu:<scope> --act_scales <calibration>``.
 
 The drivers' per-frame arrays are read where both packages hand them to
 ``detection_output`` (recorded, then passed on). Tolerances: detections'
@@ -18,13 +22,16 @@ classes, validity and pairs exact; boxes rtol 1e-5, detection scores and
 relation probabilities rtol 1e-4 (serve_video, whose detector sums f32 in
 another order), ``test_sgg``'s per-pair probabilities rtol 1e-5, each with
 an atol of the same fraction of the largest magnitude; ``test_sgg``'s
-metrics and ``test_det``'s APs equal.
+metrics and ``test_det``'s APs equal. Under the int8 levers: relation
+probabilities within 5e-3 (int8 fc6) and boxes within 0.25 px (the int8
+trunk), as their tests say.
 """
 
 import dataclasses
 import json
 import os
 import pickle
+import shutil
 import struct
 import zlib
 
@@ -90,17 +97,31 @@ def close(got, exp, rtol, atol=None):
                                atol=atol * max(scale, 1.0))
 
 
-@pytest.fixture(scope="module")
-def data_root(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("data"))
-    paths = make_fixture_root(root, n_rel=N_REL)
-    old = os.environ.get("I2VSGG_DATA_ROOT")
-    os.environ["I2VSGG_DATA_ROOT"] = root
-    yield paths
-    if old is None:
+def _set_data_root(root):
+    if root is None:
         os.environ.pop("I2VSGG_DATA_ROOT", None)
     else:
-        os.environ["I2VSGG_DATA_ROOT"] = old
+        os.environ["I2VSGG_DATA_ROOT"] = root
+
+
+@pytest.fixture(scope="module")
+def data_roots(tmp_path_factory):
+    """Two copies of the fixture datasets (tests/fixtures.py is seeded, so
+    they are equal): ``jax``, which only the JAX package reads, and
+    ``port``, which only the port reads (``I2VSGG_DATA_ROOT`` points there
+    by default), so that each package builds its gt_roidb cache from the
+    XML itself."""
+    roots = {pkg: make_fixture_root(str(tmp_path_factory.mktemp(
+        "data_" + pkg)), n_rel=N_REL) for pkg in ("jax", "port")}
+    old = os.environ.get("I2VSGG_DATA_ROOT")
+    _set_data_root(roots["port"]["root"])
+    yield roots
+    _set_data_root(old)
+
+
+@pytest.fixture(scope="module")
+def data_root(data_roots):
+    return data_roots["port"]
 
 
 # -- config and command line ------------------------------------------------
@@ -169,23 +190,53 @@ def test_set_dataset_args_refuses_the_sim_kind(monkeypatch):
 
 # -- data --------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["MVidVRD_test", "MVRD_test"])
-def test_combined_roidb_matches_jax(data_root, name):
-    """The port builds (or reads) the gt_roidb cache first, then JAX reads
-    it: the cache holds numpy only and is shared by both packages."""
-    got = roidb.combined_roidb(name, training=False, use_flipped=False)
-    exp = jax_roidb.combined_roidb(name, training=False, use_flipped=False)
+def _same_roidb(got, exp, root_got, root_exp):
+    """Two combined_roidb results field by field; image paths relative to
+    their data roots."""
     assert got[0].classes == exp[0].classes
     np.testing.assert_array_equal(got[2], exp[2])
     np.testing.assert_array_equal(got[3], exp[3])
-    assert len(got[1]) == len(exp[1]) == 12 if "Vid" in name else 8
+    assert len(got[1]) == len(exp[1])
     for a, b in zip(got[1], exp[1]):
         assert set(a) == set(b)
         for k in a:
-            if isinstance(a[k], np.ndarray):
+            if k == "image":
+                assert (os.path.relpath(a[k], root_got)
+                        == os.path.relpath(b[k], root_exp))
+            elif isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype, k
                 np.testing.assert_array_equal(a[k], b[k])
             else:
                 assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("name", ["MVidVRD_test", "MVRD_test"])
+def test_combined_roidb_matches_jax(tmp_path, monkeypatch, name):
+    """Each package parses the XML of its own copy of the devkit (no cache
+    there before), and the two roidbs agree field by field. Then, with the
+    XML deleted, each package reads the cache the other wrote, and gets
+    the same roidb again: the cache holds numpy only and is shared."""
+    ds = name.split("_")[0]
+    roots, parsed = {}, {}
+    for pkg, mod in (("port", roidb), ("jax", jax_roidb)):
+        roots[pkg] = make_fixture_root(str(tmp_path / pkg), n_rel=N_REL)[
+            "root"]
+        cache = os.path.join(roots[pkg], ds, "cache", name + "_gt_roidb.pkl")
+        assert not os.path.exists(cache)
+        monkeypatch.setenv("I2VSGG_DATA_ROOT", roots[pkg])
+        parsed[pkg] = mod.combined_roidb(name, training=False,
+                                         use_flipped=False)
+        assert os.path.exists(cache)
+    assert len(parsed["port"][1]) == (12 if "Vid" in name else 8)
+    assert all(len(r["boxes"]) > 0 for r in parsed["port"][1])
+    _same_roidb(parsed["port"], parsed["jax"], roots["port"], roots["jax"])
+    for pkg in roots:
+        shutil.rmtree(os.path.join(roots[pkg], ds, "Annotations"))
+    for pkg, mod, other in (("port", roidb, "jax"), ("jax", jax_roidb,
+                                                      "port")):
+        monkeypatch.setenv("I2VSGG_DATA_ROOT", roots[other])
+        cached = mod.combined_roidb(name, training=False, use_flipped=False)
+        _same_roidb(cached, parsed[pkg], roots[other], roots[pkg])
 
 
 def _png_cases(d):
@@ -470,19 +521,23 @@ class Recorder:
         return self.fn(*a, **k)
 
 
-def _run_both(monkeypatch, jax_main, jax_mod, port_main, port_mod, argv_j,
-              argv_p):
+def _run_both(monkeypatch, roots, jax_main, jax_mod, port_main, port_mod,
+              argv_j, argv_p):
+    """Each package's driver on its own copy of the datasets, with the
+    ``detection_output`` calls recorded."""
     rec_j = Recorder(jax_mod.detection_output)
     rec_p = Recorder(port_mod.detection_output)
     monkeypatch.setattr(jax_mod, "detection_output", rec_j)
     monkeypatch.setattr(port_mod, "detection_output", rec_p)
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["jax"]["root"])
     exp = jax_main(argv_j)
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["port"]["root"])
     got = port_main(argv_p)
     assert len(rec_j.calls) == len(rec_p.calls) == 12
     return exp, got, rec_j.calls, rec_p.calls
 
 
-def _same_frames(path_j, path_p):
+def _same_frames(path_j, path_p, rtol=1e-4):
     """The two frame_detections.json: same videos and frames, and per frame
     the same relation triplets (every tuple is kept: 12 pairs x 7
     predicates < top 100)."""
@@ -493,19 +548,24 @@ def _same_frames(path_j, path_p):
         for (_, ta), (_, tb) in zip(a[vid], b[vid]):
             assert len(ta) == len(tb) > 0
             assert sorted(t[1] for t in ta) == sorted(t[1] for t in tb)
-            close(sorted(t[0] for t in tb), sorted(t[0] for t in ta), 1e-4)
+            close(sorted(t[0] for t in tb), sorted(t[0] for t in ta), rtol)
 
 
-def test_serve_video_matches_jax(weights, monkeypatch):
+def _serve_both(weights, roots, monkeypatch, extra, tag, tol):
+    """serve_video of both packages with ``extra`` flags: per frame the same
+    classes and pairs, boxes within rtol 1e-5, scores and relation
+    probabilities within ``tol``; the same frame_detections.json keys and
+    triplets."""
     from i2vsgg_tpu_torch.tools import serve_video
     d = weights["dir"]
-    args = COMMON + ["--ic", "--gc", "--max_det", str(MD)]
+    args = COMMON + ["--ic", "--gc", "--max_det", str(MD)] + extra
     exp, got, calls_j, calls_p = _run_both(
-        monkeypatch, jax_serve_video.main, jax_metrics, serve_video.main,
-        serve, args + ["--save_dir", os.path.join(d, "out_jax"),
-                       "--load_name", weights["det"][0],
-                       "--sgg_load_name", weights["sgg"][0]],
-        args + ["--save_dir", os.path.join(d, "out_port"),
+        monkeypatch, roots, jax_serve_video.main, jax_metrics,
+        serve_video.main, serve,
+        args + ["--save_dir", os.path.join(d, "out_jax" + tag),
+                "--load_name", weights["det"][0],
+                "--sgg_load_name", weights["sgg"][0]],
+        args + ["--save_dir", os.path.join(d, "out_port" + tag),
                 "--load_name", weights["det"][1],
                 "--sgg_load_name", weights["sgg"][1], "--device", "cpu"])
     n_pairs = 0
@@ -515,27 +575,59 @@ def test_serve_video_matches_jax(weights, monkeypatch):
         for x, y in ((cls_j, cls_p), (i1_j, i1_p), (i2_j, i2_p)):
             np.testing.assert_array_equal(y, x)
         close(boxes_p, boxes_j, 1e-5)
-        close(sc_p, sc_j, 1e-4)
-        close(rel_p, rel_j, 1e-4)
+        close(sc_p, sc_j, tol)
+        close(rel_p, rel_j, tol)
         n_pairs += len(i1_j)
     assert n_pairs > 0
     rel = os.path.join("serve", "MVidVRD_test", "frame_detections.json")
-    _same_frames(os.path.join(d, "out_jax", rel),
-                 os.path.join(d, "out_port", rel))
+    _same_frames(os.path.join(d, "out_jax" + tag, rel),
+                 os.path.join(d, "out_port" + tag, rel), tol)
     assert isinstance(got, dict) and set(got) == set(exp)
+    return calls_p
 
 
-def test_test_sgg_matches_jax(data_root, weights, monkeypatch):
+def test_serve_video_matches_jax(weights, data_roots, monkeypatch):
+    _serve_both(weights, data_roots, monkeypatch, [], "", 1e-4)
+
+
+def test_serve_video_levers_match_jax(weights, data_roots, monkeypatch):
+    """``--bf16_weights --int8_fc6``: both drivers restore the f32
+    checkpoints, store the weights in bf16, then quantize fc6/fc7 to int8.
+    Compute stays f32 (``--compute_dtype float32``), so the detections hold
+    the f32 bounds; the relation probabilities pass through an int8
+    quantization of fc6's input, where two f32 values that differ in the
+    last bits can land one step apart: they are held at the res10 bound of
+    tests/test_torch_int8.py, 5e-3. The port's models must come out of
+    the driver's build bf16-stored with an int8 fc6."""
+    from i2vsgg_tpu_torch.tools import serve_video
+    quantized = []
+    real = serve_video.build_serving_models
+
+    def built(*a, **k):
+        det, sgg = real(*a, **k)
+        quantized.append((det.trunk.conv1.weight.dtype,
+                          sgg.vrd.fc6.weight.dtype))
+        return det, sgg
+
+    monkeypatch.setattr(serve_video, "build_serving_models", built)
+    calls = _serve_both(weights, data_roots, monkeypatch,
+                        ["--bf16_weights", "--int8_fc6"], "_levers", 5e-3)
+    assert quantized == [(torch.bfloat16, torch.int8)]
+    assert len(calls) == 12
+
+
+def test_test_sgg_matches_jax(data_roots, weights, monkeypatch):
     from i2vsgg_tpu_torch.tools import test_sgg
     d = weights["dir"]
-    args = COMMON + ["--video_ann", data_root["video_ann"]]
     exp, got, calls_j, calls_p = _run_both(
-        monkeypatch, jax_test_sgg.main, jax_metrics, test_sgg.main,
-        port_metrics,
-        args + ["--save_dir", os.path.join(d, "out_jax"),
-                "--load_name", weights["sgg"][0]],
-        args + ["--save_dir", os.path.join(d, "out_port"),
-                "--load_name", weights["sgg"][1], "--device", "cpu"])
+        monkeypatch, data_roots, jax_test_sgg.main, jax_metrics,
+        test_sgg.main, port_metrics,
+        COMMON + ["--video_ann", data_roots["jax"]["video_ann"],
+                  "--save_dir", os.path.join(d, "out_jax"),
+                  "--load_name", weights["sgg"][0]],
+        COMMON + ["--video_ann", data_roots["port"]["video_ann"],
+                  "--save_dir", os.path.join(d, "out_port"),
+                  "--load_name", weights["sgg"][1], "--device", "cpu"])
     for cj, cp in zip(calls_j, calls_p):
         for k in (1, 2, 3, 4, 5):         # GT boxes, classes, confs, pairs
             np.testing.assert_array_equal(cp[k], cj[k])
@@ -547,22 +639,74 @@ def test_test_sgg_matches_jax(data_root, weights, monkeypatch):
                  os.path.join(d, "out_port", rel))
 
 
-def test_test_det_matches_jax(weights):
+def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None):
+    """test_det of both packages, each on its own datasets: the same APs,
+    the same detections per class and image within ``tol`` (boxes within
+    ``box_atol`` px where it is given)."""
     from i2vsgg_tpu_torch.tools import test_det
     d = weights["dir"]
-    args = COMMON + ["--ic", "--gc"]
-    exp = jax_test_det.main(args + ["--save_dir", os.path.join(d, "dj"),
+    args = COMMON + ["--ic", "--gc"] + extra
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["jax"]["root"])
+    exp = jax_test_det.main(args + ["--save_dir", os.path.join(d, "dj" + tag),
                                     "--load_name", weights["det"][0]])
-    got = test_det.main(args + ["--save_dir", os.path.join(d, "dp"),
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["port"]["root"])
+    got = test_det.main(args + ["--save_dir", os.path.join(d, "dp" + tag),
                                 "--load_name", weights["det"][1],
                                 "--device", "cpu"])
     assert got == exp and set(got) > {"mAP"}
-    dets = [pickle.load(open(os.path.join(d, x, "eval", "MVidVRD_test",
+    dets = [pickle.load(open(os.path.join(d, x + tag, "eval", "MVidVRD_test",
                                           "detections.pkl"), "rb"))
             for x in ("dj", "dp")]
     for per_j, per_p in zip(*dets):
         for a, b in zip(per_j, per_p):
             assert a.shape == b.shape
-            close(b, a, 1e-4)
-    res = os.path.join(d, "dp", "eval", "MVidVRD_test", "adapt")
+            if box_atol is None:
+                close(b, a, tol)
+            else:
+                np.testing.assert_allclose(b[:, :4], a[:, :4], rtol=0,
+                                           atol=box_atol)
+                close(b[:, 4], a[:, 4], tol)
+    res = os.path.join(d, "dp" + tag, "eval", "MVidVRD_test", "adapt")
     assert os.path.exists(os.path.join(res, "det_test_person.txt"))
+    return dets[1]
+
+
+def test_test_det_matches_jax(weights, data_roots, monkeypatch):
+    _det_both(weights, data_roots, monkeypatch, [], "", 1e-4)
+
+
+def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch):
+    """``--int8_trunk mxu:<scope> --act_scales <calibration>``: both drivers
+    restore the checkpoint, store the scoped 3x3 convs of layer2-4 in int8
+    with the calibration file's static activation scales, and drop the
+    switch that set_dataset_args raised. The int8 products are exact on
+    both sides and the compute is f32, but a static quantization of two
+    f32 inputs that differ in their last bits can land one int8 step
+    apart: the scores hold the f32 bound (rtol 1e-4) and the APs are
+    equal, while a box moves by up to 0.079 px (measured): boxes are held
+    within 0.25 px. The port's int8 convs must run, and the switch must be
+    off after the run."""
+    from i2vsgg_tpu_torch.models import backbones as port_bb
+    scope = "layer2,layer3,layer4,@3x3"
+    calib = os.path.join(ROOT, "runs", "calib", "act_scales_res101.json")
+    n_int8 = []
+    real = port_bb.int8_conv2d
+
+    def counting(*a):
+        n_int8.append(tuple(a[0].shape))
+        return real(*a)
+
+    monkeypatch.setattr(port_bb, "int8_conv2d", counting)
+    monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
+    got = _det_both(weights, data_roots, monkeypatch,
+                    ["--int8_trunk", "mxu:" + scope, "--act_scales", calib],
+                    "_int8", 1e-4, box_atol=0.25)
+    assert "I2VSGG_INT8_TRUNK" not in os.environ
+    # layer2's and layer3's 3x3 on the batch, layer4's on its rois: 6
+    # batches of 2 frames
+    assert len(n_int8) == 3 * 6, n_int8
+    plain = pickle.load(open(os.path.join(
+        weights["dir"], "dp", "eval", "MVidVRD_test", "detections.pkl"),
+        "rb"))
+    assert any(a.shape != b.shape or not np.array_equal(a, b)
+               for pa, pb in zip(got, plain) for a, b in zip(pa, pb))
