@@ -67,7 +67,22 @@ class, with seeded random weights, along five paths:
   planes, each chain call); 13c runs ``test_sgg`` (GT boxes) and
   ``test_det``, whose files must parse; 13d runs ``serve_video`` and
   ``test_sgg`` at the tiny size of tests/test_drivers_e2e.py on the card
-  and on the CPU (``TINY_TOL``).
+  and on the CPU (``TINY_TOL``);
+* phase 14, the eleventh slice's path, Stage A training
+  (``train/det_da.py::train_step``): 14a takes 4 steps at full width
+  (res101 ic+gc+cr, bf16 compute with f32 params, one 600x1000 source frame
+  with GT boxes and one target frame a step, RPN 12000/2000, target 128,
+  128 rois, 256 anchors; the port's training inits) under
+  ``POOLING_MODE=align``: each step launches RoIAlignAvg (B1) twice and no
+  other kernel, the losses stay finite, only the trainable params move;
+  every RoI call of the last step is held to its plain version at its
+  inputs and timed beside its bound and the plain backward's device time;
+  the proposals' share of the step is timed. 14b does the same under
+  ``POOLING_MODE=pool`` (B2). 14c runs ``python -m
+  i2vsgg_tpu_torch.tools.trainval_det_da`` on a PNG devkit for 3 steps,
+  ``--r`` for 2 more, and ``test_det`` on the checkpoint; 14d holds one
+  tiny deterministic step (res10, f32) on the card to the CPU's
+  (``TRAIN_TINY_TOL``).
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -83,8 +98,9 @@ each accumulation depth (``kDepth`` 16, 32, 64 in ``csrc/bottleneck.cu``)
 and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
-The lines before the last are the serving record (ms per 4-frame request of
-each path served) and the kernels' JSON record (launches on the main path,
+The lines before the last are the training and serving record (phase 14's
+steps; ms per 4-frame request of each path served) and the kernels' JSON
+record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
 version's, the library call's and the bound), then the card's name and
 power limit; the last line is
@@ -1172,7 +1188,7 @@ def recorded_roi_sites(program, inputs) -> list:
 
     def rec(op, site, fn):
         def call(features, rois, *a, **k):
-            seen.append((op, site, features, rois, a, k))
+            seen.append((op, site, features.detach(), rois, a, k))
             return fn(features, rois, *a, **k)
         return call
 
@@ -1601,10 +1617,20 @@ def held_conv1_planes(det, planes: torch.Tensor, h: int, w: int,
                       what: str, card: str) -> dict:
     """The conv1 stem (B3) on served parity planes of h x w frames, held
     to its plain version within one bf16 ulp (phase 3b's bound) and timed
-    as the trunk calls it, beside its bound."""
+    as the trunk calls it, beside its bound and the library call (phase 7's:
+    cuDNN's bf16 conv with the BN scale folded and the shift as bias, on
+    bf16 images of the planes' shape)."""
     from i2vsgg_tpu_torch.ops import conv1 as c1
     weight = det.trunk.conv1.weight.detach()
     mul, add = det.trunk.bn1.affine()
+    b = planes.shape[0]
+    xb = torch.randn(b, h, w, 3, device=planes.device).to(
+        torch.bfloat16).permute(0, 3, 1, 2)     # NCHW view, channels-last
+    wf = c1.fold_v2_weight(weight, mul).contiguous(
+        memory_format=torch.channels_last)
+    bias = add.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+        xb, wf, bias, stride=2, padding=3), 50)
     err = held_one_ulp(c1.conv1_stem_planes(planes, h, w, weight, mul, add),
                        c1.conv1_stem_planes_plain(planes, h, w, weight, mul,
                                                   add), what)
@@ -1616,11 +1642,13 @@ def held_conv1_planes(det, planes: torch.Tensor, h: int, w: int,
     bnd, by = bound_of(nbytes, flops, H100_BF16_OPS_PER_S)
     log(f"{what}: planes {tuple(planes.shape)}, max abs err vs plain "
         f"{err:.3g} (one bf16 ulp); kernel {k_ms * 1e3:.2f} us, plain "
-        f"{p_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}: {nbytes} B, "
-        f"{flops} flop) [{card}]")
+        f"{p_ms * 1e3:.2f} us, cuDNN bf16 conv (+ affine) "
+        f"{lib_ms * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}: {nbytes} "
+        f"B, {flops} flop) [{card}]")
     return {"planes": list(planes.shape), "image_hw": [h, w],
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bnd, "bound_by": by, "bytes": nbytes}
+            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes}
 
 
 def held_chain_calls(program, inputs, what: str, card: str) -> list:
@@ -1955,6 +1983,418 @@ def drivers_on_card(dev, counters, card: str) -> dict:
         else:
             os.environ["I2VSGG_DATA_ROOT"] = saved_env
         shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+# ----------------------------------------------------------------------------
+# phase 14: Stage A training on the card (``train/det_da.py``, the driver
+# ``python -m i2vsgg_tpu_torch.tools.trainval_det_da``)
+
+# scripts/instance_styleD_resnet101.sh's run, with the consistency terms on
+# and a PNG source devkit (the port's loader decodes PNG only)
+TRAIN_ARGS = ["--dataset", "MVidVRD", "--dataset_t", "MVidVRD", "--net",
+              "res101", "--ic", "--gc", "--cr", "--lr", "5e-4",
+              "--lr_decay_step", "10", "--lr_decay_gamma", "0.1", "--eta",
+              "0.1", "--eta_style", "0.001", "--style_lambda", "1", "--bs",
+              "1"]
+# one source frame (with GT boxes) and one target frame a step, at the
+# TRAIN scale 600 and max side 1000
+TRAIN_FRAME = dict(height=600, width=1000, objects=4, num_classes=16)
+TRAIN_STEPS = 4
+# test_det on 14c's checkpoint
+EVAL_ARGS = ["--dataset", "MVidVRD", "--net", "res101", "--ic", "--gc",
+             "--bs", "4"]
+# 14d, the tiny step card vs CPU (f32, TF32 off): limits just above what
+# the runs measured (PERF.md §6)
+TRAIN_TINY_TOL = {"loss_rtol": 5e-6, "grad_frac": 2e-4, "grad_cos": 0.99999}
+TRAIN_TINY = dict(backbone="res10", height=64, width=80, frames=2,
+                  objects=3, num_classes=6)
+
+
+def train_frames(spec: dict, seed: int, n_frames: int = 1):
+    """Seeded (source, target) batches as the loader makes them: noisy
+    dark frames with ``spec["objects"]`` flat-coloured boxes, mean-subtracted
+    f32 NHWC; the source carries the boxes as zero-padded GT rows
+    ``[x1, y1, x2, y2, cls]`` (``TRAIN.MAX_NUM_GT_BOXES`` 30)."""
+    rs = np.random.RandomState(seed)
+    h, w = spec["height"], spec["width"]
+    means = np.asarray((102.9801, 115.9465, 122.7717), np.float32)
+    out = []
+    for _ in range(2):
+        ims = rs.randint(0, 60, (n_frames, h, w, 3)).astype(np.float32)
+        gt = np.zeros((n_frames, 30, 5), np.float32)
+        for f in range(n_frames):
+            for k in range(spec["objects"]):
+                bh, bw = rs.randint(h // 8, h // 2), rs.randint(w // 8, w // 2)
+                y, x = rs.randint(0, h - bh), rs.randint(0, w - bw)
+                ims[f, y:y + bh, x:x + bw] = rs.randint(80, 256, 3)
+                gt[f, k] = [x, y, x + bw - 1, y + bh - 1,
+                            rs.randint(1, spec["num_classes"])]
+        out.append({"image": ims - means,
+                    "im_info": np.tile([[h, w, 1.0]], (n_frames, 1)).astype(
+                        np.float32),
+                    "gt_boxes": gt})
+    src, tgt = out
+    del tgt["gt_boxes"]
+    return src, tgt
+
+
+def training_model(cfg, spec: dict, seed: int):
+    """The Stage A training tree (ic+gc) of ``spec["backbone"]``, filled by
+    the port's training inits (``models/inits.py``) on the CPU."""
+    from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
+    from i2vsgg_tpu_torch.models.inits import init_module
+    det = FasterRCNN_DA(spec["num_classes"], cfg, spec["backbone"], ic=True,
+                        gc=True, training_tree=True)
+    return init_module(det, torch.Generator().manual_seed(seed))
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(det, images, im_info):
+    """Set every FrozenBatchNorm's statistics to those of its input on these
+    frames (one inference pass, each BN set just before it runs), as a
+    pretrained trunk's would be: with the identity statistics of a fresh
+    init, a res101's activations grow block by block and its first SGD
+    steps blow the losses up. Its affine stays the identity."""
+    from i2vsgg_tpu_torch.models.backbones import FrozenBatchNorm
+
+    def hook(bn, inputs):
+        x = inputs[0].float()
+        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+    hooks = [m.register_forward_pre_hook(hook) for m in det.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        det.inference(images, im_info)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def profiled_step(fn) -> dict:
+    """One call of ``fn`` (a training step) under ``torch.profiler``: its
+    host ms (inflated by the profiler), the device ms summed over its
+    kernels, their launches, the busy share and the kernels with the most
+    device time. A window in which the profiler saw no kernel (it happens,
+    ``profiled_ms``) reads 0 device ms, logged as such."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    kern, n = {}, 0
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            kern[e.key] = e.device_time_total / 1e3
+            n += e.count
+    device_ms = sum(kern.values())
+    return {"host_ms": host_ms, "device_ms": device_ms, "launches": n,
+            "busy_share": device_ms / host_ms,
+            "top": sorted(kern.items(), key=lambda kv: -kv[1])[:10]}
+
+
+def train_full(name: str, pooling: str, dev, counters, card: str) -> dict:
+    """14a/14b: ``TRAIN_STEPS`` steps of the port's train step at full
+    width (``TRAIN_ARGS``: res101 ic+gc+cr, bf16 compute, f32 params; the
+    port's training inits with the FrozenBN statistics calibrated on the
+    source frame, ``calibrate_frozen_bn``) on one seeded source and target
+    frame of ``TRAIN_FRAME``, under
+    ``POOLING_MODE=pooling``. Each step's kernel launches (2 of the RoI
+    kernel: the source's and the target's pooling; no other kernel) are
+    counted; the losses must be finite; afterwards the frozen params and
+    every buffer are bit-unchanged and every other param moved. Every RoI
+    call of the last step is held to its plain version at its own inputs
+    and timed (``held_roi_site``), beside the plain backward's device time
+    and the proposals' (two NMS a step) share of the step."""
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.ops import roi_align as ra_mod
+    from i2vsgg_tpu_torch.ops import roi_pool as rp_mod
+    from i2vsgg_tpu_torch.tools.common import config_from_args
+    from i2vsgg_tpu_torch.train.det_da import TrainState, train_step
+    from i2vsgg_tpu_torch.train.optim import ReferenceSGD
+    args = set_dataset_args(parse_args(TRAIN_ARGS))
+    cfg = config_from_args(args).replace(POOLING_MODE=pooling)
+    op = "roi_align" if pooling == "align" else "roi_pool"
+    t = time.time()
+    det = training_model(cfg, dict(TRAIN_FRAME, backbone="res101"), 14)
+    opt = ReferenceSGD(det, args.lr, cfg)
+    det.to(dev)
+    state = TrainState(det, opt, seed=14)
+    src, tgt = (
+        {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        for b in train_frames(TRAIN_FRAME, 14))
+    calibrate_frozen_bn(det, src["image"], src["im_info"])
+    before = {k: v.detach().clone() for k, v in det.state_dict().items()}
+    frozen = {n for n, p in det.named_parameters() if not p.requires_grad}
+    log(f"res101 training tree built ({sum(p.numel() for p in det.parameters())} "
+        f"params, {len(frozen)} frozen) in {time.time() - t:.2f} s")
+    loss_kw = dict(eta=args.eta, eta_style=args.eta_style,
+                   style_lambda=args.style_lambda, cr=args.cr)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        out = []
+        counters.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            calls = recorded_roi_sites(
+                lambda: out.append(train_step(state, src, tgt, **loss_kw)),
+                ())
+        else:
+            out.append(train_step(state, src, tgt, **loss_kw))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        m = out[0]
+        got = counters.read()
+        if got != dict(NO_LAUNCHES, **{op: 2}):
+            raise AssertionError(f"{name} step {i + 1}: launches {got}; "
+                                 f"expected 2 of {op} and nothing else")
+        rec = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{name} step {i + 1}: {rec}")
+        steps.append(dict(rec, ms=ms))
+        log(f"{name} step {i + 1}: {ms:.1f} ms, loss {rec['loss']:.4f} "
+            f"(rpn_cls {rec['loss_rpn_cls']:.4f} rpn_box "
+            f"{rec['loss_rpn_box']:.4f} rcnn_cls {rec['loss_rcnn_cls']:.4f} "
+            f"rcnn_box {rec['loss_rcnn_box']:.4f} d_s {rec['dloss_s_p']:.4f}"
+            f" d_t {rec['dloss_t_p']:.4f} cst {rec['loss_s_cst']:.4f}/"
+            f"{rec['loss_t_cst']:.4f}), fg rois {int(rec['fg_cnt'])}")
+    peak = torch.cuda.max_memory_allocated()
+    after = det.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k])}
+    params = {n for n, _ in det.named_parameters()}
+    still = params - frozen - moved
+    if moved - params or moved & frozen or still:
+        raise AssertionError(
+            f"{name}: buffers or frozen params moved "
+            f"{sorted((moved - params) | (moved & frozen))[:5]}, trainable "
+            f"params unchanged {sorted(still)[:5]}")
+    if len(calls) != 2:
+        raise AssertionError(f"{name}: {len(calls)} RoI calls recorded")
+    profiled = profiled_step(lambda: train_step(state, src, tgt, **loss_kw))
+    log(f"{name}, a fifth step under torch.profiler: {profiled['host_ms']:.1f}"
+        f" ms of host time, {profiled['device_ms']:.2f} ms of device time in "
+        f"{profiled['launches']} kernel launches (busy share "
+        f"{profiled['busy_share']:.3f}); most device time: "
+        f"{[(k[:40], round(v, 2)) for k, v in profiled['top'][:5]]}")
+    sites, bwd = [], []
+    for (_, _, fmap, rois, a, k), which in zip(calls, ("source", "target")):
+        what = f"{name} {op} {which} ({rois.shape[0]} rois)"
+        sites.append(dict(held_roi_site(op, fmap, rois, a, k, what),
+                          site=which))
+        g = torch.randn(rois.shape[0], 7, 7, fmap.shape[-1], device=dev,
+                        dtype=fmap.dtype)
+        if op == "roi_align":
+            def backward():
+                return ra_mod.roi_align_avg_backward(
+                    g, rois, tuple(fmap.shape), fmap.dtype, *a)
+        else:
+            def backward():
+                return rp_mod.roi_pool_backward(g, fmap, rois, *a)
+        bwd.append(kernel_ms(backward, reps=3))
+        s = sites[-1]
+        log(f"{what}: kernel {s['ms'] * 1e3:.2f} us of device time, plain "
+            f"{s['plain_ms'] * 1e3:.2f} us, bound {s['bound_ms'] * 1e3:.3f} "
+            f"us ({s['bound_by']}); the plain backward "
+            f"{bwd[-1] * 1e3:.2f} us [{card}]")
+    # the proposals of a step (the source's and the target's NMS over the
+    # 12000 top anchors), on the last step's weights
+    with torch.no_grad():
+        base_feat, _ = det.trunk(src["image"])
+        rpn_out = det.rpn(base_feat)
+        prop_ms = {w: cuda_ms(lambda: det.proposals(
+            base_feat, *rpn_out, src["im_info"], training=True,
+            target=w == "target"), 3, 1) for w in ("source", "target")}
+    step_ms = float(np.mean([s["ms"] for s in steps[1:]]))
+    rec = {"steps": steps, "launches_per_step": got[op],
+           "profiled_step": profiled,
+           "step_ms": step_ms, "images_per_s": 1e3 / step_ms,
+           "proposals_ms": prop_ms,
+           "proposals_share": sum(prop_ms.values()) / step_ms,
+           "sites": sites, "backward_ms": bwd, "peak_bytes": peak,
+           "moved": len(moved), "frozen": len(frozen)}
+    log(f"{name}: steady step {step_ms:.1f} ms ({rec['images_per_s']:.2f} "
+        f"source images/s, one target image each), proposals "
+        f"{ {k: round(v, 2) for k, v in prop_ms.items()} } ms "
+        f"({100 * rec['proposals_share']:.1f} % of the step), peak "
+        f"{peak / 2 ** 30:.2f} GiB; {len(moved)} params moved, "
+        f"{len(frozen)} frozen and every buffer bit-unchanged [{card}]")
+    del det, opt, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_driver_on_card(dev, counters, card: str) -> dict:
+    """14c: ``trainval_det_da`` (``TRAIN_ARGS``, full width, bf16 compute)
+    on a PNG devkit from ``write_devkit`` (360x640 frames at scale 600:
+    600x1067 in a 608x1216 batch), started as a user starts it from a
+    detector (``--load_name``: the port's inits with calibrated FrozenBN
+    statistics, saved in the port's format; the heads re-initialized): 3
+    steps, then ``--r`` for 2 more (the step count and the lr go on from
+    the checkpoint), then ``test_det`` on the last checkpoint, whose files
+    must parse."""
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.tools import test_det, trainval_det_da
+    from i2vsgg_tpu_torch.tools.common import config_from_args
+    from i2vsgg_tpu_torch.train.checkpoint import save_checkpoint
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    rec = {}
+    try:
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+        write_devkit(os.environ["I2VSGG_DATA_ROOT"])
+        cfg = config_from_args(set_dataset_args(parse_args(TRAIN_ARGS)))
+        det = training_model(cfg, dict(TRAIN_FRAME, backbone="res101"), 15)
+        src, _ = train_frames(TRAIN_FRAME, 15)
+        calibrate_frozen_bn(det.to(dev),
+                            torch.as_tensor(src["image"], device=dev),
+                            torch.as_tensor(src["im_info"], device=dev))
+        save_checkpoint(os.path.join(work, "init"), det.state_dict(), 0)
+        del det
+        out = os.path.join(work, "out")
+        common = TRAIN_ARGS + ["--save_dir", out, "--disp_interval", "1"]
+        counters.reset()
+        t = time.time()
+        state = trainval_det_da.main(common + [
+            "--max_steps", "3", "--load_name",
+            os.path.join(work, "init", "0")])
+        rec["train_s"] = time.time() - t
+        got = counters.read()
+        if state.step != 3 or got != dict(NO_LAUNCHES, roi_align=6):
+            raise AssertionError(f"14c: step {state.step}, launches {got}")
+        t = time.time()
+        state = trainval_det_da.main(common + ["--max_steps", "5", "--r"])
+        rec["resume_s"] = time.time() - t
+        lr = state.optimizer.opt.param_groups[0]["lr"]
+        if state.step != 5 or lr != state.optimizer.lr_schedule(4):
+            raise AssertionError(f"14c --r: step {state.step}, lr {lr}")
+        ck = os.path.join(out, "res101", "MVidVRD", "session_1")
+        with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        if [r["step"] for r in logged] != [1, 2, 3, 4, 5]:
+            raise AssertionError(f"14c: logged steps {logged}")
+        if not all(np.isfinite(r["loss"]) for r in logged):
+            raise AssertionError(f"14c: losses {logged}")
+        meta = json.load(open(os.path.join(ck, "step_00000005",
+                                           "metadata.json")))
+        if set(meta) != {"session", "epoch", "pooling_mode",
+                         "class_agnostic", "net", "dataset", "classes"}:
+            raise AssertionError(f"14c: metadata {meta}")
+        counters.reset()
+        aps = test_det.main(EVAL_ARGS + [
+            "--load_name", os.path.join(ck, "5"), "--save_dir", out])
+        ev = os.path.join(out, "eval", "MVidVRD_test")
+        with open(os.path.join(ev, "detections.pkl"), "rb") as fh:
+            if len(pickle.load(fh)) != 16:
+                raise AssertionError("14c detections.pkl: not 16 classes")
+        results = [f for f in os.listdir(os.path.join(ev, "adapt"))
+                   if f.startswith("det_test_")]
+        if len(results) != 15:
+            raise AssertionError(f"14c test_det wrote {len(results)} files")
+        rec.update(losses=[r["loss"] for r in logged],
+                   imgs_per_sec=[r["imgs_per_sec"] for r in logged],
+                   test_det_mAP=float(aps["mAP"]),
+                   test_det_launches={k: v for k, v in
+                                      counters.read().items() if v})
+        log(f"14c: trained 3 steps in {rec['train_s']:.1f} s, resumed to 5 "
+            f"in {rec['resume_s']:.1f} s (lr {lr:g}); losses "
+            f"{[round(x, 3) for x in rec['losses']]}; test_det mAP "
+            f"{rec['test_det_mAP']:.4f} (random weights: printed, not held) "
+            f"[{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def train_tiny_card_vs_cpu(dev, counters) -> dict:
+    """14d: one deterministic step (``I2VSGG_DETERMINISTIC_SAMPLING=1``) of
+    the tiny res10 tree (ic+gc+cr, f32, TF32 off, anchor scales (1, 2, 4)
+    so that 64x80 frames hold anchors) on the card and on the CPU, from the
+    same weights: every loss within ``loss_rtol``, every gradient within
+    ``grad_frac`` of its norm and at cosine >= ``grad_cos``
+    (``TRAIN_TINY_TOL``)."""
+    from i2vsgg_tpu_torch.config import Config
+    from i2vsgg_tpu_torch.train.det_da import det_da_loss, step_generator
+    from i2vsgg_tpu_torch.train.optim import ReferenceSGD
+    cfg = Config().replace(
+        TRAIN=Config().TRAIN.__class__(
+            RPN_PRE_NMS_TOP_N=200, RPN_POST_NMS_TOP_N=32,
+            RPN_POST_NMS_TOP_N_TARGET=16, RPN_BATCHSIZE=32, BATCH_SIZE=16,
+            MAX_NUM_GT_BOXES=30),
+        COMPUTE_DTYPE="float32", ANCHOR_SCALES=(1, 2, 4))
+    det_c = training_model(cfg, TRAIN_TINY, 4)
+    with torch.no_grad():
+        det_c.rpn.cls_score.weight.mul_(40.0)
+    det_g = copy.deepcopy(det_c).to(dev)
+    batches = train_frames(TRAIN_TINY, 4, TRAIN_TINY["frames"])
+    saved = os.environ.get("I2VSGG_DETERMINISTIC_SAMPLING")
+    os.environ["I2VSGG_DETERMINISTIC_SAMPLING"] = "1"
+    out = {}
+    try:
+        with tf32_off():
+            for where, d, det in (("cpu", torch.device("cpu"), det_c),
+                                  ("card", dev, det_g)):
+                ReferenceSGD(det, 1e-3, cfg)
+                counters.reset()
+                loss, m = det_da_loss(
+                    det, *({k: torch.as_tensor(v, device=d)
+                            for k, v in b.items()} for b in batches),
+                    step_generator(d, 4, 0), eta=0.1, eta_style=0.01,
+                    style_lambda=1.0, cr=True)
+                loss.backward()
+                out[where] = ({k: float(v.detach()) for k, v in m.items()},
+                              {n: p.grad.cpu().double() for n, p in
+                               det.named_parameters() if p.requires_grad},
+                              counters.read())
+    finally:
+        if saved is None:
+            os.environ.pop("I2VSGG_DETERMINISTIC_SAMPLING", None)
+        else:
+            os.environ["I2VSGG_DETERMINISTIC_SAMPLING"] = saved
+    (mc, gc, _), (mg, gg, launched) = out["cpu"], out["card"]
+    if launched != dict(NO_LAUNCHES, roi_align=2):
+        raise AssertionError(f"14d launches on the card {launched}")
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    frac = max(float((gg[n] - gc[n]).abs().max())
+               / max(float(gc[n].norm()), 1e-12) for n in gc)
+    cos = min(float((gg[n] * gc[n]).sum() / (gg[n].norm() * gc[n].norm()))
+              for n in gc if float(gc[n].norm()) > 0)
+    tol = TRAIN_TINY_TOL
+    log(f"14d tiny step card vs CPU: losses rtol {loss_err:.3g} (tol "
+        f"{tol['loss_rtol']:g}), gradients {frac:.3g} of their norm (tol "
+        f"{tol['grad_frac']:g}), least cosine {cos:.8f} (tol "
+        f"{tol['grad_cos']}); {len(gc)} gradients, fg rois "
+        f"{int(mc['fg_cnt'])}, rpn_cls {mc['loss_rpn_cls']:.4f}")
+    if not (loss_err <= tol["loss_rtol"] and frac <= tol["grad_frac"]
+            and cos >= tol["grad_cos"] and mc["loss_rpn_cls"] > 0):
+        raise AssertionError("14d: the tiny step on the card is out of "
+                             f"bounds {tol}")
+    return {"loss_rtol": loss_err, "grad_frac": frac, "grad_cos": cos,
+            "tolerances": tol}
+
+
+def training_on_card(dev, counters, card: str) -> dict:
+    """Phase 14 (see the module docstring). Returns its record."""
+    rec = {}
+    phase("14a Stage A training at full width: res101 ic+gc+cr, bf16 "
+          "compute, one 600x1000 source frame with GT boxes and one target "
+          f"frame a step, {TRAIN_STEPS} steps, POOLING_MODE=align (B1)")
+    rec["14a align"] = train_full("14a", "align", dev, counters, card)
+    phase("14b the same under POOLING_MODE=pool (B2)")
+    rec["14b pool"] = train_full("14b", "pool", dev, counters, card)
+    phase("14c the driver: trainval_det_da on a PNG devkit, 3 steps, --r to "
+          "5, then test_det on the checkpoint")
+    rec["14c driver"] = train_driver_on_card(dev, counters, card)
+    phase("14d one tiny deterministic step (res10, 64x80, f32, TF32 off): "
+          "card vs CPU")
+    rec["14d tiny"] = train_tiny_card_vs_cpu(dev, counters)
     return rec
 
 
@@ -3094,9 +3534,10 @@ def main() -> int:
                           imgs_s, info_s)
 
     drivers = drivers_on_card(dev, counters, card)
+    training = training_on_card(dev, counters, card)
 
-    phase("14 results")
-    print(json.dumps({"serving": {
+    phase("15 results")
+    print(json.dumps({"training": training, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
@@ -3142,6 +3583,15 @@ def main() -> int:
         "conv1"]
     kernels["bottleneck"]["phase13_chain"] = drivers["serve"][
         "bf16 weights, chain"]["chain"]
+    # the kernels at the training sites (phase 14a align, 14b pool): their
+    # launches a step and each call of the last step, with the plain
+    # backward's device time beside it
+    for name, run in (("roi_align", "14a align"), ("roi_pool", "14b pool")):
+        t = training[run]
+        kernels[name]["phase14_launches_per_step"] = t["launches_per_step"]
+        kernels[name]["phase14_sites"] = [
+            dict(site, backward_ms=b)
+            for site, b in zip(t["sites"], t["backward_ms"])]
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -3170,7 +3620,9 @@ def main() -> int:
                                                 "phase13_launches",
                                                 "phase13_sites",
                                                 "phase13_planes",
-                                                "phase13_chain")
+                                                "phase13_chain",
+                                                "phase14_launches_per_step",
+                                                "phase14_sites")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -151,7 +151,8 @@ def parse_args(argv=None):
     p.add_argument("--video_ann", default="",
                    help="video_annotations JSON for relation metrics")
     p.add_argument("--profile_dir", default="",
-                   help="[ignored by the port's drivers]")
+                   help="trainval_det_da: a torch.profiler trace of "
+                        "steps 10-20 (trace.json)")
     p.add_argument("--cfg", dest="extra_cfgs", nargs="*", default=[],
                    help="extra KEY VALUE config overrides "
                         "(reference cfg_from_list format)")

@@ -23,8 +23,11 @@ cv2 is not on the card's machine, so the port decodes with
   near 10x.
 
 The native C++ decode runtime of the JAX package is not ported. The
-loader's training branch (aspect-grouped batches) is copied for the
-training slice and unused by the drivers.
+loader's training branch (``training=True``: the ratio-sorted roidb without
+its ``need_crop`` entries, flipped entries mirrored, aspect-grouped batches
+in a seeded random order, GT rows beyond ``MAX_NUM_GT_BOXES`` shuffled and
+truncated) feeds ``tools/trainval_det_da.py``; JAX's multi-host
+``host_shard`` is not ported.
 """
 
 from __future__ import annotations

@@ -237,7 +237,8 @@ class ResNetStage(nn.Module):
     tail (blocks 1..) runs as one ``bottleneck_chain`` on the folded
     weights: bf16 with f32 bias and accumulation whatever ``dtype`` is, the
     result cast to ``dtype`` (as the JAX stage does). A tail with int8-stored
-    weights is refused there (``folded_tail``).
+    weights is refused there (``folded_tail``), and so is a trainable tail
+    with grad enabled: the chain has no backward.
     """
 
     path = ""
@@ -296,6 +297,15 @@ class ResNetStage(nn.Module):
     def forward(self, x, first_stride: int | None = None):
         x = self.block0(x, first_stride)
         if self.blocks > 1 and use_fused_chain(x, self.planes):
+            if torch.is_grad_enabled() and any(
+                    p.requires_grad for m in self._tail_modules()
+                    for p in m.parameters(recurse=False)):
+                raise ValueError(
+                    f"stage {self.path or type(self).__name__}: the "
+                    "bottleneck chain is forward-only (no backward in either "
+                    "package) and its folded weights are built without "
+                    "autograd, so a trainable tail would get no gradient; "
+                    "train with I2VSGG_PALLAS_BOTTLENECK off")
             y = bottleneck_chain(
                 nchw_to_nhwc(x).to(torch.bfloat16).contiguous(),
                 *self.folded_tail())
@@ -454,7 +464,12 @@ class VGG16Trunk(nn.Module):
 
 class VGG16Head(nn.Module):
     """fc6/fc7 (ReLU) over the pooled rois (R, P, P, C) flattened in NHWC
-    order -> (R, 4096). Dropout is the identity at inference."""
+    order -> (R, 4096). Dropout (rate ``dropout_rate``, after each ReLU) runs
+    in training only, when a ``generator`` is passed: flax's
+    ``nn.Dropout`` (keep with probability 1 - rate, scale the kept by
+    1 / (1 - rate)) drawn from it."""
+
+    dropout_rate = 0.5
 
     def __init__(self, in_features: int = 7 * 7 * 512,
                  dtype=torch.bfloat16):
@@ -462,6 +477,15 @@ class VGG16Head(nn.Module):
         self.fc6 = Dense(in_features, 4096, dtype=dtype)
         self.fc7 = Dense(4096, 4096, dtype=dtype)
 
-    def forward(self, x):
+    def _dropout(self, x, generator):
+        rate = self.dropout_rate
+        if generator is None or rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    def forward(self, x, generator: torch.Generator | None = None):
         x = F.relu(self.fc6(x.reshape(x.shape[0], -1)))
-        return F.relu(self.fc7(x))
+        x = F.relu(self.fc7(self._dropout(x, generator)))
+        return self._dropout(x, generator)

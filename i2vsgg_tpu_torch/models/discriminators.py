@@ -1,12 +1,14 @@
-"""Inference pieces of the domain discriminators — counterpart of
-``i2vsgg_tpu/models/discriminators.py``.
+"""The domain discriminators, the gradient reversal layer and the LSGAN
+losses — counterpart of ``i2vsgg_tpu/models/discriminators.py``.
 
 At inference the discriminators only supply context features: the
 instance-level ``NetDPixel`` through its full pass on pooled rois (the
 non-fused path) or ``preconv``/``context_tail`` (the fused align path), the
 ic feature; and ``NetDStyle`` through its signed-sqrt, L2-normalised bilinear
-feature ``z`` (the gc feature). The gradient reversal and the LSGAN losses
-belong to the training slice.
+feature ``z`` (the gc feature). In training both also give their domain
+probabilities, behind ``grad_reverse`` (identity forward, ``-lamb * g``
+backward; the reference's GRL, ``lib/model/utils/net_utils.py:52-61``), and
+``lsgan_source_loss`` / ``lsgan_target_loss`` score them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,34 @@ from torch import nn
 
 from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc, nhwc_to_nchw
 from i2vsgg_tpu_torch.models.layers import Conv, Dense
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lamb: float):
+        ctx.lamb = lamb
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.lamb * g, None
+
+
+def grad_reverse(x: torch.Tensor, lamb: float) -> torch.Tensor:
+    """Identity forward; the gradient times ``-lamb`` backward (JAX's
+    ``grad_reverse``, a ``custom_vjp``)."""
+    return _GradReverse.apply(x, float(lamb))
+
+
+def lsgan_source_loss(d_out: torch.Tensor) -> torch.Tensor:
+    """0.5 * mean(D^2): the source pushed toward 0.
+    [trainval_net_instance_styleD_bilinear.py:284-285]"""
+    return 0.5 * (d_out ** 2).mean()
+
+
+def lsgan_target_loss(d_out: torch.Tensor) -> torch.Tensor:
+    """0.5 * mean((1 - D)^2): the target pushed toward 1. [trainval...:293-295]"""
+    return 0.5 * ((1.0 - d_out) ** 2).mean()
 
 
 class NetDPixel(nn.Module):
@@ -49,10 +79,12 @@ class NetDPixel(nn.Module):
                               init_std=0.01)
         self.dtype = dtype
 
-    def forward(self, pooled):
+    def forward(self, pooled, lamb: float = 1.0):
         """(R, P, P, C) pooled rois -> (per-pixel probabilities (R, P, P, 1)
-        f32, the 128-d mean after conv2 (R, 128) f32: the ic feature)."""
-        x = F.relu(self.conv1(nhwc_to_nchw(pooled.to(self.dtype))))
+        f32, the 128-d mean after conv2 (R, 128) f32: the ic feature). The
+        input passes ``grad_reverse(., lamb)`` first."""
+        x = grad_reverse(pooled.to(self.dtype), lamb)
+        x = F.relu(self.conv1(nhwc_to_nchw(x)))
         x = F.relu(self.conv2(x))
         prob = torch.sigmoid(nchw_to_nhwc(self.conv3(x)).float())
         return prob, x.mean(dim=(2, 3)).float()
@@ -78,8 +110,9 @@ class NetDStyle(nn.Module):
         z[d] = sum_k w1_dk^T G w2_dk + c2.(W1^T s) + c1.(W2^T s) + P c1.c2
 
     with s = sum_p x_p and P = HW, then signed sqrt and L2 norm. ``forward``
-    returns ``z`` (B, dim); the d-probability layer ``fc1`` is kept for the
-    checkpoint's sake and is not evaluated at inference.
+    returns ``z`` (B, dim); with ``prob=True`` also the domain probability
+    ``sigmoid(fc1(z))`` (B, 1), which training scores. The input passes
+    ``grad_reverse(., lamb)`` first.
     """
 
     def __init__(self, dtype=torch.float32):
@@ -93,10 +126,10 @@ class NetDStyle(nn.Module):
         self.fc1 = Dense(dim, 1, init_std=math.sqrt(2.0),
                          bias_bound=1.0 / math.sqrt(dim))
 
-    def forward(self, x):
+    def forward(self, x, lamb: float = 1.0, prob: bool = False):
         f32 = torch.float32
         b, cin = x.shape[0], x.shape[-1]
-        x = x.to(self.dtype).reshape(b, -1, cin)            # (B, HW, C)
+        x = grad_reverse(x.to(self.dtype), lamb).reshape(b, -1, cin)
         p = x.shape[1]
         xf = x.to(f32)
         g = torch.einsum("bpc,bpd->bcd", xf, xf)             # (B, C, C)
@@ -110,5 +143,8 @@ class NetDStyle(nn.Module):
         z = t + c2 * (s @ w1) + c1 * (s @ w2) + float(p) * c1 * c2
         z = z.reshape(b, self.dim, self.rank).sum(-1)        # (B, dim)
         z = torch.sqrt(F.relu(z)) - torch.sqrt(F.relu(-z))   # signed sqrt
-        return z / torch.clamp_min(torch.linalg.norm(z, dim=1, keepdim=True),
-                                   1e-12)
+        z = z / torch.clamp_min(torch.linalg.norm(z, dim=1, keepdim=True),
+                                1e-12)
+        if prob:
+            return torch.sigmoid(self.fc1(z)), z
+        return z

@@ -1,5 +1,6 @@
-"""Domain-adaptive Faster R-CNN, inference — counterpart of
-``FasterRCNN_DA.inference`` in ``i2vsgg_tpu/models/faster_rcnn.py``.
+"""Domain-adaptive Faster R-CNN — counterpart of ``FasterRCNN_DA`` in
+``i2vsgg_tpu/models/faster_rcnn.py``: inference, and the two training
+passes of Stage A (``train_source``, ``target_pass``).
 
 Backbones ``res<depth>`` (``ResNetTrunk`` + ``ResNetHead``) and ``vgg16``
 (``VGG16Trunk`` + ``VGG16Head``); ``class_agnostic`` makes ``bbox_pred`` 4
@@ -20,7 +21,16 @@ them (``faster_rcnn.py:294-295``):
 The gc feature is NetDStyle's ``z`` over the trunk's tap. Parameter names
 are the JAX module's (``trunk``, ``rpn``, ``head``, ``netD_pixel``,
 ``netD_style``, ``cls_score``, ``bbox_pred``); ``netD_pixel.conv3`` exists
-on the non-fused path only, as in the JAX tree.
+on the non-fused path only, as in the JAX inference tree. ``training_tree``
+builds the JAX training tree instead: both discriminators whole, whatever
+``ic`` and ``gc`` are (training scores their domain probabilities); such a
+module also runs inference.
+
+Training follows the JAX passes: the RPN's outputs are detached before the
+proposals (``faster_rcnn.py:99-108``), the rois carry no gradient into the
+pooling, the ic and gc context features are computed a second time from a
+detached input (``:182-185, 237-240``), and random draws (anchor and roi
+sampling, VGG16's dropout) come from the ``torch.Generator`` passed in.
 """
 
 from __future__ import annotations
@@ -36,9 +46,21 @@ from i2vsgg_tpu_torch.models.discriminators import NetDPixel, NetDStyle
 from i2vsgg_tpu_torch.models.layers import Dense, torch_dtype
 from i2vsgg_tpu_torch.models.rpn import (Proposals, RPNHead,
                                          generate_proposals, rpn_softmax_fg)
+from i2vsgg_tpu_torch.models.targets import anchor_targets, proposal_targets
 from i2vsgg_tpu_torch.ops.anchors import generate_anchors, shifted_anchors
+from i2vsgg_tpu_torch.ops.boxes import smooth_l1_loss
 from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
 from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
+
+
+def masked_softmax_ce(logits, labels, mask):
+    """Cross entropy averaged over ``mask`` (labels clipped to the classes),
+    as JAX's ``_masked_softmax_ce``."""
+    labels = labels.clamp(0, logits.shape[-1] - 1)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    m = mask.to(logits.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
 def _is_resnet(backbone: str) -> bool:
@@ -51,13 +73,15 @@ class FasterRCNN_DA(nn.Module):
 
     def __init__(self, num_classes: int, cfg: Config,
                  backbone: str = "res101", class_agnostic: bool = False,
-                 ic: bool = False, gc: bool = False):
+                 ic: bool = False, gc: bool = False,
+                 training_tree: bool = False):
         super().__init__()
         if cfg.POOLING_MODE not in ("align", "pool"):
             raise ValueError(f"POOLING_MODE {cfg.POOLING_MODE!r}: 'align' or "
                              "'pool'")
         self.cfg = cfg
         self.num_classes = num_classes
+        self.class_agnostic = class_agnostic
         self.ic, self.gc = ic, gc
         dtype = torch_dtype(cfg.COMPUTE_DTYPE)
         p = cfg.POOLING_SIZE
@@ -76,13 +100,12 @@ class FasterRCNN_DA(nn.Module):
         self.fused = (backbone.startswith("res")
                       and cfg.POOLING_MODE == "align" and p == 7)
         self.rpn = RPNHead(cfg.num_anchors, dtype=dtype, in_channels=feat_c)
-        if ic:
+        if ic or training_tree:
             self.netD_pixel = NetDPixel(dtype=dtype, in_channels=feat_c,
-                                        conv3=not self.fused)
-            feat_d += 128
-        if gc:
+                                        conv3=training_tree or not self.fused)
+        if gc or training_tree:
             self.netD_style = NetDStyle(dtype=dtype)
-            feat_d += 512
+        feat_d += 128 * ic + 512 * gc
         self.cls_score = Dense(feat_d, num_classes, init_std=0.01)
         nb = 4 if class_agnostic else 4 * num_classes
         self.bbox_pred = Dense(feat_d, nb, init_std=0.001)
@@ -94,18 +117,26 @@ class FasterRCNN_DA(nn.Module):
             if isinstance(m, (bb.BNConv, bb.ResNetStage)):
                 m.path = name.replace(".", "/")
 
-    def proposals(self, base_feat, rpn_cls, rpn_bbox, im_info) -> Proposals:
+    def proposals(self, base_feat, rpn_cls, rpn_bbox, im_info,
+                  training: bool = False, target: bool = False) -> Proposals:
         """The RPN head's outputs on ``base_feat`` -> decoded, NMS'd
-        proposals (rois (B, N, 5), valid (B, N))."""
-        h, w = base_feat.shape[1:3]
-        anchors = shifted_anchors(h, w, self.cfg.FEAT_STRIDE[0],
-                                  self._base_anchors, base_feat.device)
-        fg = rpn_softmax_fg(rpn_cls, self.cfg.num_anchors)
-        t = self.cfg.TEST
-        return generate_proposals(
-            fg, rpn_bbox, im_info, anchors,
-            pre_nms_top_n=t.RPN_PRE_NMS_TOP_N,
-            post_nms_top_n=t.RPN_POST_NMS_TOP_N, nms_thresh=t.RPN_NMS_THRESH)
+        proposals (rois (B, N, 5), valid (B, N)), by the TEST config or,
+        in training, the TRAIN config (the target pass keeps
+        ``RPN_POST_NMS_TOP_N_TARGET``). No gradient reaches the RPN heads
+        through them: the reference detaches both outputs (``.data``,
+        rpn.py:77; JAX ``faster_rcnn.py:99-108``)."""
+        c = self.cfg.TRAIN if training else self.cfg.TEST
+        post = (c.RPN_POST_NMS_TOP_N_TARGET if training and target
+                else c.RPN_POST_NMS_TOP_N)
+        with torch.no_grad():
+            h, w = base_feat.shape[1:3]
+            anchors = shifted_anchors(h, w, self.cfg.FEAT_STRIDE[0],
+                                      self._base_anchors, base_feat.device)
+            fg = rpn_softmax_fg(rpn_cls, self.cfg.num_anchors)
+            return generate_proposals(
+                fg, rpn_bbox, im_info, anchors,
+                pre_nms_top_n=c.RPN_PRE_NMS_TOP_N, post_nms_top_n=post,
+                nms_thresh=c.RPN_NMS_THRESH)
 
     @torch.no_grad()
     def inference(self, images, im_info) -> Dict[str, torch.Tensor]:
@@ -171,4 +202,116 @@ class FasterRCNN_DA(nn.Module):
             "cls_prob": cls_prob.reshape(b, n, -1),
             "bbox_pred": self.bbox_pred(x).reshape(b, n, -1),
             "base_feat": base_feat,
+        }
+
+    # ---------- training (Stage A) ---------------------------------------
+
+    def _classify(self, pooled, feat_image, feat_instance, generator):
+        """Pooled rois -> (cls_score, bbox_pred), with the context concat in
+        JAX's order ic, gc, head. [faster_rcnn.py:131-147]"""
+        if isinstance(self.head, bb.VGG16Head):
+            x = self.head(pooled, generator=generator)
+        else:
+            x = self.head(pooled)
+        x = x.float()
+        if self.gc:
+            n_rep = x.shape[0] // feat_image.shape[0]
+            x = torch.cat([feat_image.repeat_interleave(n_rep, dim=0), x], 1)
+        if self.ic:
+            x = torch.cat([feat_instance, x], dim=1)
+        return self.cls_score(x), self.bbox_pred(x)
+
+    def target_pass(self, images, im_info, eta: float = 1.0,
+                    eta_style: float = 1.0) -> Dict[str, torch.Tensor]:
+        """The target domain's adversarial pass: discriminator outputs only.
+        [faster_rcnn_instance_styleD_bilinear.py:60-130]"""
+        base_feat, tap = self.trunk(images)
+        d_style = self.netD_style(tap, eta_style, prob=True)[0]
+        rpn_cls, rpn_bbox = self.rpn(base_feat)
+        props = self.proposals(base_feat, rpn_cls, rpn_bbox, im_info,
+                               training=True, target=True)
+        pooled = self.pool(base_feat, props.rois.reshape(-1, 5).contiguous())
+        d_instance = self.netD_pixel(pooled, eta)[0]
+        return {"d_instance": d_instance, "d_style": d_style,
+                "roi_valid": props.valid.reshape(-1)}
+
+    def train_source(self, images, im_info, gt_boxes, eta: float = 1.0,
+                     eta_style: float = 1.0,
+                     generator: torch.Generator | None = None
+                     ) -> Dict[str, torch.Tensor]:
+        """The source pass: RPN and RCNN losses and the discriminator
+        outputs. [faster_rcnn.py:175-268]"""
+        cfg, t = self.cfg, self.cfg.TRAIN
+        b = images.shape[0]
+        base_feat, tap = self.trunk(images)
+
+        # style discriminator; the gc feature from a detached tap
+        d_style = self.netD_style(tap, eta_style, prob=True)[0]
+        feat_image = (self.netD_style(tap.detach(), eta_style)
+                      if self.gc else None)
+        rpn_cls, rpn_bbox = self.rpn(base_feat)
+        props = self.proposals(base_feat, rpn_cls, rpn_bbox, im_info,
+                               training=True)
+
+        # RPN losses [rpn.py:75-108]
+        h, w = base_feat.shape[1:3]
+        anchors = shifted_anchors(h, w, cfg.FEAT_STRIDE[0],
+                                  self._base_anchors, base_feat.device)
+        with torch.no_grad():
+            at = [anchor_targets(
+                generator, anchors, gt_boxes[i], im_info[i],
+                positive_overlap=t.RPN_POSITIVE_OVERLAP,
+                negative_overlap=t.RPN_NEGATIVE_OVERLAP,
+                clobber_positives=t.RPN_CLOBBER_POSITIVES,
+                fg_fraction=t.RPN_FG_FRACTION, batch_size=t.RPN_BATCHSIZE)
+                for i in range(b)]
+        labels = torch.stack([a.labels for a in at])
+        a = cfg.num_anchors
+        rpn_logits = torch.stack([rpn_cls[..., :a], rpn_cls[..., a:]],
+                                 dim=-1).reshape(b, -1, 2)
+        rpn_loss_cls = masked_softmax_ce(rpn_logits, labels, labels >= 0)
+        rpn_loss_box = smooth_l1_loss(
+            rpn_bbox.reshape(b, -1, 4),
+            torch.stack([a.bbox_targets for a in at]),
+            torch.stack([a.inside_weights for a in at])[..., None],
+            torch.stack([a.outside_weights for a in at])[..., None],
+            sigma=3.0, reduce_dims=(-1, -2))
+
+        # proposal sampling, pooling, RCNN losses
+        with torch.no_grad():
+            rt = [proposal_targets(
+                generator, props.rois[i], props.valid[i], gt_boxes[i], i,
+                rois_per_image=t.BATCH_SIZE, fg_fraction=t.FG_FRACTION,
+                fg_thresh=t.FG_THRESH, bg_thresh_hi=t.BG_THRESH_HI,
+                bg_thresh_lo=t.BG_THRESH_LO,
+                bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
+                bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
+                bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS) for i in range(b)]
+        rois = torch.stack([r.rois for r in rt])                # (B, S, 5)
+        s = t.BATCH_SIZE
+        pooled = self.pool(base_feat, rois.reshape(b * s, 5).contiguous())
+        d_instance = self.netD_pixel(pooled, eta)[0]
+        feat_instance = (self.netD_pixel(pooled.detach(), eta)[1]
+                         if self.ic else None)
+        cls_score, bbox_pred = self._classify(pooled, feat_image,
+                                              feat_instance, generator)
+        labels_flat = torch.cat([r.labels for r in rt])
+        if not self.class_agnostic:
+            bp = bbox_pred.reshape(b * s, -1, 4)
+            bbox_pred = torch.gather(
+                bp, 1, labels_flat[:, None, None].expand(-1, 1, 4))[:, 0]
+        rcnn_loss_cls = masked_softmax_ce(cls_score, labels_flat,
+                                          torch.ones_like(labels_flat,
+                                                          dtype=torch.bool))
+        rcnn_loss_bbox = smooth_l1_loss(
+            bbox_pred, torch.cat([r.bbox_targets for r in rt]),
+            torch.cat([r.inside_weights for r in rt]),
+            torch.cat([r.outside_weights for r in rt]), sigma=1.0,
+            reduce_dims=(-1,))
+        return {
+            "rois": rois, "rois_label": labels_flat.reshape(b, s),
+            "rpn_loss_cls": rpn_loss_cls, "rpn_loss_box": rpn_loss_box,
+            "rcnn_loss_cls": rcnn_loss_cls, "rcnn_loss_bbox": rcnn_loss_bbox,
+            "d_instance": d_instance, "d_style": d_style,
+            "fg_cnt": (labels_flat > 0).sum(),
         }

@@ -6,9 +6,10 @@ The port's modules keep the JAX package's parameter tree: a flax
 stored in PyTorch's orientation (OIHW, (O, I)). ``utils/weights.py`` maps one
 tree onto the other.
 
-Parameters are allocated empty: a module is either loaded from a checkpoint
-or filled by ``init_weights`` from an explicit ``torch.Generator``, never
-from PyTorch's global random state.
+Parameters are allocated as zeros (never uninitialized memory, which can
+hold NaN bit patterns): a module is either loaded from a checkpoint or
+filled by ``init_weights`` (or ``inits.init_module``) from an explicit
+``torch.Generator``, never from PyTorch's global random state.
 
 Numerics follow flax: a layer built with ``dtype=None`` computes in the
 promoted type of its input and its (f32) parameters; one built with a dtype
@@ -46,8 +47,8 @@ class Dense(nn.Module):
                  init_std: float | None = None,
                  bias_bound: float | None = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.weight = nn.Parameter(torch.zeros(features, in_features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
         self.init_std = init_std
         self.bias_bound = bias_bound
@@ -68,8 +69,8 @@ class Conv(nn.Module):
                  bias_bound: float | None = None):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, kernel, kernel))
-        self.bias = nn.Parameter(torch.empty(features)) if bias else None
+            torch.zeros(features, in_features, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
         self.stride = stride
         self.padding = padding
         self.dtype = dtype

@@ -4,6 +4,8 @@ Keeps the reference's ``+1`` box-width convention
 (``lib/model/rpn/bbox_transform.py``) and the SGG head's union-box and
 dual-mask rasterization (``resnet_SGG_emb.py:240-256``). Boxes are
 ``[x1, y1, x2, y2]`` in pixels; every function broadcasts over leading dims.
+The training targets' pieces (``encode_boxes``, ``pairwise_iou_padded``,
+``smooth_l1_loss``) are here too.
 """
 
 from __future__ import annotations
@@ -31,6 +33,53 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
           - torch.maximum(a[..., :, None, 1], b[..., None, :, 1]) + 1.0)
     inter = iw.clamp_min(0.0) * ih.clamp_min(0.0)
     return inter / (area_a + area_b - inter)
+
+
+def pairwise_iou_padded(boxes: torch.Tensor,
+                        gt_boxes: torch.Tensor) -> torch.Tensor:
+    """IoU against zero-padded GT rows, with the reference's sentinel
+    masking [bbox_transform.py:168-257]: the IoU with an all-zero GT row
+    (the loader's padding) is 0, and the row of an all-zero candidate box is
+    -1, so that padded anchors and rois never win an assignment.
+
+    ``boxes``: (N, 4); ``gt_boxes``: (K, 4) or (K, 5). Returns (N, K)."""
+    gt = gt_boxes[..., :4]
+    overlaps = pairwise_iou(boxes, gt)
+    gt_w, gt_h = box_wh(gt)
+    box_w, box_h = box_wh(boxes)
+    gt_zero = (gt_w == 1.0) & (gt_h == 1.0)
+    box_zero = (box_w == 1.0) & (box_h == 1.0)
+    zero = torch.zeros((), dtype=overlaps.dtype, device=overlaps.device)
+    overlaps = torch.where(gt_zero[None, :], zero, overlaps)
+    return torch.where(box_zero[:, None], zero - 1.0, overlaps)
+
+
+def encode_boxes(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Box regression targets (dx, dy, dw, dh) of ``gt_rois`` relative to
+    ``ex_rois``, (..., 4) x (..., 4) -> (..., 4). [bbox_transform.py:15-34]"""
+    ex_w, ex_h = box_wh(ex_rois)
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+    gt_w, gt_h = box_wh(gt_rois)
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)],
+                       dim=-1)
+
+
+def smooth_l1_loss(pred, targets, inside_w, outside_w, sigma: float = 1.0,
+                   reduce_dims=(-1,)) -> torch.Tensor:
+    """Weighted smooth-L1 with the reference's sigma semantics
+    [lib/model/utils/net_utils.py:122-136]: summed over ``reduce_dims``,
+    then averaged over the rest."""
+    sigma2 = sigma ** 2
+    diff = inside_w * (pred - targets)
+    adiff = diff.abs()
+    quad = (adiff < 1.0 / sigma2).to(pred.dtype)
+    loss = ((diff ** 2) * (sigma2 / 2.0) * quad
+            + (adiff - 0.5 / sigma2) * (1.0 - quad))
+    return (outside_w * loss).sum(dim=tuple(reduce_dims)).mean()
 
 
 def decode_boxes(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,14 @@ shared memory.
 ``out_dtype=torch.float32`` on a bf16/f16 map is the widening mode: the
 function of pooling ``features.float()`` (f32 weights, f32 output) without
 the copy.
+
+Under autograd (grad enabled and ``features`` requiring it) the op is a
+``torch.autograd.Function``: its forward is the same dispatch (the kernel on
+the card, one counted launch; the plain version on the CPU), its backward
+is ``roi_align_avg_backward``, the plain version's vector-Jacobian product
+in plain PyTorch (the transposed contraction pair, ``dF[b] = sum_r Ay^T g_r
+Ax``): the JAX package differentiates its einsum pair, and no TPU kernel
+has a backward. The rois get no gradient, as in JAX's ``_pool``.
 """
 
 from __future__ import annotations
@@ -190,6 +198,35 @@ def roi_align_avg_plain(features: torch.Tensor, rois: torch.Tensor,
     return out.reshape(r, gh, gw, c).to(features.dtype)
 
 
+def roi_align_avg_backward(grad_out: torch.Tensor, rois: torch.Tensor,
+                           fmap_shape, fmap_dtype, pooled_height: int = 7,
+                           pooled_width: int = 7,
+                           spatial_scale: float = 1.0 / 16.0,
+                           grid: tuple | None = None) -> torch.Tensor:
+    """The gradient of ``roi_align_avg_plain`` with respect to its feature
+    map: ``grad_out`` (R, G, G, C) -> (B, H, W, C) in ``fmap_dtype``. The
+    weights are the forward's (built in the map's dtype), the contractions
+    run in f32 in the reverse order of the forward's, and the result is
+    cast once, as JAX's VJP of the einsum pair does."""
+    b, h, w, c = fmap_shape
+    r = rois.shape[0]
+    n = r // b
+    f32 = torch.float32
+    ry, rx = folded_weights(rois, h, w, pooled_height, pooled_width,
+                            spatial_scale, grid, fmap_dtype)
+    gh, gw = ry.shape[1], rx.shape[1]
+    ry = ry.to(f32).reshape(b, n, gh, h)
+    rx = rx.to(f32).reshape(b, n, gw, w)
+    g = grad_out.to(f32).reshape(b, n, gh, gw, c)
+    if w >= h:
+        dt = torch.einsum("bnijc,bnih->bnjhc", g, ry)
+        df = torch.einsum("bnjhc,bnjw->bhwc", dt, rx)
+    else:
+        dt = torch.einsum("bnijc,bnjw->bniwc", g, rx)
+        df = torch.einsum("bniwc,bnih->bhwc", dt, ry)
+    return df.to(fmap_dtype)
+
+
 def _check(features, rois, ph, pw, grid, out_dtype):
     if features.dim() != 4:
         raise ValueError(f"features must be (B, H, W, C), got "
@@ -279,10 +316,22 @@ def roi_align_avg(features: torch.Tensor, rois: torch.Tensor,
     per-cell mode.
 
     A CUDA feature map goes to the kernel, which counts one launch in
-    ``roi_align_avg.launches``; a CPU one to ``roi_align_avg_plain``.
+    ``roi_align_avg.launches``; a CPU one to ``roi_align_avg_plain``. With
+    grad enabled and ``features.requires_grad``, the same forward runs in
+    ``_RoIAlignAvgFn`` and its backward is ``roi_align_avg_backward``.
     """
     out_dtype = features.dtype if out_dtype is None else out_dtype
     _check(features, rois, pooled_height, pooled_width, grid, out_dtype)
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _RoIAlignAvgFn.apply(features, rois, pooled_height,
+                                    pooled_width, spatial_scale, grid,
+                                    out_dtype, channel_slice)
+    return _forward_any(features, rois, pooled_height, pooled_width,
+                        spatial_scale, grid, out_dtype, channel_slice)
+
+
+def _forward_any(features, rois, pooled_height, pooled_width, spatial_scale,
+                 grid, out_dtype, channel_slice):
     if features.device.type == "cuda":
         return _launch(features, rois, pooled_height, spatial_scale, grid,
                        out_dtype, channel_slice)
@@ -290,6 +339,30 @@ def roi_align_avg(features: torch.Tensor, rois: torch.Tensor,
         raise ValueError(f"unsupported device {features.device}")
     return roi_align_avg_plain(features.to(out_dtype), rois, pooled_height,
                                pooled_width, spatial_scale, grid)
+
+
+class _RoIAlignAvgFn(torch.autograd.Function):
+    """``roi_align_avg`` under autograd: the kernel (or, on the CPU, the
+    plain version) forward, the plain VJP backward."""
+
+    @staticmethod
+    def forward(ctx, features, rois, ph, pw, spatial_scale, grid, out_dtype,
+                channel_slice):
+        ctx.save_for_backward(rois)
+        # the forward's weights are in the output's dtype (the widening
+        # mode pools the map as f32)
+        ctx.args = (tuple(features.shape), out_dtype, ph, pw, spatial_scale,
+                    grid)
+        ctx.fmap_dtype = features.dtype
+        return _forward_any(features, rois, ph, pw, spatial_scale, grid,
+                            out_dtype, channel_slice)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, = ctx.saved_tensors
+        grad = roi_align_avg_backward(grad_out, rois, *ctx.args)
+        return (grad.to(ctx.fmap_dtype),
+                None, None, None, None, None, None, None)
 
 
 roi_align_avg.launches = 0

@@ -19,6 +19,14 @@ kernel's mode (``staged``: the map slice in shared memory; ``per_bin``: one
 block per output bin, for maps no slice of which fits), and
 ``roi_pool.last_plan`` holds the last launch's mode, channel slice and
 shared memory.
+
+Under autograd (grad enabled and ``features`` requiring it) the op is a
+``torch.autograd.Function``: the same forward (the kernel on the card, one
+counted launch), and for backward ``roi_pool_backward``, the plain version's
+vector-Jacobian product in plain PyTorch. JAX differentiates its jnp sweep,
+whose ``max`` splits the gradient evenly among tied maxima (after a ReLU,
+many bins are all zeros); ``amax``'s backward splits it the same way, while
+``torch.max(dim)`` would send it all to one index. The rois get no gradient.
 """
 
 from __future__ import annotations
@@ -84,6 +92,26 @@ def roi_pool_plain(features: torch.Tensor, rois: torch.Tensor,
     empty = (he <= hs)[:, :, None] | (we <= ws)[:, None, :]
     return torch.where(empty[..., None], torch.zeros((), dtype=out.dtype,
                                                      device=dev), out)
+
+
+def roi_pool_backward(grad_out: torch.Tensor, features: torch.Tensor,
+                      rois: torch.Tensor, pooled_height: int = 7,
+                      pooled_width: int = 7,
+                      spatial_scale: float = 1.0 / 16.0,
+                      chunk: int = 16) -> torch.Tensor:
+    """The gradient of ``roi_pool_plain`` with respect to ``features``:
+    autograd through the plain sweep, on the map widened to f32 (JAX sweeps
+    a bf16 map in f32, its ``NEG`` fill being an f32 constant), ``chunk``
+    rois at a time (a chunk's sweep holds (chunk, PH, H, W, C) values), the
+    f32 sum cast once to the map's dtype."""
+    f = features.detach().float().requires_grad_(True)
+    grad = torch.zeros_like(f)
+    with torch.enable_grad():
+        for s in range(0, rois.shape[0], chunk):
+            out = roi_pool_plain(f, rois[s:s + chunk], pooled_height,
+                                 pooled_width, spatial_scale)
+            grad += torch.autograd.grad(out, f, grad_out[s:s + chunk].float())[0]
+    return grad.to(features.dtype)
 
 
 def _check(features: torch.Tensor, rois: torch.Tensor):
@@ -154,9 +182,20 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor,
     map's dtype where C is), < 0 for the per-bin mode.
 
     A CUDA feature map goes to the kernel, which counts one launch in
-    ``roi_pool.launches``; a CPU one to ``roi_pool_plain``.
+    ``roi_pool.launches``; a CPU one to ``roi_pool_plain``. With grad
+    enabled and ``features.requires_grad``, the same forward runs in
+    ``_RoIPoolFn`` and its backward is ``roi_pool_backward``.
     """
     _check(features, rois)
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _RoIPoolFn.apply(features, rois, pooled_height, pooled_width,
+                                spatial_scale, channel_slice)
+    return _forward_any(features, rois, pooled_height, pooled_width,
+                        spatial_scale, channel_slice)
+
+
+def _forward_any(features, rois, pooled_height, pooled_width, spatial_scale,
+                 channel_slice):
     if features.device.type == "cuda":
         return _launch(features, rois, pooled_height, pooled_width,
                        spatial_scale, channel_slice)
@@ -164,6 +203,24 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor,
         raise ValueError(f"unsupported device {features.device}")
     return roi_pool_plain(features, rois, pooled_height, pooled_width,
                           spatial_scale)
+
+
+class _RoIPoolFn(torch.autograd.Function):
+    """``roi_pool`` under autograd: the kernel (or, on the CPU, the plain
+    version) forward, the plain VJP backward."""
+
+    @staticmethod
+    def forward(ctx, features, rois, ph, pw, spatial_scale, channel_slice):
+        ctx.save_for_backward(features, rois)
+        ctx.args = (ph, pw, spatial_scale)
+        return _forward_any(features, rois, ph, pw, spatial_scale,
+                            channel_slice)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        features, rois = ctx.saved_tensors
+        return (roi_pool_backward(grad_out, features, rois, *ctx.args),
+                None, None, None, None, None)
 
 
 roi_pool.launches = 0

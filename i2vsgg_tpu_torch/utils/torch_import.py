@@ -17,6 +17,12 @@ reference orders C, H, W, becomes ``w.reshape(o, c, 7, 7).permute(0, 2, 3,
 1).reshape(o, -1)``. BatchNorm ``weight/bias/running_mean/running_var``
 become the FrozenBatchNorm buffers ``scale/bias/mean/var``.
 
+``--pretrained_backbone`` reads a torchvision-layout state dict
+(``conv1``, ``bn1``, ``layer1``-``layer4`` for ResNet, caffe-converted or
+not; ``features.N``/``classifier.N`` for VGG16): ``resnet_trunk_params``,
+``resnet_head_params``, ``vgg16_trunk_params`` and ``vgg16_head_params`` map
+it onto the trunk's and the head's names.
+
 ``merge_imported`` loads the result into a module strictly: a name the
 module lacks, or a shape that differs, raises.
 """
@@ -108,8 +114,49 @@ def _conv(sd: Mapping, src: str, dst: str) -> StateDict:
     return out
 
 
-def _prefixed(prefix: str, sd: StateDict) -> StateDict:
+def prefixed(prefix: str, sd: StateDict) -> StateDict:
+    """``sd`` with every name under ``prefix.`` (a submodule's names in its
+    parent)."""
     return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def resnet_trunk_params(sd: Mapping, depth: int = 101) -> StateDict:
+    """A torchvision-layout ResNet state dict -> ``ResNetTrunk`` names
+    (conv1, bn1, layer1-3)."""
+    n1, n2, n3, _ = RESNET_STAGES[depth]
+    out = {"conv1.weight": _t(sd["conv1.weight"])}
+    out.update(_bn(sd, "bn1", "bn1"))
+    for name, n in (("layer1", n1), ("layer2", n2), ("layer3", n3)):
+        out.update(_stage(sd, name, name, n))
+    return out
+
+
+def resnet_head_params(sd: Mapping, depth: int = 101) -> StateDict:
+    """The same state dict's layer4 -> ``ResNetHead`` names."""
+    return _stage(sd, "layer4", "layer4", RESNET_STAGES[depth][3])
+
+
+# the conv layers' indices in torchvision's vgg16.features
+_VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def vgg16_trunk_params(sd: Mapping) -> StateDict:
+    """A torchvision ``vgg16`` state dict's ``features.N`` -> ``VGG16Trunk``
+    names (``conv0``..``conv12``)."""
+    out: StateDict = {}
+    for i, idx in enumerate(_VGG16_CONVS):
+        out.update(_conv(sd, f"features.{idx}", f"conv{i}"))
+    return out
+
+
+def vgg16_head_params(sd: Mapping) -> StateDict:
+    """``classifier.0`` / ``classifier.3`` -> ``VGG16Head`` fc6 / fc7, fc6's
+    columns from torchvision's CHW flatten to the port's HWC one."""
+    out = {"fc6.weight": fc_chw_to_hwc(_t(sd["classifier.0.weight"]),
+                                       512, 7, 7),
+           "fc6.bias": _t(sd["classifier.0.bias"])}
+    out.update(_linear(sd, "classifier.3", "fc7"))
+    return out
 
 
 def jwyang_trunk_params(sd: Mapping, depth: int = 101,
@@ -133,7 +180,7 @@ def jwyang_detector_params(sd: Mapping, depth: int = 101) -> StateDict:
     n4 = RESNET_STAGES[depth][3]
     out: StateDict = {}
     if "RCNN_base.0.weight" in sd:
-        out.update(_prefixed("trunk", jwyang_trunk_params(sd, depth)))
+        out.update(prefixed("trunk", jwyang_trunk_params(sd, depth)))
     if "RCNN_top.0.0.conv1.weight" in sd:
         out.update(_stage(sd, "RCNN_top.0", "head.layer4", n4))
     if "RCNN_rpn.RPN_Conv.weight" in sd:
@@ -172,7 +219,7 @@ def jwyang_vrd_params(sd: Mapping, fmap_channels: int = 1024,
     prefix of a whole SGG checkpoint -> ``VRDHead`` names (no prefix).
     fc6's columns go from the CHW to the HWC flatten."""
     if "fc6.fc.weight" in sd and "vrd.fc6.fc.weight" not in sd:
-        sd = _prefixed("vrd", dict(sd))
+        sd = prefixed("vrd", dict(sd))
     out = {"fc6.weight": fc_chw_to_hwc(_t(sd["vrd.fc6.fc.weight"]),
                                        fmap_channels, pool, pool),
            "fc6.bias": _t(sd["vrd.fc6.fc.bias"])}
@@ -196,9 +243,9 @@ def jwyang_sgg_params(sd: Mapping, depth: int = 101) -> StateDict:
     and ``vrd.*``)."""
     out: StateDict = {}
     if "RCNN_base.0.weight" in sd:
-        out.update(_prefixed("trunk", jwyang_trunk_params(sd, depth)))
+        out.update(prefixed("trunk", jwyang_trunk_params(sd, depth)))
     if "vrd.fc6.fc.weight" in sd:
-        out.update(_prefixed("vrd", jwyang_vrd_params(sd)))
+        out.update(prefixed("vrd", jwyang_vrd_params(sd)))
     return out
 
 

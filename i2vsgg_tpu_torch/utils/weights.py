@@ -17,6 +17,11 @@ siblings are float leaves. Load such a state dict into a module quantized
 by the port's functions of the same names (``utils/params.py``), whose
 int8 ``weight`` and scale buffers it then overwrites.
 
+The same map carries a training tree across (``FasterRCNN_DA(...,
+training_tree=True)``: ``netD_pixel.conv3`` and ``netD_style.fc1`` too) and
+an optax momentum trace, which has the params' tree and layout: its state
+dict feeds ``train/optim.py::ReferenceSGD.load_momentum``.
+
 Only numpy crosses the boundary: the caller converts the tree's leaves with
 ``np.asarray``; nothing here imports JAX.
 """

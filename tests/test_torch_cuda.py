@@ -636,3 +636,38 @@ def test_int8_quantization_on_the_card_equals_the_cpu(cuda):
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(a.cpu(), b), fn.__name__
+
+
+@pytest.mark.parametrize("op", ["roi_align", "roi_pool"])
+def test_roi_ops_under_autograd_launch_the_kernel(cuda, op):
+    """Stage A's pooling with grad: the forward is the kernel (one counted
+    launch, equal to the no-grad call), the backward the plain VJP, equal
+    to the same VJP on the CPU at rtol 1e-5 with an atol of 1e-5 of the
+    largest magnitude (f32 sums in another order; TF32 off), on an f32 map
+    with ties."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.ops import roi_align as ra
+    from i2vsgg_tpu_torch.ops import roi_pool as rp
+    fn = ra.roi_align_avg if op == "roi_align" else rp.roi_pool
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fmap = torch.relu(torch.randn(1, 38, 63, 64, generator=g, device=cuda))
+    fmap = (fmap * 4).round() / 4                     # ties after the ReLU
+    rois = chip_smoke.edge_rois(cuda)
+    x = fmap.clone().requires_grad_(True)
+    before = fn.launches
+    out = fn(x, rois)
+    assert fn.launches == before + 1
+    assert torch.equal(out.detach(), fn(fmap, rois))
+    grad = torch.randn(out.shape, generator=g, device=cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out.backward(grad)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    xc = fmap.cpu().requires_grad_(True)
+    fn(xc, rois.cpu()).backward(grad.cpu())
+    scale = float(xc.grad.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-5,
+                               atol=1e-5 * scale)

@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``i2vsgg_tpu_torch`` and ``chip_smoke.py``
 import torch, numpy and the standard library only — no JAX, flax, optax,
-orbax, PyYAML, ninja, cv2, PIL, ml_dtypes, and nothing of the JAX package
+orbax, PyYAML, ninja, cv2, PIL, ml_dtypes, tensorboard, and nothing of the
+JAX package
 ``i2vsgg_tpu`` (a machine with the card has none of them). Each case runs in
 a fresh interpreter with a ``sys.meta_path`` finder that refuses those
 names."""
@@ -18,7 +19,7 @@ BLOCKER = textwrap.dedent("""
     import sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "ninja",
-               "cv2", "PIL", "ml_dtypes", "i2vsgg_tpu"}
+               "cv2", "PIL", "ml_dtypes", "tensorboard", "i2vsgg_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -53,7 +54,7 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         import torch
 
         for blocked in ("yaml", "cv2", "PIL", "ml_dtypes", "orbax", "jax",
-                        "flax"):
+                        "flax", "optax", "tensorboard"):
             try:
                 importlib.import_module(blocked)
             except ImportError:
@@ -79,7 +80,10 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "data.dataset_config", "data.voc", "data.factory",
                      "data.roidb", "data.image_io", "data.pipeline",
                      "models.glove", "eval.voc_eval", "tools.serve_video",
-                     "tools.test_sgg", "tools.test_det", "tools.common"):
+                     "tools.test_sgg", "tools.test_det", "tools.common",
+                     "models.targets", "models.inits", "train.optim",
+                     "train.det_da", "utils.logging",
+                     "tools.trainval_det_da"):
             assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
@@ -137,8 +141,10 @@ def test_roi_pool_cpu_path_and_missing_card():
         assert chip_smoke.main() != 0          # no result without a card
 
         # the drivers default to the card, and raise without one
-        from i2vsgg_tpu_torch.tools import serve_video, test_det, test_sgg
-        for main in (serve_video.main, test_sgg.main, test_det.main):
+        from i2vsgg_tpu_torch.tools import (serve_video, test_det, test_sgg,
+                                            trainval_det_da)
+        for main in (serve_video.main, test_sgg.main, test_det.main,
+                     trainval_det_da.main):
             try:
                 main(["--dataset", "MVidVRD", "--net", "res10"])
             except RuntimeError as e:
@@ -413,3 +419,35 @@ def test_drivers_run_as_modules_without_the_blocked_names(tmp_path):
         print("drivers ran")
     """)
     assert "drivers ran" in out
+
+
+def test_training_driver_help_and_logger_without_the_blocked_names(tmp_path):
+    """``python -m i2vsgg_tpu_torch.tools.trainval_det_da --help`` in the
+    blocked interpreter, and the metrics logger there: JSONL only, since
+    ``torch.utils.tensorboard`` cannot import tensorboard."""
+    out = run_isolated(f"""
+        import json
+        import os
+        import runpy
+        import sys
+
+        from i2vsgg_tpu_torch.utils.logging import MetricsLogger
+
+        log = MetricsLogger({str(tmp_path)!r}, use_tensorboard=True)
+        assert log._tb is None
+        log.log_scalars("train", {{"loss": 1.5}}, 3)
+        log.close()
+        rec = json.loads(open(os.path.join({str(tmp_path)!r},
+                                           "metrics.jsonl")).read())
+        assert rec["loss"] == 1.5 and rec["step"] == 3
+        sys.argv = ["trainval_det_da", "--help"]
+        try:
+            runpy.run_module("i2vsgg_tpu_torch.tools.trainval_det_da",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+    """)
+    assert "--pretrained_backbone" in out and "--max_steps" in out
