@@ -82,7 +82,23 @@ class, with seeded random weights, along five paths:
   i2vsgg_tpu_torch.tools.trainval_det_da`` on a PNG devkit for 3 steps,
   ``--r`` for 2 more, and ``test_det`` on the checkpoint; 14d holds one
   tiny deterministic step (res10, f32) on the card to the CPU's
-  (``TRAIN_TINY_TOL``).
+  (``TRAIN_TINY_TOL``);
+* phase 15, the twelfth slice's path, Stage B training
+  (``train/sgg.py::train_step``): 15a takes 4 steps at full width (the
+  res101 trunk of 14c's last checkpoint through ``restore_sgg_init``, bf16
+  and frozen; the head at fc 4096, emb 300, spatial_type 2, the object
+  visual branch, 62 predicates; one seeded 600x1000 frame with 8 GT boxes
+  and 20 relation triples, padded to 30 boxes and 64 pairs; dropout on)
+  under ``vrd_pooling=pool``: each step launches RoIPool (B2) once and no
+  other kernel, runs no RoI backward, the losses stay finite, the trunk is
+  bit-unchanged and every head tensor moves; the last step's RoI call is
+  held to its plain version and timed beside its bound. 15b does the same
+  under ``align`` (B1). 15c runs ``python -m
+  i2vsgg_tpu_torch.tools.trainval_sgg`` on 14c's devkit from 14c's
+  checkpoint for 3 steps and ``test_sgg`` on the checkpoint it wrote,
+  which must read ``vrd_pooling`` from its metadata; 15d holds one tiny
+  Stage B step (res10, f32, no dropout) on the card to the CPU's
+  (``SGG_TINY_TOL``).
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -99,8 +115,8 @@ and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
 The lines before the last are the training and serving record (phase 14's
-steps; ms per 4-frame request of each path served) and the kernels' JSON
-record (launches on the main path,
+and 15's steps; ms per 4-frame request of each path served) and the
+kernels' JSON record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
 version's, the library call's and the bound), then the card's name and
 power limit; the last line is
@@ -2227,25 +2243,26 @@ def train_full(name: str, pooling: str, dev, counters, card: str) -> dict:
     return rec
 
 
-def train_driver_on_card(dev, counters, card: str) -> dict:
+def train_driver_on_card(dev, counters, card: str, work: str) -> dict:
     """14c: ``trainval_det_da`` (``TRAIN_ARGS``, full width, bf16 compute)
     on a PNG devkit from ``write_devkit`` (360x640 frames at scale 600:
-    600x1067 in a 608x1216 batch), started as a user starts it from a
-    detector (``--load_name``: the port's inits with calibrated FrozenBN
-    statistics, saved in the port's format; the heads re-initialized): 3
-    steps, then ``--r`` for 2 more (the step count and the lr go on from
-    the checkpoint), then ``test_det`` on the last checkpoint, whose files
-    must parse."""
+    600x1067 in a 608x1216 batch) under ``work``, started as a user starts
+    it from a detector (``--load_name``: the port's inits with calibrated
+    FrozenBN statistics, saved in the port's format; the heads
+    re-initialized): 3 steps, then ``--r`` for 2 more (the step count and
+    the lr go on from the checkpoint), then ``test_det`` on the last
+    checkpoint, whose files must parse. The record names the last
+    checkpoint (``stage_a``, Stage B's start in phase 15) and the devkit's
+    files (``devkit``)."""
     from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
     from i2vsgg_tpu_torch.tools import test_det, trainval_det_da
     from i2vsgg_tpu_torch.tools.common import config_from_args
     from i2vsgg_tpu_torch.train.checkpoint import save_checkpoint
-    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     saved_env = os.environ.get("I2VSGG_DATA_ROOT")
     rec = {}
     try:
         os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
-        write_devkit(os.environ["I2VSGG_DATA_ROOT"])
+        devkit = write_devkit(os.environ["I2VSGG_DATA_ROOT"])
         cfg = config_from_args(set_dataset_args(parse_args(TRAIN_ARGS)))
         det = training_model(cfg, dict(TRAIN_FRAME, backbone="res101"), 15)
         src, _ = train_frames(TRAIN_FRAME, 15)
@@ -2298,7 +2315,8 @@ def train_driver_on_card(dev, counters, card: str) -> dict:
                    imgs_per_sec=[r["imgs_per_sec"] for r in logged],
                    test_det_mAP=float(aps["mAP"]),
                    test_det_launches={k: v for k, v in
-                                      counters.read().items() if v})
+                                      counters.read().items() if v},
+                   stage_a=os.path.join(ck, "5"), devkit=devkit)
         log(f"14c: trained 3 steps in {rec['train_s']:.1f} s, resumed to 5 "
             f"in {rec['resume_s']:.1f} s (lr {lr:g}); losses "
             f"{[round(x, 3) for x in rec['losses']]}; test_det mAP "
@@ -2309,7 +2327,6 @@ def train_driver_on_card(dev, counters, card: str) -> dict:
             os.environ.pop("I2VSGG_DATA_ROOT", None)
         else:
             os.environ["I2VSGG_DATA_ROOT"] = saved_env
-        shutil.rmtree(work, ignore_errors=True)
     return rec
 
 
@@ -2380,8 +2397,9 @@ def train_tiny_card_vs_cpu(dev, counters) -> dict:
             "tolerances": tol}
 
 
-def training_on_card(dev, counters, card: str) -> dict:
-    """Phase 14 (see the module docstring). Returns its record."""
+def training_on_card(dev, counters, card: str, work: str) -> dict:
+    """Phase 14 (see the module docstring), 14c's devkit and checkpoints
+    under ``work``. Returns its record."""
     rec = {}
     phase("14a Stage A training at full width: res101 ic+gc+cr, bf16 "
           "compute, one 600x1000 source frame with GT boxes and one target "
@@ -2391,11 +2409,374 @@ def training_on_card(dev, counters, card: str) -> dict:
     rec["14b pool"] = train_full("14b", "pool", dev, counters, card)
     phase("14c the driver: trainval_det_da on a PNG devkit, 3 steps, --r to "
           "5, then test_det on the checkpoint")
-    rec["14c driver"] = train_driver_on_card(dev, counters, card)
+    rec["14c driver"] = train_driver_on_card(dev, counters, card, work)
     phase("14d one tiny deterministic step (res10, 64x80, f32, TF32 off): "
           "card vs CPU")
     rec["14d tiny"] = train_tiny_card_vs_cpu(dev, counters)
     return rec
+
+
+# ----------------------------------------------------------------------------
+# phase 15: Stage B training on the card (``train/sgg.py``, the driver
+# ``python -m i2vsgg_tpu_torch.tools.trainval_sgg``)
+
+# scripts/SGG_emb_resnet.sh's run with the defaults of cli/args.py: res101,
+# bf16 compute with f32 params, VRDHead fc_dim 4096, emb_dim 300,
+# spatial_type 2, use_obj_visual, 62 predicates, max_pairs 64,
+# MAX_NUM_GT_BOXES 30, TRAIN scale 600 / max side 1000, batch 1
+SGG_ARGS = ["--dataset", "MVidVRD", "--net", "res101", "--vrd_lr", "1e-4",
+            "--bs", "1", "--num_relations", "62"]
+# one seeded 600x1000 frame with 8 GT boxes and 20 relation triples a step
+SGG_FRAME = dict(height=600, width=1000, objects=8, num_classes=16,
+                 relations=20)
+SGG_STEPS = 4
+# test_sgg on 15c's checkpoint, asked for the other pooling (the
+# checkpoint's metadata must win)
+SGG_EVAL_ARGS = ["--dataset", "MVidVRD", "--net", "res101", "--bs", "4",
+                 "--num_relations", "62", "--vrd_pooling", "align"]
+# 15d, the tiny step card vs CPU (f32, TF32 off, no dropout): limits just
+# above what the runs measured (8.6e-8, 2.5e-7 and 1 - 4e-13; PERF.md §6)
+SGG_TINY_TOL = {"loss_rtol": 5e-7, "grad_frac": 2e-6, "grad_cos": 0.999999}
+SGG_TINY = dict(height=64, width=96, objects=4, num_classes=6, frames=2,
+                relations=6)
+
+
+class roi_backward_calls:
+    """Counts the calls of the RoI ops' plain backwards
+    (``roi_align_avg_backward``, ``roi_pool_backward``, which the RoI
+    ``autograd.Function``s call by name) inside the block: a Stage B step
+    must make none, since the head pools a detached map."""
+
+    def __enter__(self):
+        from i2vsgg_tpu_torch.ops import roi_align as ra_mod
+        from i2vsgg_tpu_torch.ops import roi_pool as rp_mod
+        self.calls = {"roi_align": 0, "roi_pool": 0}
+        self.saved = [(ra_mod, "roi_align_avg_backward", "roi_align"),
+                      (rp_mod, "roi_pool_backward", "roi_pool")]
+        self.fns = [getattr(m, n) for m, n, _ in self.saved]
+        for (m, n, key), fn in zip(self.saved, self.fns):
+            def counted(*a, _fn=fn, _key=key, **k):
+                self.calls[_key] += 1
+                return _fn(*a, **k)
+            setattr(m, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.saved, self.fns):
+            setattr(m, n, fn)
+
+
+def sgg_batches(spec: dict, seed: int, max_pairs: int, n_rel: int,
+                dev) -> dict:
+    """A seeded Stage B batch on ``dev``: ``train_frames``' source frames
+    with ``spec["objects"]`` GT boxes (padded to 30), each with
+    ``spec["relations"]`` random (s, p, o) triples over its boxes, as
+    ``build_pair_batch`` pads them to ``max_pairs``."""
+    from i2vsgg_tpu_torch.train.sgg import build_pair_batch
+    src, _ = train_frames(spec, seed, spec.get("frames", 1))
+    rs = np.random.RandomState(seed + 1)
+    rows = []
+    for _ in range(src["image"].shape[0]):
+        rels = []
+        while len(rels) < spec["relations"]:
+            s, o = rs.choice(spec["objects"], 2, replace=False)
+            rels.append((int(s), int(rs.randint(n_rel)), int(o)))
+        rows.append(build_pair_batch(rels, spec["objects"], max_pairs,
+                                     n_rel))
+    ix1, ix2, labels, valid = (np.stack(a) for a in zip(*rows))
+    batch = {"image": src["image"], "im_info": src["im_info"],
+             "obj_boxes": src["gt_boxes"][:, :, :4],
+             "ix1": ix1.astype(np.int64), "ix2": ix2.astype(np.int64),
+             "pair_valid": valid, "rel_labels": labels}
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def sgg_training_model(args, cfg, pooling: str, seed: int,
+                       fc_dim: int | None = None, dropout_rate: float = 0.5):
+    """Stage B's model of ``args`` (``VRDHead`` under ``pooling``, of width
+    ``fc_dim`` if given), filled by the port's training inits on the CPU."""
+    from i2vsgg_tpu_torch.models.inits import init_module
+    from i2vsgg_tpu_torch.models.layers import torch_dtype
+    from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
+    from i2vsgg_tpu_torch.tools.common import build_trunk
+    model = SGGModel(
+        VRDHead(emb_dim=args.emb_dim, spatial_type=args.spatial_type,
+                use_obj_visual=args.use_obj_visual,
+                fc_dim=fc_dim or args.vrd_fc_dim, pooling=pooling,
+                dropout_rate=dropout_rate),
+        trunk=build_trunk(args.net, torch_dtype(cfg.COMPUTE_DTYPE)))
+    return init_module(model, torch.Generator().manual_seed(seed))
+
+
+def train_sgg_full(name: str, pooling: str, dev, counters, card: str,
+                   stage_a: str) -> dict:
+    """15a/15b: ``SGG_STEPS`` steps of ``train/sgg.py::train_step`` at full
+    width (``SGG_ARGS``) under ``pooling``, dropout on, from the trunk of
+    the Stage A checkpoint ``stage_a`` (``restore_sgg_init``), on one seeded
+    ``SGG_FRAME``. Each step launches the head's RoI kernel once and no
+    other kernel, and runs no RoI backward; the losses stay finite; after
+    the steps the trunk (buffers included) is bit-unchanged and every vrd
+    parameter moved. The last step's RoI call is held to its plain version
+    at its inputs and timed (``held_roi_site``); a fifth step runs under
+    the profiler."""
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.tools.common import ckpt_of, config_from_args
+    from i2vsgg_tpu_torch.train.checkpoint import restore_sgg_init
+    from i2vsgg_tpu_torch.train.det_da import TrainState
+    from i2vsgg_tpu_torch.train.sgg import sgg_optimizer, train_step
+    args = set_dataset_args(parse_args(SGG_ARGS))
+    cfg = config_from_args(args)
+    op = "roi_align" if pooling == "align" else "roi_pool"
+    t = time.time()
+    model = sgg_training_model(args, cfg, pooling, 15)
+    stats = restore_sgg_init(*ckpt_of(stage_a), model)
+    n_trunk = sum(1 for k in model.state_dict() if k.startswith("trunk."))
+    if not stats["copied"] == stats["named"] == n_trunk:
+        raise AssertionError(f"{name} restore_sgg_init: {stats}, "
+                             f"{n_trunk} trunk tensors")
+    model.to(dev)
+    state = TrainState(model, sgg_optimizer(model, args.vrd_lr, cfg),
+                       seed=15)
+    prd = torch.as_tensor(np.random.RandomState(0).randn(
+        args.num_relations, 300).astype(np.float32), device=dev)
+    batch = sgg_batches(SGG_FRAME, 15, args.max_pairs, args.num_relations,
+                        dev)
+    # the copy for the check stays on the host, out of the device's peak
+    before = {k: v.detach().to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
+    vrd = {n for n, p in model.named_parameters() if p.requires_grad}
+    log(f"{name}: res101 trunk from {stage_a} ({stats['copied']} of "
+        f"{stats['total']} tensors), head of "
+        f"{sum(p.numel() for n, p in model.named_parameters() if n in vrd)}"
+        f" params in {len(vrd)} tensors, in {time.time() - t:.2f} s; "
+        f"{int(batch['pair_valid'].sum())} valid pairs of "
+        f"{args.max_pairs}")
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with roi_backward_calls() as bwd:
+        for i in range(SGG_STEPS):
+            out = []
+            counters.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == SGG_STEPS - 1:
+                calls = recorded_roi_sites(
+                    lambda: out.append(train_step(state, batch, prd)), ())
+            else:
+                out.append(train_step(state, batch, prd))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            got = counters.read()
+            if got != dict(NO_LAUNCHES, **{op: 1}):
+                raise AssertionError(f"{name} step {i + 1}: launches {got}; "
+                                     f"expected 1 of {op} and nothing else")
+            rec = {k: float(v) for k, v in out[0].items()}
+            if not np.isfinite(rec["loss"]):
+                raise AssertionError(f"{name} step {i + 1}: {rec}")
+            steps.append(dict(rec, ms=ms))
+            log(f"{name} step {i + 1}: {ms:.1f} ms, loss {rec['loss']:.5f}, "
+                f"{int(rec['n_pairs'])} pairs")
+        peak = torch.cuda.max_memory_allocated()
+        profiled = profiled_step(lambda: train_step(state, batch, prd))
+    if any(bwd.calls.values()):
+        raise AssertionError(f"{name}: RoI backwards ran {bwd.calls}")
+    after = model.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k].cpu())}
+    if moved != vrd or any(k.startswith("trunk.") for k in moved):
+        raise AssertionError(
+            f"{name}: moved outside the head {sorted(moved - vrd)[:5]}, "
+            f"head tensors unchanged {sorted(vrd - moved)[:5]}")
+    if len(calls) != 1 or calls[0][1] != "sgg":
+        raise AssertionError(f"{name}: RoI calls recorded {len(calls)}")
+    log(f"{name}, a fifth step under torch.profiler: "
+        f"{profiled['host_ms']:.1f} ms of host time, "
+        f"{profiled['device_ms']:.2f} ms of device time in "
+        f"{profiled['launches']} kernel launches (busy share "
+        f"{profiled['busy_share']:.3f}); most device time: "
+        f"{[(k[:40], round(v, 2)) for k, v in profiled['top'][:5]]}")
+    _, _, fmap, rois, a, k = calls[0]
+    what = f"{name} {op} sgg ({rois.shape[0]} rois)"
+    site = held_roi_site(op, fmap, rois, a, k, what)
+    log(f"{what}: kernel {site['ms'] * 1e3:.2f} us of device time, plain "
+        f"{site['plain_ms'] * 1e3:.2f} us, bound "
+        f"{site['bound_ms'] * 1e3:.3f} us ({site['bound_by']}) [{card}]")
+    step_ms = float(np.mean([s["ms"] for s in steps[1:]]))
+    rec = {"steps": steps, "launches_per_step": got[op],
+           "roi_backward_calls": bwd.calls, "profiled_step": profiled,
+           "step_ms": step_ms, "images_per_s": 1e3 / step_ms,
+           "sites": [dict(site, site="sgg")], "peak_bytes": peak,
+           "resident_bytes": resident, "moved": len(moved),
+           "restore": stats}
+    log(f"{name}: steady step {step_ms:.1f} ms ({rec['images_per_s']:.2f} "
+        f"images/s), peak {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f}"
+        f" GiB allocated before the first step); {len(moved)} head "
+        f"tensors moved, the trunk and its buffers bit-unchanged, no RoI "
+        f"backward [{card}]")
+    del model, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_sgg_driver_on_card(dev, counters, card: str, work: str,
+                             stage_a: str, devkit: dict) -> dict:
+    """15c: ``trainval_sgg`` (``SGG_ARGS``, full width) on 14c's PNG devkit
+    under ``work`` with its relation pickle, from 14c's Stage A checkpoint
+    (``--load_name``), for 3 steps; then ``test_sgg`` on the checkpoint it
+    wrote, asked for ``--vrd_pooling align``: the checkpoint's metadata
+    (``pool``) must win, so it launches RoIPool and not RoIAlign."""
+    from i2vsgg_tpu_torch.tools import test_sgg, trainval_sgg
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    rec = {}
+    try:
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+        out = os.path.join(work, "out_sgg")
+        counters.reset()
+        t = time.time()
+        with roi_backward_calls() as bwd:
+            state = trainval_sgg.main(SGG_ARGS + [
+                "--save_dir", out, "--disp_interval", "1", "--max_steps",
+                "3", "--load_name", stage_a, "--source_gt_rels_path",
+                devkit["gt_rels"]])
+        rec["train_s"] = time.time() - t
+        got = counters.read()
+        if (state.step != 3 or got != dict(NO_LAUNCHES, roi_pool=3)
+                or any(bwd.calls.values())):
+            raise AssertionError(f"15c: step {state.step}, launches {got}, "
+                                 f"RoI backwards {bwd.calls}")
+        ck = os.path.join(out, "res101", "MVidVRD_SGG", "session_1")
+        with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        if ([r["step"] for r in logged] != [1, 2, 3]
+                or not all(np.isfinite(r["loss"]) for r in logged)):
+            raise AssertionError(f"15c: logged {logged}")
+        with open(os.path.join(ck, "step_00000003",
+                               "metadata.json")) as fh:
+            meta = json.load(fh)
+        if meta != {"session": 1, "epoch": 1, "stage": "sgg",
+                    "net": "res101", "num_relations": 62, "emb_dim": 300,
+                    "spatial_type": 2, "vrd_pooling": "pool"}:
+            raise AssertionError(f"15c: metadata {meta}")
+        counters.reset()
+        res = test_sgg.main(SGG_EVAL_ARGS + [
+            "--video_ann", devkit["video_ann"], "--save_dir", out,
+            "--load_name", os.path.join(ck, "3")])
+        launched = {k: v for k, v in counters.read().items() if v}
+        if set(launched) != {"roi_pool"}:
+            raise AssertionError(f"15c test_sgg launches {launched}: the "
+                                 "checkpoint's vrd_pooling was not read")
+        with open(os.path.join(out, "eval", "MVidVRD_test_SGG",
+                               "frame_detections.json")) as fh:
+            frames = json.load(fh)
+        if sum(len(v) for v in frames.values()) != 12:
+            raise AssertionError(f"15c frame_detections: {list(frames)}")
+        rec.update(losses=[r["loss"] for r in logged],
+                   imgs_per_sec=[r["imgs_per_sec"] for r in logged],
+                   test_sgg_mAP=float(res[0]), test_sgg_launches=launched)
+        log(f"15c: trainval_sgg trained 3 steps in {rec['train_s']:.1f} s "
+            f"(losses {[round(x, 4) for x in rec['losses']]}, "
+            f"{[round(x, 2) for x in rec['imgs_per_sec']]} images/s); "
+            f"test_sgg on its checkpoint read vrd_pooling=pool from the "
+            f"metadata (launches {launched}), mAP {rec['test_sgg_mAP']:.4f} "
+            f"(random head: printed, not held) [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
+
+
+def train_sgg_tiny_card_vs_cpu(dev, counters) -> dict:
+    """15d: one Stage B loss and backward of a res10 model (head
+    ``fc_dim`` 128, dropout rate 0, so no draw enters) on two 64x96 frames,
+    f32 with TF32 off, on the card and on the CPU from the same weights:
+    the loss within ``loss_rtol``, every vrd gradient within ``grad_frac``
+    of its norm and at cosine >= ``grad_cos`` (``SGG_TINY_TOL``)."""
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.config import Config
+    from i2vsgg_tpu_torch.train.det_da import step_generator
+    from i2vsgg_tpu_torch.train.sgg import sgg_loss, sgg_optimizer
+    args = set_dataset_args(parse_args(
+        ["--net", "res10", "--num_relations", "7", "--max_pairs", "12"]))
+    cfg = Config().replace(COMPUTE_DTYPE="float32")
+    model_c = sgg_training_model(args, cfg, "pool", 5, fc_dim=128,
+                                 dropout_rate=0.0)
+    model_g = copy.deepcopy(model_c).to(dev)
+    prd = np.random.RandomState(5).randn(7, 300).astype(np.float32)
+    out = {}
+    with tf32_off():
+        for where, d, model in (("cpu", torch.device("cpu"), model_c),
+                                ("card", dev, model_g)):
+            sgg_optimizer(model, 1e-3, cfg)
+            counters.reset()
+            loss, m = sgg_loss(model, sgg_batches(SGG_TINY, 5, 12, 7, d),
+                               torch.as_tensor(prd, device=d),
+                               lambda: step_generator(d, 5, 0))
+            loss.backward()
+            out[where] = (float(loss.detach()), int(m["n_pairs"]),
+                          {n: p.grad.cpu().double() for n, p in
+                           model.named_parameters() if p.requires_grad},
+                          counters.read())
+    (lc, nc, gc, _), (lg, ng, gg, launched) = out["cpu"], out["card"]
+    if launched != dict(NO_LAUNCHES, roi_pool=SGG_TINY["frames"]):
+        raise AssertionError(f"15d launches on the card {launched}")
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-6)
+    frac = max(float((gg[n] - gc[n]).abs().max())
+               / max(float(gc[n].norm()), 1e-12) for n in gc)
+    cos = min(float((gg[n] * gc[n]).sum() / (gg[n].norm() * gc[n].norm()))
+              for n in gc if float(gc[n].norm()) > 0)
+    tol = SGG_TINY_TOL
+    log(f"15d tiny Stage B step card vs CPU: loss {lc:.6f} rtol "
+        f"{loss_err:.3g} (tol {tol['loss_rtol']:g}), gradients {frac:.3g} "
+        f"of their norm (tol {tol['grad_frac']:g}), least cosine "
+        f"{cos:.8f} (tol {tol['grad_cos']}); {len(gc)} gradients, {nc} "
+        f"valid pairs")
+    if not (loss_err <= tol["loss_rtol"] and frac <= tol["grad_frac"]
+            and cos >= tol["grad_cos"] and nc == ng > 0 and len(gc) > 20):
+        raise AssertionError("15d: the tiny Stage B step on the card is out "
+                             f"of bounds {tol}")
+    return {"loss_rtol": loss_err, "grad_frac": frac, "grad_cos": cos,
+            "tolerances": tol}
+
+
+def stage_b_on_card(dev, counters, card: str, work: str,
+                    stage_a: str, devkit: dict) -> dict:
+    """Phase 15 (see the module docstring), from phase 14c's checkpoint
+    ``stage_a`` and devkit. Returns its record."""
+    rec = {}
+    phase("15a Stage B training at full width: res101 trunk (bf16) from "
+          "14c's checkpoint, VRDHead fc 4096, one 600x1000 frame with 8 GT "
+          f"boxes and 20 relations, 64 pairs, {SGG_STEPS} steps, dropout "
+          "on, vrd_pooling=pool (B2)")
+    rec["15a pool"] = train_sgg_full("15a", "pool", dev, counters, card,
+                                     stage_a)
+    phase("15b the same under vrd_pooling=align (B1)")
+    rec["15b align"] = train_sgg_full("15b", "align", dev, counters, card,
+                                      stage_a)
+    phase("15c the driver: trainval_sgg on 14c's PNG devkit from its "
+          "checkpoint, 3 steps, then test_sgg on the checkpoint")
+    rec["15c driver"] = train_sgg_driver_on_card(dev, counters, card, work,
+                                                 stage_a, devkit)
+    phase("15d one tiny Stage B step (res10, 64x96, f32, TF32 off, no "
+          "dropout): card vs CPU")
+    rec["15d tiny"] = train_sgg_tiny_card_vs_cpu(dev, counters)
+    return rec
+
+
+def training_phases(dev, counters, card: str) -> tuple:
+    """Phases 14 and 15 in one work directory (14c's devkit and Stage A
+    checkpoint are phase 15's start), removed afterwards."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        training = training_on_card(dev, counters, card, work)
+        d = training["14c driver"]
+        stage_b = stage_b_on_card(dev, counters, card, work, d["stage_a"],
+                                  d["devkit"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return training, stage_b
 
 
 # ----------------------------------------------------------------------------
@@ -3534,10 +3915,10 @@ def main() -> int:
                           imgs_s, info_s)
 
     drivers = drivers_on_card(dev, counters, card)
-    training = training_on_card(dev, counters, card)
+    training, stage_b = training_phases(dev, counters, card)
 
-    phase("15 results")
-    print(json.dumps({"training": training, "serving": {
+    phase("16 results")
+    print(json.dumps({"training": training, "stage_b": stage_b, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],
@@ -3592,6 +3973,12 @@ def main() -> int:
         kernels[name]["phase14_sites"] = [
             dict(site, backward_ms=b)
             for site, b in zip(t["sites"], t["backward_ms"])]
+    # the kernels at Stage B's training site (phase 15a pool, 15b align):
+    # their launches a step and the last step's call
+    for name, run in (("roi_pool", "15a pool"), ("roi_align", "15b align")):
+        t = stage_b[run]
+        kernels[name]["phase15_launches_per_step"] = t["launches_per_step"]
+        kernels[name]["phase15_sites"] = t["sites"]
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -3622,7 +4009,9 @@ def main() -> int:
                                                 "phase13_planes",
                                                 "phase13_chain",
                                                 "phase14_launches_per_step",
-                                                "phase14_sites")
+                                                "phase14_sites",
+                                                "phase15_launches_per_step",
+                                                "phase15_sites")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -11,6 +11,9 @@ standard deviations, rescaled to variance ``1 / fan_in``; zero biases).
 
 The port's layers carry these choices (``models/layers.py``): ``init_std``
 is an explicit normal (a kaiming fan-out std is ``sqrt(2 / fan_out)``),
+``init_bound`` a torch-default uniform weight (``nn.Linear``/``nn.Conv2d``:
+``kaiming_uniform_(a=sqrt(5))``, uniform in ``+-1/sqrt(fan_in)``; JAX's
+``torch_linear_kernel``, which the relation head uses throughout),
 ``bias_bound`` a torch-default uniform bias. ``init_module`` fills a module
 by them from an explicit ``torch.Generator``; ``layers.init_weights``
 stays the serving tests' init. A layer's fan-in counts a conv's window, as
@@ -43,6 +46,12 @@ def normal(shape, std: float, generator) -> torch.Tensor:
                  lambda t: t.normal_(0.0, std, generator=generator))
 
 
+def uniform(shape, bound: float, generator) -> torch.Tensor:
+    """Uniform in ``+-bound`` (torch's default Linear/Conv2d draws)."""
+    return _draw(shape, generator,
+                 lambda t: t.uniform_(-bound, bound, generator=generator))
+
+
 def lecun_normal(shape, fan_in: int, generator) -> torch.Tensor:
     """flax's ``lecun_normal``: a normal truncated to two standard
     deviations, scaled to variance ``1 / fan_in``."""
@@ -57,8 +66,9 @@ def lecun_normal(shape, fan_in: int, generator) -> torch.Tensor:
 def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every ``Dense``/``Conv`` of ``module`` as the JAX package
     initializes it for training: weights normal with the layer's
-    ``init_std`` (the reference's explicit inits) or ``lecun_normal``;
-    biases uniform in ``+-bias_bound`` (torch-default layers) or zero.
+    ``init_std`` (the reference's explicit inits), uniform in
+    ``+-init_bound`` (torch-default layers) or ``lecun_normal``; biases
+    uniform in ``+-bias_bound`` (torch-default layers) or zero.
     FrozenBatchNorm buffers keep their identity statistics. Drawn on the
     generator's device, copied to the parameters'."""
     for m in module.modules():
@@ -66,15 +76,17 @@ def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
             continue
         shape = tuple(m.weight.shape)
         fan_in = m.weight[0].numel()
-        w = (normal(shape, m.init_std, generator) if m.init_std is not None
-             else lecun_normal(shape, fan_in, generator))
+        if m.init_std is not None:
+            w = normal(shape, m.init_std, generator)
+        elif m.init_bound is not None:
+            w = uniform(shape, m.init_bound, generator)
+        else:
+            w = lecun_normal(shape, fan_in, generator)
         m.weight.copy_(w)
         if m.bias is not None:
             if m.bias_bound:
-                b = _draw(tuple(m.bias.shape), generator,
-                          lambda t: t.uniform_(-m.bias_bound, m.bias_bound,
-                                               generator=generator))
-                m.bias.copy_(b)
+                m.bias.copy_(uniform(tuple(m.bias.shape), m.bias_bound,
+                                     generator))
             else:
                 m.bias.zero_()
     return module

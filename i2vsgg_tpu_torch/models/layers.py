@@ -45,12 +45,14 @@ class Dense(nn.Module):
     def __init__(self, in_features: int, features: int, *,
                  dtype: torch.dtype | None = None,
                  init_std: float | None = None,
+                 init_bound: float | None = None,
                  bias_bound: float | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
         self.init_std = init_std
+        self.init_bound = init_bound
         self.bias_bound = bias_bound
 
     def forward(self, x):
@@ -66,6 +68,7 @@ class Conv(nn.Module):
                  stride: int = 1, padding: int = 0, bias: bool = True,
                  dtype: torch.dtype | None = None,
                  init_std: float | None = None,
+                 init_bound: float | None = None,
                  bias_bound: float | None = None):
         super().__init__()
         self.weight = nn.Parameter(
@@ -75,6 +78,7 @@ class Conv(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.init_std = init_std
+        self.init_bound = init_bound
         self.bias_bound = bias_bound
 
     def forward(self, x, stride: int | None = None):
@@ -89,8 +93,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every ``Dense``/``Conv`` of ``module`` with seeded random values.
 
     Weights are normal with the layer's ``init_std`` (the JAX package's
-    explicit head inits) or, by default, std ``1/sqrt(fan_in)`` (the
-    variance of flax's ``lecun_normal``); biases are uniform in
+    explicit head inits), with std ``init_bound / sqrt(3)`` (the variance of
+    a torch-default layer's uniform draw) or, by default, std
+    ``1/sqrt(fan_in)`` (the variance of flax's ``lecun_normal``); biases
+    are uniform in
     ``+-bias_bound`` (torch-default layers) or zero. ``FrozenBatchNorm``
     buffers keep their identity statistics. Values are drawn on the
     generator's device and copied to the parameters' device.
@@ -100,7 +106,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         if not isinstance(m, (Dense, Conv)):
             continue
         fan_in = m.weight[0].numel()
-        std = m.init_std if m.init_std is not None else 1.0 / math.sqrt(fan_in)
+        if m.init_std is not None:
+            std = m.init_std
+        elif m.init_bound is not None:
+            std = m.init_bound / math.sqrt(3.0)
+        else:
+            std = 1.0 / math.sqrt(fan_in)
         w = torch.empty(m.weight.shape, device=gdev).normal_(
             0.0, std, generator=generator)
         m.weight.copy_(w)

@@ -1,4 +1,4 @@
-"""Embedding-based relation (SGG) head, inference — counterpart of
+"""Embedding-based relation (SGG) head — counterpart of
 ``i2vsgg_tpu/models/sgg.py`` (the ``vrd`` module of
 ``lib/model/faster_rcnn/resnet_SGG_emb.py:64-264``).
 
@@ -9,7 +9,9 @@
   ``use_obj_visual``) and the spatial branch (``spatial_type`` 2: the conv
   tower over the 2x32x32 dual masks; 1: ``fc_lov`` on the 8-d relative
   location; 0: none) are concatenated -> fc_fusion -> fc_rel;
-* predicate scores are cosines against the GloVe-MLP predicate embeddings.
+* predicate scores are cosines against the GloVe-MLP predicate embeddings;
+  training (Stage B) adds dropout after fc6 and fc7 and the multi-label
+  BCE of ``bce_multilabel_loss``.
 
 The serving layout is exact restructuring of the same math, as in the JAX
 package: unions are pooled once per unordered pair and fanned out by
@@ -36,10 +38,10 @@ from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
 
 def dense_t(in_features: int, features: int) -> Dense:
     """Dense with torch-default init: uniform(+-1/sqrt(fan_in)) on both the
-    weight (drawn here as a normal of the same variance) and the bias."""
+    weight and the bias (JAX's ``torch_linear_kernel`` /
+    ``torch_linear_bias``)."""
     bound = 1.0 / math.sqrt(in_features)
-    return Dense(in_features, features, init_std=bound / math.sqrt(3.0),
-                 bias_bound=bound)
+    return Dense(in_features, features, init_bound=bound, bias_bound=bound)
 
 
 def conv_t(in_features: int, features: int, kernel: int, stride: int = 1,
@@ -47,7 +49,7 @@ def conv_t(in_features: int, features: int, kernel: int, stride: int = 1,
     """Conv with torch-default init (fan_in = k*k*in)."""
     bound = 1.0 / math.sqrt(kernel * kernel * in_features)
     return Conv(in_features, features, kernel, stride=stride, padding=padding,
-                init_std=bound / math.sqrt(3.0), bias_bound=bound)
+                init_bound=bound, bias_bound=bound)
 
 
 class DenseInt8(Dense):
@@ -72,8 +74,36 @@ class DenseInt8(Dense):
 def dense_int8_t(in_features: int, features: int) -> DenseInt8:
     """``DenseInt8`` with ``dense_t``'s init."""
     bound = 1.0 / math.sqrt(in_features)
-    return DenseInt8(in_features, features, init_std=bound / math.sqrt(3.0),
+    return DenseInt8(in_features, features, init_bound=bound,
                      bias_bound=bound)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: each unit kept with probability
+    ``1 - rate`` (a uniform draw below it, as ``jax.random.bernoulli``) and
+    divided by ``1 - rate``, the rest 0. The draw is on ``generator``'s
+    device, never on the global random state."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < 1.0 - rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate),
+                       torch.zeros_like(x))
+
+
+def bce_multilabel_loss(scores: torch.Tensor, labels: torch.Tensor,
+                        pair_valid: torch.Tensor) -> torch.Tensor:
+    """BCE with logits averaged over the valid pairs' ``P x n_rel``
+    elements (the denominator floored at 1), in the ``log_sigmoid`` form of
+    JAX's ``bce_multilabel_loss``. [resnet_SGG_emb.py:95;
+    faster_rcnn_SGG_emb.py:269]"""
+    logp = F.logsigmoid(scores)
+    lognp = F.logsigmoid(-scores)
+    per_elem = -(labels * logp + (1.0 - labels) * lognp)
+    w = pair_valid.to(scores.dtype)[:, None]
+    return (per_elem * w).sum() / torch.clamp_min(
+        w.sum() * scores.shape[1], 1.0)
 
 
 class PredicateEmbedder(nn.Module):
@@ -90,7 +120,7 @@ class PredicateEmbedder(nn.Module):
 
 
 class VRDHead(nn.Module):
-    """Relation classification head over pooled features (inference).
+    """Relation classification head over pooled features.
 
     ``in_channels``: the feature map's width (1024 for ResNet, 512 for
     VGG16), so fc6 takes ``in_channels * 49`` inputs. ``spatial_type``: 0
@@ -99,14 +129,17 @@ class VRDHead(nn.Module):
     masks. ``use_obj_visual``: the subject/object embedding branch
     (``fc_so``). ``fc_fusion`` takes 256 inputs a branch present. ``int8_fc``
     runs the fc6/fc7 tower as ``DenseInt8`` (same parameter names), whose f32
-    output feeds the rest of the head."""
+    output feeds the rest of the head. ``dropout_rate``: the dropout after
+    relu(fc6) and after relu(fc7), drawn only in training (``forward(...,
+    generator=...)`` on a module in training mode)."""
 
     pooling_size = 7
 
     def __init__(self, emb_dim: int = 300, fc_dim: int = 4096,
                  pooling: str = "pool", dtype=torch.float32,
                  int8_fc: bool = False, in_channels: int = 1024,
-                 spatial_type: int = 2, use_obj_visual: bool = True):
+                 spatial_type: int = 2, use_obj_visual: bool = True,
+                 dropout_rate: float = 0.5):
         super().__init__()
         if pooling not in ("pool", "align"):
             raise ValueError(f"pooling must be 'pool' or 'align', not {pooling!r}")
@@ -115,6 +148,8 @@ class VRDHead(nn.Module):
                              f"{spatial_type!r}")
         self.pooling = pooling
         self.dtype = dtype
+        self.int8_fc = int8_fc
+        self.dropout_rate = dropout_rate
         self.spatial_type = spatial_type
         self.use_obj_visual = use_obj_visual
         p = self.pooling_size
@@ -138,7 +173,8 @@ class VRDHead(nn.Module):
         self.prd_sem_embeddings = PredicateEmbedder(emb_dim)
 
     def forward(self, fmap, obj_rois, union_rois, ix1, ix2, prd_vecs, *,
-                u_map=None, det_masks=None, spatial_fea=None
+                u_map=None, det_masks=None, spatial_fea=None,
+                generator: torch.Generator | None = None
                 ) -> Dict[str, torch.Tensor]:
         """
         fmap: (1, H, W, C) feature map; obj_rois (M, 5); union_rois (U, 5)
@@ -148,6 +184,9 @@ class VRDHead(nn.Module):
         ``spatial_type=1``; under 2, (P, 32, 32, 2) pair masks (NHWC), or
         instead ``det_masks`` (M, 32, 32) per-detection masks (the pair
         masks are built after conv_lo0, exactly).
+        ``generator``: with the module in training mode, the dropout after
+        fc6 and after fc7 draws its masks from it (``dropout``); without
+        one, or in eval mode, no dropout runs (JAX's ``deterministic``).
         Returns {'scores' (P, n_rel) cosines, 'union_emb', 'prd_emb',
         'obj_emb'}.
         """
@@ -163,8 +202,13 @@ class VRDHead(nn.Module):
             pooled = roi_pool(fmap.contiguous(), all_rois, p, p, 1.0 / 16.0)
         # flattened in NHWC order, as JAX flattens it
         x = pooled.reshape(pooled.shape[0], -1).to(self.dtype)
+        drop = generator is not None and self.training
         x = F.relu(self.fc6(x))
+        if drop:
+            x = dropout(x, self.dropout_rate, generator)
         x = F.relu(self.fc7(x))
+        if drop:
+            x = dropout(x, self.dropout_rate, generator)
 
         obj_feat = self.so_vis_embeddings(x[:m])
         x_u = F.relu(self.fc8(x[m:]))
@@ -216,14 +260,16 @@ class VRDHead(nn.Module):
 
 
 class SGGModel(nn.Module):
-    """Relation model on a frozen detector's features (inference).
+    """Relation model on a frozen detector's features.
     Parameter names: ``vrd.*`` and, with a trunk, ``trunk.*``, as in the
     JAX module.
 
     ``trunk`` (a ``ResNetTrunk`` or ``VGG16Trunk``, optional) is Stage B's
     own backbone, which ``forward`` runs before the head (the evaluation
     driver, ``tools/test_sgg.py``); the fused serving program shares the
-    detector's trunk and calls ``head_on_features`` on its map instead."""
+    detector's trunk and calls ``head_on_features`` on its map instead.
+    Both run under ``no_grad``. Training (``train/sgg.py``) runs the trunk
+    with ``frozen_map`` and the head with ``train_head``."""
 
     def __init__(self, vrd: VRDHead, trunk: nn.Module | None = None):
         super().__init__()
@@ -248,6 +294,28 @@ class SGGModel(nn.Module):
                                      pair_static=pair_static)
 
     @torch.no_grad()
+    def frozen_map(self, images) -> torch.Tensor:
+        """The trunk's stride-16 map of ``images`` (B, H, W, 3), computed
+        without grad: Stage B's frozen detector (JAX's ``stop_gradient``,
+        ``i2vsgg_tpu/models/sgg.py:301``). A map that needs no grad sends
+        the RoI wrappers straight to their kernels, with no backward."""
+        return self.trunk(images)[0]
+
+    def train_head(self, base_feat, im_info, obj_boxes, ix1, ix2, pair_valid,
+                   prd_vecs, generator: torch.Generator):
+        """The head with grad on one frame's (detached) map, over the
+        ordered pairs ``ix1``/``ix2`` (one union roi a pair), with dropout
+        drawn from ``generator`` while the module is in training mode (JAX's
+        ``deterministic=False``). Padded boxes and pairs are computed and
+        left to the loss's mask, as in JAX. An int8 head (``int8_fc``) is
+        refused: it is a serving lever, with no VJP in JAX."""
+        if self.vrd.int8_fc:
+            raise ValueError("an int8 head (int8_fc=True) is serving-only; "
+                             "train the float head and quantize it after")
+        return self._head(base_feat.detach(), im_info, obj_boxes, ix1, ix2,
+                          pair_valid, prd_vecs, generator=generator)
+
+    @torch.no_grad()
     def head_on_features(self, base_feat, im_info, obj_boxes, ix1, ix2,
                          pair_valid, prd_vecs, *, pair_static=None):
         """Relation head on a precomputed (1, H, W, C) feature map.
@@ -268,6 +336,11 @@ class SGGModel(nn.Module):
         built here. The JAX method passes no spatial feature and fails
         there too (``i2vsgg_tpu/models/sgg.py:190-193, 329-331``).
         """
+        return self._head(base_feat, im_info, obj_boxes, ix1, ix2,
+                          pair_valid, prd_vecs, pair_static=pair_static)
+
+    def _head(self, base_feat, im_info, obj_boxes, ix1, ix2, pair_valid,
+              prd_vecs, *, pair_static=None, generator=None):
         if self.vrd.spatial_type == 1:
             raise ValueError("head_on_features builds no spatial feature: "
                              "spatial_type=1 needs VRDHead's spatial_fea "
@@ -292,6 +365,6 @@ class SGGModel(nn.Module):
             det_masks = dual_mask(im_info[0], im_info[1],
                                   obj_boxes)                 # (M, 32, 32)
         out = self.vrd(base_feat, obj_rois, union_rois, ix1, ix2, prd_vecs,
-                       u_map=u_map, det_masks=det_masks)
+                       u_map=u_map, det_masks=det_masks, generator=generator)
         out["pair_valid"] = pair_valid
         return out

@@ -16,8 +16,8 @@ checkpoints only. A JAX checkpoint becomes one with
 ``mmap=True, weights_only=True``. The three restorations of the reference
 (SURVEY.md §5): ``restore_detector_init`` (a detector without its
 discriminator and classification/regression heads), ``restore_full`` (the
-resume of a run) and ``restore_intersection`` (test time). Stage B's
-``restore_sgg_init`` comes with Stage B's training.
+resume of a run) and ``restore_intersection`` (test time); and Stage B's
+``restore_sgg_init`` (the trunk of a Stage A checkpoint).
 """
 
 from __future__ import annotations
@@ -168,6 +168,16 @@ def restore_detector_init(ckpt_dir: str, step: int,
     their init, for a new class set or DA run. [trainval_…:153-183]"""
     return _merge_filtered(module, load_state_dict(ckpt_dir, step),
                            skip=DETECTOR_INIT_EXCLUDE)
+
+
+def restore_sgg_init(det_ckpt_dir: str, step: int,
+                     module: nn.Module) -> Dict[str, int]:
+    """Mode 3, Stage B init: copy only the trunk (``trunk.*``, its
+    FrozenBatchNorm buffers included) of a Stage A checkpoint into an
+    ``SGGModel``; the relation head keeps its init. Returns JAX's stats
+    {"copied", "named", "total"}. [trainval_net_SGG_emb.py:155-173]"""
+    return _merge_filtered(module, load_state_dict(det_ckpt_dir, step),
+                           keep_only_roots=("trunk",))
 
 
 def restore_full(ckpt_dir: str, step: int, module: nn.Module,

@@ -671,3 +671,36 @@ def test_roi_ops_under_autograd_launch_the_kernel(cuda, op):
     assert scale > 0
     torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-5,
                                atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("pooling", ["pool", "align"])
+def test_stage_b_step_pools_forward_only(cuda, pooling):
+    """A Stage B step on the card (res10, head width 128, two 64x96 frames,
+    dropout on): one kernel launch an image at the head's pooling and no
+    RoI backward (the map is detached), a finite loss, the trunk and its
+    buffers bit-unchanged and every head tensor moved."""
+    import chip_smoke
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.config import Config
+    from i2vsgg_tpu_torch.ops import roi_align as ra
+    from i2vsgg_tpu_torch.ops import roi_pool as rp
+    from i2vsgg_tpu_torch.train.det_da import TrainState
+    from i2vsgg_tpu_torch.train.sgg import sgg_optimizer, train_step
+    args = set_dataset_args(parse_args(
+        ["--net", "res10", "--num_relations", "7", "--max_pairs", "12"]))
+    cfg = Config().replace(COMPUTE_DTYPE="float32")
+    model = chip_smoke.sgg_training_model(args, cfg, pooling, 3,
+                                          fc_dim=128).to(cuda)
+    state = TrainState(model, sgg_optimizer(model, 1e-3, cfg), seed=3)
+    batch = chip_smoke.sgg_batches(chip_smoke.SGG_TINY, 3, 12, 7, cuda)
+    prd = torch.randn(7, 300, device=cuda)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    fn = ra.roi_align_avg if pooling == "align" else rp.roi_pool
+    launches = fn.launches
+    with chip_smoke.roi_backward_calls() as bwd:
+        m = train_step(state, batch, prd)
+    assert fn.launches == launches + chip_smoke.SGG_TINY["frames"]
+    assert not any(bwd.calls.values())
+    assert np.isfinite(float(m["loss"])) and int(m["n_pairs"]) > 0
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]) == k.startswith("trunk."), k

@@ -83,7 +83,8 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "tools.test_sgg", "tools.test_det", "tools.common",
                      "models.targets", "models.inits", "train.optim",
                      "train.det_da", "utils.logging",
-                     "tools.trainval_det_da"):
+                     "tools.trainval_det_da", "train.sgg",
+                     "tools.trainval_sgg"):
             assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
@@ -142,9 +143,9 @@ def test_roi_pool_cpu_path_and_missing_card():
 
         # the drivers default to the card, and raise without one
         from i2vsgg_tpu_torch.tools import (serve_video, test_det, test_sgg,
-                                            trainval_det_da)
+                                            trainval_det_da, trainval_sgg)
         for main in (serve_video.main, test_sgg.main, test_det.main,
-                     trainval_det_da.main):
+                     trainval_det_da.main, trainval_sgg.main):
             try:
                 main(["--dataset", "MVidVRD", "--net", "res10"])
             except RuntimeError as e:
@@ -451,3 +452,61 @@ def test_training_driver_help_and_logger_without_the_blocked_names(tmp_path):
         assert not bad, bad
     """)
     assert "--pretrained_backbone" in out and "--max_steps" in out
+
+
+def test_stage_b_step_and_driver_help_without_the_blocked_names():
+    """Stage B in the blocked interpreter: two steps of ``train/sgg.py`` on
+    a tiny res10 model on the CPU, dropout on (masks from the step's
+    generator), only the head moving; and ``python -m
+    i2vsgg_tpu_torch.tools.trainval_sgg --help``."""
+    out = run_isolated("""
+        import runpy
+        import sys
+
+        import numpy as np
+        import torch
+
+        from i2vsgg_tpu_torch.config import Config
+        from i2vsgg_tpu_torch.models.backbones import ResNetTrunk
+        from i2vsgg_tpu_torch.models.inits import init_module
+        from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
+        from i2vsgg_tpu_torch.train import sgg
+        from i2vsgg_tpu_torch.train.det_da import TrainState
+
+        model = init_module(
+            SGGModel(VRDHead(emb_dim=16, fc_dim=32),
+                     trunk=ResNetTrunk(depth=10, dtype=torch.float32)),
+            torch.Generator().manual_seed(0))
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        g = 4
+        rs = np.random.RandomState(0)
+        xy = rs.uniform(0, 30, (1, g, 2))
+        boxes = np.concatenate([xy, xy + rs.uniform(8, 30, (1, g, 2))], -1)
+        ix1, ix2, labels, valid = sgg.build_pair_batch(
+            [(0, 1, 1), (1, 2, 0), (2, 0, 3)], g, 6, 5)
+        batch = {"image": torch.randn(1, 64, 80, 3) * 10,
+                 "im_info": torch.tensor([[64.0, 80.0, 1.0]]),
+                 "obj_boxes": torch.as_tensor(boxes, dtype=torch.float32),
+                 "ix1": torch.as_tensor(ix1[None]).long(),
+                 "ix2": torch.as_tensor(ix2[None]).long(),
+                 "pair_valid": torch.as_tensor(valid[None]),
+                 "rel_labels": torch.as_tensor(labels[None])}
+        state = TrainState(model, sgg.sgg_optimizer(model, 1e-2, Config()))
+        prd = torch.randn(5, 300)
+        for _ in range(2):
+            m = sgg.train_step(state, batch, prd)
+            assert np.isfinite(float(m["loss"])) and int(m["n_pairs"]) == 3
+        after = model.state_dict()
+        for k, v in after.items():
+            assert torch.equal(v, before[k]) == k.startswith("trunk."), k
+        sys.argv = ["trainval_sgg", "--help"]
+        try:
+            runpy.run_module("i2vsgg_tpu_torch.tools.trainval_sgg",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+    """)
+    assert "--source_gt_rels_path" in out and "--decay_spe" in out
