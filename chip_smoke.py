@@ -79,8 +79,10 @@ class, with seeded random weights, along five paths:
   inputs and timed beside its bound and the plain backward's device time;
   the proposals' share of the step is timed. 14b does the same under
   ``POOLING_MODE=pool`` (B2). 14c runs ``python -m
-  i2vsgg_tpu_torch.tools.trainval_det_da`` on a PNG devkit for 3 steps,
-  ``--r`` for 2 more, and ``test_det`` on the checkpoint; 14d holds one
+  i2vsgg_tpu_torch.tools.trainval_det_da`` on the paper's pairing (an MVRD
+  devkit of JPEG stills as the source, ``write_mvrd_devkit``; the PNG
+  frames of ``write_devkit`` as the target) for 3 steps, ``--r`` for 2
+  more, and ``test_det`` on the checkpoint; 14d holds one
   tiny deterministic step (res10, f32) on the card to the CPU's
   (``TRAIN_TINY_TOL``);
 * phase 15, the twelfth slice's path, Stage B training
@@ -94,11 +96,21 @@ class, with seeded random weights, along five paths:
   bit-unchanged and every head tensor moves; the last step's RoI call is
   held to its plain version and timed beside its bound. 15b does the same
   under ``align`` (B1). 15c runs ``python -m
-  i2vsgg_tpu_torch.tools.trainval_sgg`` on 14c's devkit from 14c's
+  i2vsgg_tpu_torch.tools.trainval_sgg`` on 14c's MVRD stills from 14c's
   checkpoint for 3 steps and ``test_sgg`` on the checkpoint it wrote,
   which must read ``vrd_pooling`` from its metadata; 15d holds one tiny
   Stage B step (res10, f32, no dropout) on the card to the CPU's
-  (``SGG_TINY_TOL``).
+  (``SGG_TINY_TOL``);
+* phase 16, the thirteenth slice's path, JPEG decode (``csrc/jpeg.cc``
+  through ``data/jpeg.py``, built with the host compiler, no kernel): 16a,
+  run before phase 14 (whose driver reads JPEG stills), builds the decoder
+  cold, holds every committed fixture of ``tests/data/jpeg`` bit-equal to
+  its golden (cv2's decode, written as PNG), shows that the progressive
+  and CMYK fixtures raise ``UnsupportedImageError`` naming their mode, and
+  times the decode of the VRD-sized stills and a 360x640 frame beside the
+  PNG decode of the same pixels; 16b, after phase 15, times the loader on
+  14c's MVRD stills (decode + resize) and runs ``test_det`` on
+  ``MVRD_test`` at full width from 14c's checkpoint.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -114,8 +126,9 @@ each accumulation depth (``kDepth`` 16, 32, 64 in ``csrc/bottleneck.cu``)
 and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
-The lines before the last are the training and serving record (phase 14's
-and 15's steps; ms per 4-frame request of each path served) and the
+The lines before the last are the training, JPEG and serving record (phase
+14's and 15's steps; phase 16's decode times, host ms of the card's
+machine; ms per 4-frame request of each path served) and the
 kernels' JSON record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
 version's, the library call's and the bound), then the card's name and
@@ -2006,9 +2019,10 @@ def drivers_on_card(dev, counters, card: str) -> dict:
 # phase 14: Stage A training on the card (``train/det_da.py``, the driver
 # ``python -m i2vsgg_tpu_torch.tools.trainval_det_da``)
 
-# scripts/instance_styleD_resnet101.sh's run, with the consistency terms on
-# and a PNG source devkit (the port's loader decodes PNG only)
-TRAIN_ARGS = ["--dataset", "MVidVRD", "--dataset_t", "MVidVRD", "--net",
+# scripts/instance_styleD_resnet101.sh's run (the MVRD stills, JPEG, as the
+# source; the MVidVRD frames, PNG, as the target), with the consistency terms
+# on
+TRAIN_ARGS = ["--dataset", "MVRD", "--dataset_t", "MVidVRD", "--net",
               "res101", "--ic", "--gc", "--cr", "--lr", "5e-4",
               "--lr_decay_step", "10", "--lr_decay_gamma", "0.1", "--eta",
               "0.1", "--eta_style", "0.001", "--style_lambda", "1", "--bs",
@@ -2245,16 +2259,21 @@ def train_full(name: str, pooling: str, dev, counters, card: str) -> dict:
 
 def train_driver_on_card(dev, counters, card: str, work: str) -> dict:
     """14c: ``trainval_det_da`` (``TRAIN_ARGS``, full width, bf16 compute)
-    on a PNG devkit from ``write_devkit`` (360x640 frames at scale 600:
-    600x1067 in a 608x1216 batch) under ``work``, started as a user starts
-    it from a detector (``--load_name``: the port's inits with calibrated
-    FrozenBN statistics, saved in the port's format; the heads
+    on the paper's pairing under ``work``: the source an MVRD devkit of
+    JPEG stills (``write_mvrd_devkit``: 1024x768 and 768x1024 at scale 600,
+    600x800 and 800x600), the target a PNG devkit from ``write_devkit``
+    (360x640 frames: 600x1067 in a 608x1216 batch); started as a user starts
+    it from a detector (``--load_name``: the port's inits with FrozenBN
+    statistics calibrated on the first source still, saved in the port's
+    format; the heads
     re-initialized): 3 steps, then ``--r`` for 2 more (the step count and
     the lr go on from the checkpoint), then ``test_det`` on the last
     checkpoint, whose files must parse. The record names the last
     checkpoint (``stage_a``, Stage B's start in phase 15) and the devkit's
     files (``devkit``)."""
     from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import prep_image
     from i2vsgg_tpu_torch.tools import test_det, trainval_det_da
     from i2vsgg_tpu_torch.tools.common import config_from_args
     from i2vsgg_tpu_torch.train.checkpoint import save_checkpoint
@@ -2263,12 +2282,18 @@ def train_driver_on_card(dev, counters, card: str, work: str) -> dict:
     try:
         os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
         devkit = write_devkit(os.environ["I2VSGG_DATA_ROOT"])
+        devkit.update(write_mvrd_devkit(os.environ["I2VSGG_DATA_ROOT"]))
         cfg = config_from_args(set_dataset_args(parse_args(TRAIN_ARGS)))
         det = training_model(cfg, dict(TRAIN_FRAME, backbone="res101"), 15)
-        src, _ = train_frames(TRAIN_FRAME, 15)
+        # the random detector's FrozenBN statistics, calibrated on the first
+        # source still as the loader prepares it
+        still, scale = prep_image(imread_bgr(os.path.join(
+            os.environ["I2VSGG_DATA_ROOT"], "MVRD", "JPEGImages",
+            "img000.jpg")), cfg.TRAIN.SCALES[0], cfg.PIXEL_MEANS)
         calibrate_frozen_bn(det.to(dev),
-                            torch.as_tensor(src["image"], device=dev),
-                            torch.as_tensor(src["im_info"], device=dev))
+                            torch.as_tensor(still[None], device=dev),
+                            torch.tensor([[*still.shape[:2], scale]],
+                                         dtype=torch.float32, device=dev))
         save_checkpoint(os.path.join(work, "init"), det.state_dict(), 0)
         del det
         out = os.path.join(work, "out")
@@ -2288,7 +2313,7 @@ def train_driver_on_card(dev, counters, card: str, work: str) -> dict:
         lr = state.optimizer.opt.param_groups[0]["lr"]
         if state.step != 5 or lr != state.optimizer.lr_schedule(4):
             raise AssertionError(f"14c --r: step {state.step}, lr {lr}")
-        ck = os.path.join(out, "res101", "MVidVRD", "session_1")
+        ck = os.path.join(out, "res101", "MVRD", "session_1")
         with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         if [r["step"] for r in logged] != [1, 2, 3, 4, 5]:
@@ -2407,8 +2432,8 @@ def training_on_card(dev, counters, card: str, work: str) -> dict:
     rec["14a align"] = train_full("14a", "align", dev, counters, card)
     phase("14b the same under POOLING_MODE=pool (B2)")
     rec["14b pool"] = train_full("14b", "pool", dev, counters, card)
-    phase("14c the driver: trainval_det_da on a PNG devkit, 3 steps, --r to "
-          "5, then test_det on the checkpoint")
+    phase("14c the driver: trainval_det_da on the MVRD stills (JPEG) -> "
+          "MVidVRD (PNG), 3 steps, --r to 5, then test_det on the checkpoint")
     rec["14c driver"] = train_driver_on_card(dev, counters, card, work)
     phase("14d one tiny deterministic step (res10, 64x80, f32, TF32 off): "
           "card vs CPU")
@@ -2424,7 +2449,7 @@ def training_on_card(dev, counters, card: str, work: str) -> dict:
 # bf16 compute with f32 params, VRDHead fc_dim 4096, emb_dim 300,
 # spatial_type 2, use_obj_visual, 62 predicates, max_pairs 64,
 # MAX_NUM_GT_BOXES 30, TRAIN scale 600 / max side 1000, batch 1
-SGG_ARGS = ["--dataset", "MVidVRD", "--net", "res101", "--vrd_lr", "1e-4",
+SGG_ARGS = ["--dataset", "MVRD", "--net", "res101", "--vrd_lr", "1e-4",
             "--bs", "1", "--num_relations", "62"]
 # one seeded 600x1000 frame with 8 GT boxes and 20 relation triples a step
 SGG_FRAME = dict(height=600, width=1000, objects=8, num_classes=16,
@@ -2621,8 +2646,9 @@ def train_sgg_full(name: str, pooling: str, dev, counters, card: str,
 
 def train_sgg_driver_on_card(dev, counters, card: str, work: str,
                              stage_a: str, devkit: dict) -> dict:
-    """15c: ``trainval_sgg`` (``SGG_ARGS``, full width) on 14c's PNG devkit
-    under ``work`` with its relation pickle, from 14c's Stage A checkpoint
+    """15c: ``trainval_sgg`` (``SGG_ARGS``, full width) on 14c's MVRD stills
+    (JPEG) under ``work`` with their relation pickle, from 14c's Stage A
+    checkpoint
     (``--load_name``), for 3 steps; then ``test_sgg`` on the checkpoint it
     wrote, asked for ``--vrd_pooling align``: the checkpoint's metadata
     (``pool``) must win, so it launches RoIPool and not RoIAlign."""
@@ -2638,14 +2664,14 @@ def train_sgg_driver_on_card(dev, counters, card: str, work: str,
             state = trainval_sgg.main(SGG_ARGS + [
                 "--save_dir", out, "--disp_interval", "1", "--max_steps",
                 "3", "--load_name", stage_a, "--source_gt_rels_path",
-                devkit["gt_rels"]])
+                devkit["mvrd_gt_rels"]])
         rec["train_s"] = time.time() - t
         got = counters.read()
         if (state.step != 3 or got != dict(NO_LAUNCHES, roi_pool=3)
                 or any(bwd.calls.values())):
             raise AssertionError(f"15c: step {state.step}, launches {got}, "
                                  f"RoI backwards {bwd.calls}")
-        ck = os.path.join(out, "res101", "MVidVRD_SGG", "session_1")
+        ck = os.path.join(out, "res101", "MVRD_SGG", "session_1")
         with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         if ([r["step"] for r in logged] != [1, 2, 3]
@@ -2755,7 +2781,7 @@ def stage_b_on_card(dev, counters, card: str, work: str,
     phase("15b the same under vrd_pooling=align (B1)")
     rec["15b align"] = train_sgg_full("15b", "align", dev, counters, card,
                                       stage_a)
-    phase("15c the driver: trainval_sgg on 14c's PNG devkit from its "
+    phase("15c the driver: trainval_sgg on 14c's MVRD stills (JPEG) from its "
           "checkpoint, 3 steps, then test_sgg on the checkpoint")
     rec["15c driver"] = train_sgg_driver_on_card(dev, counters, card, work,
                                                  stage_a, devkit)
@@ -2766,17 +2792,249 @@ def stage_b_on_card(dev, counters, card: str, work: str,
 
 
 def training_phases(dev, counters, card: str) -> tuple:
-    """Phases 14 and 15 in one work directory (14c's devkit and Stage A
-    checkpoint are phase 15's start), removed afterwards."""
+    """Phases 14, 15 and 16b in one work directory (14c's devkits and Stage
+    A checkpoint are phase 15's and 16b's start), removed afterwards."""
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         training = training_on_card(dev, counters, card, work)
         d = training["14c driver"]
         stage_b = stage_b_on_card(dev, counters, card, work, d["stage_a"],
                                   d["devkit"])
+        phase("16b the MVRD stills through the drivers: the loader's host ms "
+              "a still (JPEG decode + resize), then test_det on MVRD_test at "
+              "full width from 14c's checkpoint")
+        mvrd = mvrd_eval_on_card(counters, card, work, d["stage_a"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return training, stage_b
+    return training, stage_b, mvrd
+
+
+# ----------------------------------------------------------------------------
+# phase 16: JPEG decode (``csrc/jpeg.cc`` through ``data/jpeg.py``, built
+# with the host compiler) on the committed fixtures, and the MVRD stills
+# through the drivers
+
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg")
+# the VRD-sized stills of the fixtures (H x W: 768x1024 and 1024x768),
+# copied under MVRD index names, and the video frame timed beside them
+MVRD_STILLS = ("still_768x1024", "still_1024x768")
+TIMED_JPEGS = MVRD_STILLS + ("frame_360x640_a",)
+MVRD_IMAGES = 8
+DECODE_REPS = 7
+# 16b: test_det on MVRD_test (the source domain's test split)
+MVRD_EVAL_BS = 4
+MVRD_EVAL_ARGS = ["--dataset", "MVRD", "--net", "res101", "--ic", "--gc",
+                  "--bs", str(MVRD_EVAL_BS)]
+
+
+def jpeg_manifest() -> dict:
+    """``tests/data/jpeg/MANIFEST.json``: each fixture's set (coverage,
+    realistic, refused), its golden and shape, or the mode it is refused
+    for (``tests/make_jpeg_fixtures.py`` writes them)."""
+    with open(os.path.join(JPEG_DIR, "MANIFEST.json")) as fh:
+        return json.load(fh)
+
+
+def write_mvrd_devkit(root: str, seed: int = 0) -> dict:
+    """An MVRD devkit under ``root`` in ``write_devkit``'s layout:
+    ``MVRD_IMAGES`` stills ``img<i>.jpg``, copies of ``MVRD_STILLS`` in
+    turn, 2-4 seeded boxes each with their VOC XML, the test/val/trainval
+    split files, and a relation pickle {index: [(s, p, o)]} (Stage B's
+    ``--source_gt_rels_path``). Returns that pickle's path as
+    ``mvrd_gt_rels``."""
+    from i2vsgg_tpu_torch.data.voc import VRD_CLASSES
+    manifest = jpeg_manifest()
+    rs = np.random.RandomState(seed)
+    base = os.path.join(root, "MVRD")
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    names, gt_rels = [], {}
+    for i in range(MVRD_IMAGES):
+        still = MVRD_STILLS[i % len(MVRD_STILLS)]
+        h, w = manifest[still]["shape"][:2]
+        index = f"img{i:03d}"
+        shutil.copyfile(os.path.join(JPEG_DIR, still + ".jpg"),
+                        os.path.join(base, "JPEGImages", index + ".jpg"))
+        xml = ["<annotation>", f"<size><width>{w}</width><height>{h}"
+               "</height><depth>3</depth></size>"]
+        n_obj = rs.randint(2, 5)
+        for _ in range(n_obj):
+            bh, bw = rs.randint(h // 8, h // 2), rs.randint(w // 8, w // 2)
+            y1, x1 = rs.randint(0, h - bh), rs.randint(0, w - bw)
+            box = (x1, y1, x1 + bw - 1, y1 + bh - 1)
+            xml += ["<object>", "<name>"
+                    f"{VRD_CLASSES[rs.randint(1, len(VRD_CLASSES))]}</name>",
+                    "<difficult>0</difficult>", "<bndbox>"]
+            xml += [f"<{k}>{c + 1}</{k}>" for k, c in
+                    zip(("xmin", "ymin", "xmax", "ymax"), box)]
+            xml += ["</bndbox>", "</object>"]
+        xml.append("</annotation>")
+        with open(os.path.join(base, "Annotations", index + ".xml"),
+                  "w") as fh:
+            fh.write("\n".join(xml))
+        pairs = [(a, b) for a in range(n_obj) for b in range(n_obj) if a != b]
+        gt_rels[index] = [(int(a), int(rs.randint(FULL["num_rel"])), int(b))
+                          for a, b in (pairs[k] for k in rs.permutation(
+                              len(pairs))[:3])]
+        names.append(index)
+    for split in ("test", "val", "trainval"):
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"),
+                  "w") as fh:
+            fh.write("\n".join(names) + "\n")
+    path = os.path.join(base, "source_gt_rels.pkl")
+    with open(path, "wb") as fh:
+        pickle.dump(gt_rels, fh)
+    return {"mvrd_gt_rels": path}
+
+
+def host_ms(fn, reps: int = DECODE_REPS) -> dict:
+    """Host wall ms of ``fn()`` over ``reps`` calls: median, least and
+    most."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    return {"median": float(np.median(times)), "min": min(times),
+            "max": max(times)}
+
+
+def jpeg_fixtures_on_host(card: str) -> dict:
+    """16a: build the JPEG decoder (cold in a fresh checkout), hold every
+    committed fixture of ``tests/data/jpeg`` bit-equal to its golden (the
+    PNG of cv2.imread's output, read with the port's PNG decoder), show
+    that each refused fixture raises ``UnsupportedImageError`` naming its
+    mode, and time the decode of ``TIMED_JPEGS`` beside the PNG decode of
+    the same pixels (their goldens), each the median of ``DECODE_REPS``
+    calls. Host times of the machine of ``card``."""
+    from i2vsgg_tpu_torch.data import jpeg
+    from i2vsgg_tpu_torch.data.image_io import (UnsupportedImageError,
+                                                imread_bgr)
+    from i2vsgg_tpu_torch.utils import cuda_build
+    lib = cuda_build.library_path(jpeg.SOURCE, cuda_build.HOST_FLAGS,
+                                  cuda_build.find_cxx())
+    rec = {"cold": not lib.exists()}
+    t = time.time()
+    cuda_build.build_host(jpeg.SOURCE)
+    rec["build_s"] = time.time() - t
+    manifest = jpeg_manifest()
+    held, refused = [], []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(JPEG_DIR, name + ".jpg")
+        if entry["set"] == "refused":
+            try:
+                imread_bgr(path)
+            except UnsupportedImageError as e:
+                if entry["mode"] not in str(e):
+                    raise AssertionError(f"16a {name}: refused as {e}, not "
+                                         f"as {entry['mode']}")
+                refused.append(name)
+                continue
+            raise AssertionError(f"16a {name} decoded: a {entry['mode']} "
+                                 "JPEG must raise UnsupportedImageError")
+        golden = imread_bgr(os.path.join(JPEG_DIR, entry["golden"]))
+        got = imread_bgr(path)
+        if (list(got.shape) != entry["shape"]
+                or not np.array_equal(got, golden)):
+            raise AssertionError(f"16a {name}: decoded != its golden "
+                                 f"({got.shape}, {entry['shape']})")
+        held.append(name)
+    rec.update(held=len(held), refused=refused)
+    rec["decode_ms"] = {}
+    for name in TIMED_JPEGS:
+        jpg = os.path.join(JPEG_DIR, name + ".jpg")
+        png = os.path.join(JPEG_DIR, manifest[name]["golden"])
+        rec["decode_ms"][name] = {
+            "shape": manifest[name]["shape"],
+            "jpeg_bytes": os.path.getsize(jpg),
+            "jpeg_decode_ms": host_ms(lambda: imread_bgr(jpg)),
+            "png_decode_ms": host_ms(lambda: imread_bgr(png))}
+    log(f"16a: decoder built in {rec['build_s']:.2f} s (cold: "
+        f"{rec['cold']}); {len(held)} fixtures bit-equal to their goldens, "
+        f"{len(refused)} refused ({', '.join(refused)}); host decode ms "
+        "(median of 7) JPEG / PNG of the same pixels: " + "; ".join(
+            f"{n} {r['jpeg_decode_ms']['median']:.2f} / "
+            f"{r['png_decode_ms']['median']:.2f}"
+            for n, r in rec["decode_ms"].items())
+        + f" (host CPU of the machine of {card})")
+    return rec
+
+
+def mvrd_eval_on_card(counters, card: str, work: str, stage_a: str) -> dict:
+    """16b: the MVRD stills that 14c trained on (``write_mvrd_devkit``
+    under ``work``) as the drivers read them: the loader's host ms a still
+    (``imread_bgr`` + ``prep_image`` at TEST scale 600, as
+    ``DetectionLoader`` calls them), then ``test_det`` on ``MVRD_test`` at
+    full width (``MVRD_EVAL_ARGS``) from 14c's Stage A checkpoint
+    ``stage_a``, whose files must parse; its RoIAlign launches (2 a batch:
+    the det subgrid and the ic context) are counted."""
+    from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import prep_image
+    from i2vsgg_tpu_torch.data.roidb import combined_roidb
+    from i2vsgg_tpu_torch.tools import test_det
+    from i2vsgg_tpu_torch.tools.common import config_from_args
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    rec = {}
+    try:
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+        cfg = config_from_args(set_dataset_args(parse_args(MVRD_EVAL_ARGS),
+                                                test=True))
+        _, roidb, _, _ = combined_roidb("MVRD_test", training=False,
+                                        use_flipped=False)
+        decode, resize = [], []
+        for entry in roidb:
+            t = time.perf_counter()
+            im = imread_bgr(entry["image"])
+            t_r = time.perf_counter()
+            prep_image(im, cfg.TEST.SCALES[0], cfg.PIXEL_MEANS)
+            decode.append(1e3 * (t_r - t))
+            resize.append(1e3 * (time.perf_counter() - t_r))
+        loader_ms = [d + r for d, r in zip(decode, resize)]
+        rec["loader_ms_per_still"] = {
+            "median": float(np.median(loader_ms)), "min": min(loader_ms),
+            "max": max(loader_ms), "decode_median": float(np.median(decode)),
+            "resize_median": float(np.median(resize))}
+        out = os.path.join(work, "out_mvrd")
+        counters.reset()
+        t = time.time()
+        aps = test_det.main(MVRD_EVAL_ARGS + ["--load_name", stage_a,
+                                              "--save_dir", out])
+        rec["test_det_s"] = time.time() - t
+        launched = counters.read()
+        batches = -(-len(roidb) // MVRD_EVAL_BS)
+        if launched != dict(NO_LAUNCHES, roi_align=2 * batches):
+            raise AssertionError(f"16b test_det launches {launched}")
+        ev = os.path.join(out, "eval", "MVRD_test")
+        with open(os.path.join(ev, "detections.pkl"), "rb") as fh:
+            dets = pickle.load(fh)
+        if len(dets) != 16 or any(len(c) != len(roidb) for c in dets):
+            raise AssertionError("16b detections.pkl: not 16 classes x "
+                                 f"{len(roidb)} stills")
+        results = [f for f in os.listdir(os.path.join(ev, "adapt"))
+                   if f.startswith("det_test_")]
+        if len(results) != 15:
+            raise AssertionError(f"16b test_det wrote {len(results)} files")
+        rec.update(stills=len(roidb), test_det_mAP=float(aps["mAP"]),
+                   test_det_launches={k: v for k, v in launched.items()
+                                      if v})
+        r = rec["loader_ms_per_still"]
+        log(f"16b: loader host ms a still (decode + resize to "
+            f"{cfg.TEST.SCALES[0]} rows), "
+            f"median {r['median']:.2f} (decode {r['decode_median']:.2f}, "
+            f"resize {r['resize_median']:.2f}) over {len(roidb)} stills; "
+            f"test_det on MVRD_test in {rec['test_det_s']:.1f} s, mAP "
+            f"{rec['test_det_mAP']:.4f} (trained 5 steps from random "
+            f"weights: printed, not held), launches "
+            f"{rec['test_det_launches']} [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
 
 
 # ----------------------------------------------------------------------------
@@ -3915,10 +4173,16 @@ def main() -> int:
                           imgs_s, info_s)
 
     drivers = drivers_on_card(dev, counters, card)
-    training, stage_b = training_phases(dev, counters, card)
+    phase("16a JPEG decode: the decoder built with the host compiler, every "
+          "committed fixture held to its golden, the refused ones refused, "
+          "decode times beside PNG (16b runs after phase 15)")
+    jpeg_rec = {"16a fixtures": jpeg_fixtures_on_host(card)}
+    training, stage_b, jpeg_rec["16b mvrd"] = training_phases(dev, counters,
+                                                              card)
 
-    phase("16 results")
-    print(json.dumps({"training": training, "stage_b": stage_b, "serving": {
+    phase("17 results")
+    print(json.dumps({"training": training, "stage_b": stage_b,
+                      "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
         "buckets": [o["bucket"] for o in bk_outs],

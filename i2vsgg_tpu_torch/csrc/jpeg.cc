@@ -1,0 +1,1025 @@
+// Baseline JPEG decoder of the port, bit-equal to libjpeg-turbo's default
+// decode as cv2.imread(path, cv2.IMREAD_COLOR) runs it: Huffman entropy
+// decoding, the integer "islow" IDCT (jidctint.c), "fancy" chroma upsampling
+// (jdsample.c, with jdmainct.c's edge rows) and the fixed-point YCbCr to BGR
+// conversion (jdcolor.c). Host-only C++17 with a plain C API, loaded with
+// ctypes by i2vsgg_tpu_torch/data/jpeg.py:
+//
+//   int i2v_jpeg_info(data, n, &h, &w, &ncomp, err, errlen)
+//   int i2v_jpeg_decode(data, n, out, capacity, err, errlen)
+//
+// Each returns 0, or an error code with a message in err: 1 a mode this
+// decoder does not read (progressive, lossless, arithmetic coding, 12-bit
+// samples, four components, colour components in separate scans), 2 a
+// corrupt or truncated file, 3 a bad argument. `out` receives BGR uint8
+// (h, w, 3). The decoder keeps no state between calls, never longjmps and
+// bounds-checks every read of the input. Where libjpeg-turbo warns and
+// fills a corrupt stream with grey, this decoder refuses it.
+//
+// Read: sequential Huffman, 8-bit (SOF0, SOF1); one component (grey,
+// replicated to B, G and R) or three (YCbCr, or RGB where an Adobe APP14
+// transform of 0 or the component ids 'R', 'G', 'B' say so, as jdapimin.c
+// decides); any integral sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...);
+// DRI/RSTn restart intervals; 8- and 16-bit quantization tables; scans
+// without DHT take the standard tables of Annex K (jstdhuff.c).
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <new>
+#include <string>
+#include <vector>
+
+namespace {
+
+enum Code { kOk = 0, kUnsupported = 1, kCorrupt = 2, kArgument = 3 };
+
+struct Failure {
+  int code;
+  std::string what;
+};
+
+[[noreturn]] void fail(int code, const std::string& what) {
+  throw Failure{code, what};
+}
+
+[[noreturn]] void corrupt(const std::string& what) { fail(kCorrupt, what); }
+
+// zigzag position -> natural (row-major) position
+const int kNaturalOrder[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// Annex K's tables (jstdhuff.c): counts of codes of length 1-16, symbols
+const uint8_t kBitsDcLum[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kBitsDcChr[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kValDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kBitsAcLum[16] = {0, 2, 1, 3, 3, 2, 4, 3,
+                                5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kValAcLum[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kBitsAcChr[16] = {0, 2, 1, 2, 4, 4, 3, 4,
+                                7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kValAcChr[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+constexpr int kMaxDimension = 65500;          // JPEG_MAX_DIMENSION
+constexpr int kMaxBlocksInMcu = 10;           // D_MAX_BLOCKS_IN_MCU
+constexpr int kLookBits = 9;                  // Huffman lookahead
+
+struct HuffTable {
+  bool defined = false;
+  uint8_t bits[16] = {};                      // codes of each length 1-16
+  uint8_t vals[256] = {};
+};
+
+// jdhuff.c's derived table, plus a lookahead table for short codes
+struct Decoder {
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t vals[256];
+  uint16_t look[1 << kLookBits];              // (length << 8) | symbol, 0 if longer
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dw = 0, dh = 0;                         // downsampled width, height
+  int bw = 0, bh = 0;                         // blocks of a non-interleaved scan
+  int stride = 0, rows = 0;                   // plane size, MCU-padded
+  int16_t qt[64] = {};                        // natural order, as libjpeg's short
+  std::vector<uint8_t> plane;
+};
+
+struct Image {
+  int width = 0, height = 0, precision = 0;
+  int ncomp = 0, hmax = 1, vmax = 1;
+  int mcux = 0, mcuy = 0;                     // MCUs of an interleaved scan
+  Component comp[3];
+  bool jfif = false, adobe = false;
+  int adobe_transform = 0;
+  bool rgb = false;                           // three components, not YCbCr
+};
+
+struct State {
+  State(const uint8_t* data, size_t size) : d(data), n(size) {}
+  const uint8_t* d;
+  size_t n;
+  size_t pos = 0;
+  uint16_t qt[4][64] = {};
+  bool qt_defined[4] = {false, false, false, false};
+  HuffTable dc[4], ac[4];
+  int restart_interval = 0;
+  Image im;
+  bool frame = false;
+};
+
+int be16(const State& s, size_t at) {
+  if (at + 2 > s.n) corrupt("truncated marker segment");
+  return (s.d[at] << 8) | s.d[at + 1];
+}
+
+// ----------------------------------------------------------------------------
+// markers
+
+// the next marker at or after pos, as jdmarker.c's next_marker: garbage
+// bytes and FF/00 pairs skipped, FF fill bytes swallowed; pos moves past
+// it. Returns -1 at the end of the data.
+int next_marker(const uint8_t* d, size_t n, size_t* pos) {
+  size_t p = *pos;
+  for (;;) {
+    while (p < n && d[p] != 0xFF) p++;
+    while (p < n && d[p] == 0xFF) p++;
+    if (p >= n) {
+      *pos = n;
+      return -1;
+    }
+    int m = d[p++];
+    if (m != 0) {
+      *pos = p;
+      return m;
+    }
+  }
+}
+
+int next_marker(State& s) { return next_marker(s.d, s.n, &s.pos); }
+
+// a segment's payload [start, end); s.pos moves past it
+void segment(State& s, size_t* start, size_t* end) {
+  int len = be16(s, s.pos);
+  if (len < 2) corrupt("marker segment shorter than its length field");
+  if (s.pos + len > s.n) corrupt("truncated marker segment");
+  *start = s.pos + 2;
+  *end = s.pos + len;
+  s.pos += len;
+}
+
+void read_dqt(State& s) {
+  size_t p, end;
+  segment(s, &p, &end);
+  while (p < end) {
+    int pq = s.d[p] >> 4, tq = s.d[p] & 15;
+    p++;
+    if (tq >= 4) corrupt("quantization table index " + std::to_string(tq));
+    if (pq > 1) corrupt("quantization table precision " + std::to_string(pq));
+    size_t need = pq ? 128 : 64;
+    if (p + need > end) corrupt("truncated quantization table");
+    for (int i = 0; i < 64; i++) {
+      int v = pq ? (s.d[p + 2 * i] << 8) | s.d[p + 2 * i + 1] : s.d[p + i];
+      s.qt[tq][kNaturalOrder[i]] = static_cast<uint16_t>(v);
+    }
+    s.qt_defined[tq] = true;
+    p += need;
+  }
+}
+
+void read_dht(State& s) {
+  size_t p, end;
+  segment(s, &p, &end);
+  while (p < end) {
+    if (p + 17 > end) corrupt("truncated Huffman table");
+    int tc = s.d[p] >> 4, th = s.d[p] & 15;
+    if (tc > 1 || th >= 4)
+      corrupt("Huffman table class/index " + std::to_string(s.d[p]));
+    HuffTable& t = tc ? s.ac[th] : s.dc[th];
+    int count = 0;
+    for (int i = 0; i < 16; i++) {
+      t.bits[i] = s.d[p + 1 + i];
+      count += t.bits[i];
+    }
+    p += 17;
+    if (count > 256 || p + count > end) corrupt("bad Huffman table");
+    std::memset(t.vals, 0, sizeof(t.vals));
+    std::memcpy(t.vals, s.d + p, count);
+    t.defined = true;
+    p += count;
+  }
+}
+
+void read_dri(State& s) {
+  size_t p, end;
+  segment(s, &p, &end);
+  if (end - p != 2) corrupt("DRI segment of the wrong length");
+  s.restart_interval = (s.d[p] << 8) | s.d[p + 1];
+}
+
+// APP0 (JFIF) and APP14 (Adobe), as jdmarker.c's examine_app0/app14 read
+// them: the first 14 bytes at most
+void read_app(State& s, int marker) {
+  size_t p, end;
+  segment(s, &p, &end);
+  size_t len = end - p;
+  const uint8_t* b = s.d + p;
+  if (marker == 0xE0 && len >= 14 && b[0] == 'J' && b[1] == 'F' &&
+      b[2] == 'I' && b[3] == 'F' && b[4] == 0)
+    s.im.jfif = true;
+  if (marker == 0xEE && len >= 12 && b[0] == 'A' && b[1] == 'd' &&
+      b[2] == 'o' && b[3] == 'b' && b[4] == 'e') {
+    s.im.adobe = true;
+    s.im.adobe_transform = b[11];
+  }
+}
+
+int div_up(long a, long b) { return static_cast<int>((a + b - 1) / b); }
+
+void read_sof(State& s, int marker) {
+  if (s.frame) corrupt("more than one start-of-frame marker");
+  size_t p, end;
+  segment(s, &p, &end);
+  if (end - p < 6) corrupt("truncated start-of-frame segment");
+  Image& im = s.im;
+  im.precision = s.d[p];
+  im.height = (s.d[p + 1] << 8) | s.d[p + 2];
+  im.width = (s.d[p + 3] << 8) | s.d[p + 4];
+  im.ncomp = s.d[p + 5];
+  if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
+    fail(kUnsupported, "progressive JPEG (SOF" +
+                           std::to_string(marker - 0xC0) +
+                           "); the decoder reads sequential JPEG only");
+  if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
+    fail(kUnsupported, "lossless JPEG (SOF" + std::to_string(marker - 0xC0) +
+                           "); the decoder reads sequential DCT JPEG only");
+  if (marker >= 0xC8)
+    fail(kUnsupported, "arithmetic-coded JPEG (SOF" +
+                           std::to_string(marker - 0xC0) +
+                           "); the decoder reads Huffman coding only");
+  if (marker == 0xC5)
+    fail(kUnsupported, "hierarchical (differential) JPEG (SOF5)");
+  if (im.precision != 8)
+    fail(kUnsupported, std::to_string(im.precision) +
+                           "-bit samples; the decoder reads 8-bit JPEG only");
+  if (im.ncomp == 4)
+    fail(kUnsupported, "four components (CMYK or YCCK); the decoder reads "
+                       "grey and three-component JPEG only");
+  if (im.ncomp != 1 && im.ncomp != 3)
+    fail(kUnsupported, std::to_string(im.ncomp) + " components; the decoder "
+                       "reads grey and three-component JPEG only");
+  if (end - p != static_cast<size_t>(6 + 3 * im.ncomp))
+    corrupt("start-of-frame segment of the wrong length");
+  if (im.width <= 0 || im.height <= 0)
+    corrupt("empty image (height or width 0)");
+  if (im.width > kMaxDimension || im.height > kMaxDimension)
+    corrupt("image larger than 65500 pixels a side");
+  for (int c = 0; c < im.ncomp; c++) {
+    Component& k = im.comp[c];
+    const uint8_t* b = s.d + p + 6 + 3 * c;
+    k.id = b[0];
+    k.h = b[1] >> 4;
+    k.v = b[1] & 15;
+    k.tq = b[2];
+    if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4)
+      corrupt("sampling factors out of 1-4");
+    if (k.tq >= 4) corrupt("quantization table index out of 0-3");
+    for (int o = 0; o < c; o++)
+      if (im.comp[o].id == k.id) corrupt("duplicate component id");
+    if (k.h > im.hmax) im.hmax = k.h;
+    if (k.v > im.vmax) im.vmax = k.v;
+  }
+  im.mcux = div_up(im.width, 8L * im.hmax);
+  im.mcuy = div_up(im.height, 8L * im.vmax);
+  for (int c = 0; c < im.ncomp; c++) {
+    Component& k = im.comp[c];
+    k.dw = div_up(static_cast<long>(im.width) * k.h, im.hmax);
+    k.dh = div_up(static_cast<long>(im.height) * k.v, im.vmax);
+    k.bw = div_up(static_cast<long>(im.width) * k.h, 8L * im.hmax);
+    k.bh = div_up(static_cast<long>(im.height) * k.v, 8L * im.vmax);
+    k.stride = im.mcux * k.h * 8;
+    k.rows = im.mcuy * k.v * 8;
+    // upsampling needs integral ratios (jdsample.c's jinit_upsampler)
+    if (im.hmax % k.h || im.vmax % k.v)
+      fail(kUnsupported, "fractional sampling ratios (component " +
+                             std::to_string(c) + ")");
+  }
+  if (im.ncomp == 3) {
+    // jdapimin.c's default_decompress_parms
+    if (im.jfif) {
+      im.rgb = false;
+    } else if (im.adobe) {
+      im.rgb = im.adobe_transform == 0;
+    } else {
+      im.rgb = im.comp[0].id == 'R' && im.comp[1].id == 'G' &&
+               im.comp[2].id == 'B';
+    }
+  }
+  s.frame = true;
+}
+
+// ----------------------------------------------------------------------------
+// entropy decoding
+
+void derive(const HuffTable& t, bool dc, Decoder* out) {
+  // jdhuff.c's jpeg_make_d_derived_tbl
+  uint8_t size[257];
+  uint32_t code_of[256];
+  int p = 0;
+  for (int l = 1; l <= 16; l++) {
+    int i = t.bits[l - 1];
+    if (p + i > 256) corrupt("bad Huffman table");
+    while (i--) size[p++] = static_cast<uint8_t>(l);
+  }
+  size[p] = 0;
+  int nsym = p;
+  uint32_t code = 0;
+  int si = size[0];
+  p = 0;
+  while (size[p]) {
+    while (size[p] == si) {
+      code_of[p++] = code;
+      code++;
+    }
+    if (code >= (1u << si)) corrupt("bad Huffman table");
+    code <<= 1;
+    si++;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; l++) {
+    if (t.bits[l - 1]) {
+      out->valoffset[l] = p - static_cast<int32_t>(code_of[p]);
+      p += t.bits[l - 1];
+      out->maxcode[l] = static_cast<int32_t>(code_of[p - 1]);
+    } else {
+      out->maxcode[l] = -1;
+    }
+  }
+  out->valoffset[17] = 0;
+  out->maxcode[17] = 0xFFFFF;
+  std::memcpy(out->vals, t.vals, sizeof(out->vals));
+  std::memset(out->look, 0, sizeof(out->look));
+  p = 0;
+  for (int l = 1; l <= kLookBits; l++) {
+    for (int i = 0; i < t.bits[l - 1]; i++, p++) {
+      uint32_t lo = code_of[p] << (kLookBits - l);
+      for (uint32_t k = 0; k < (1u << (kLookBits - l)); k++)
+        out->look[lo + k] = static_cast<uint16_t>((l << 8) | t.vals[p]);
+    }
+  }
+  if (dc)
+    for (int i = 0; i < nsym; i++)
+      if (t.vals[i] > 15) corrupt("bad Huffman table (DC symbol above 15)");
+}
+
+// Bits of the entropy-coded segment, byte stuffing removed. At a marker or
+// the end of the data it feeds zero bits, as libjpeg does, but counts
+// them: a read that reaches them is a truncated or corrupt stream.
+struct Bits {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  uint64_t acc = 0;                           // left-aligned
+  int count = 0;                              // bits in acc
+  int fake = 0;                               // zero bits fed past the data
+  bool stopped = false;                       // at a marker or the end
+
+  void fill() {
+    while (count <= 56) {
+      uint32_t byte = 0;
+      if (stopped) {
+        fake += 8;
+      } else if (pos >= n) {
+        stopped = true;
+        fake += 8;
+      } else if (d[pos] != 0xFF) {
+        byte = d[pos++];
+      } else {
+        size_t q = pos + 1;
+        while (q < n && d[q] == 0xFF) q++;    // FF FF ... 00 is one FF byte
+        if (q < n && d[q] == 0) {
+          byte = 0xFF;
+          pos = q + 1;
+        } else {
+          stopped = true;                     // a marker: pos stays on it
+          fake += 8;
+        }
+      }
+      acc |= static_cast<uint64_t>(byte) << (56 - count);
+      count += 8;
+    }
+  }
+  void check() const {
+    if (count < fake)
+      corrupt("entropy-coded data ends before the image does (truncated "
+              "or corrupt JPEG)");
+  }
+  uint32_t peek(int k) {
+    if (count < k) fill();
+    return static_cast<uint32_t>(acc >> (64 - k));
+  }
+  void skip(int k) {
+    acc <<= k;
+    count -= k;
+    check();
+  }
+  uint32_t get(int k) {
+    if (k == 0) return 0;
+    uint32_t v = peek(k);
+    skip(k);
+    return v;
+  }
+  // start over at a byte boundary at pos (after a restart marker)
+  void reset(size_t at) {
+    pos = at;
+    acc = 0;
+    count = fake = 0;
+    stopped = false;
+  }
+};
+
+int decode_symbol(Bits& b, const Decoder& t) {
+  uint32_t look = t.look[b.peek(kLookBits)];
+  if (look) {
+    b.skip(look >> 8);
+    return look & 0xFF;
+  }
+  // longer codes: jdhuff.c's jpeg_huff_decode from length kLookBits + 1
+  uint32_t bits16 = b.peek(16);
+  int l = kLookBits + 1;
+  int32_t code = static_cast<int32_t>(bits16 >> (16 - l));
+  while (code > t.maxcode[l]) {
+    if (++l > 16) corrupt("bad Huffman code (corrupt JPEG data)");
+    code = static_cast<int32_t>(bits16 >> (16 - l));
+  }
+  b.skip(l);
+  return t.vals[(code + t.valoffset[l]) & 0xFF];
+}
+
+inline int extend(uint32_t r, int s) {
+  // HUFF_EXTEND
+  return r < (1u << (s - 1)) ? static_cast<int>(r) + ((-1) * (1 << s)) + 1
+                             : static_cast<int>(r);
+}
+
+// jidctint.c's jpeg_idct_islow, with its range limit (and & RANGE_MASK)
+inline uint8_t range_limit(int x) {
+  int v = x & 1023;
+  if (v < 128) return static_cast<uint8_t>(v + 128);
+  if (v < 512) return 255;
+  if (v < 896) return 0;
+  return static_cast<uint8_t>(v - 896);
+}
+
+void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out,
+                int stride) {
+  constexpr int kConstBits = 13, kPass1Bits = 2;
+  constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433,
+                    F0_765 = 6270, F0_899 = 7373, F1_175 = 9633,
+                    F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
+                    F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+  auto descale = [](int64_t x, int n) {
+    return (x + (static_cast<int64_t>(1) << (n - 1))) >> n;
+  };
+  auto lshift = [](int64_t x, int n) {
+    return static_cast<int64_t>(static_cast<uint64_t>(x) << n);
+  };
+  int ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int16_t* in = coef + c;
+    const int16_t* qp = q + c;
+    auto deq = [&](int r) {
+      return static_cast<int64_t>(static_cast<int>(in[8 * r]) *
+                                  static_cast<int>(qp[8 * r]));
+    };
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 &&
+        in[40] == 0 && in[48] == 0 && in[56] == 0) {
+      int dc = static_cast<int>(lshift(deq(0), kPass1Bits));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
+      continue;
+    }
+    int64_t z2 = deq(2), z3 = deq(6);
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847;
+    int64_t tmp3 = z1 + z2 * F0_765;
+    z2 = deq(0);
+    z3 = deq(4);
+    int64_t tmp0 = lshift(z2 + z3, kConstBits);
+    int64_t tmp1 = lshift(z2 - z3, kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = deq(7);
+    tmp1 = deq(5);
+    tmp2 = deq(3);
+    tmp3 = deq(1);
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int sh = kConstBits - kPass1Bits;
+    ws[8 * 0 + c] = static_cast<int>(descale(tmp10 + tmp3, sh));
+    ws[8 * 7 + c] = static_cast<int>(descale(tmp10 - tmp3, sh));
+    ws[8 * 1 + c] = static_cast<int>(descale(tmp11 + tmp2, sh));
+    ws[8 * 6 + c] = static_cast<int>(descale(tmp11 - tmp2, sh));
+    ws[8 * 2 + c] = static_cast<int>(descale(tmp12 + tmp1, sh));
+    ws[8 * 5 + c] = static_cast<int>(descale(tmp12 - tmp1, sh));
+    ws[8 * 3 + c] = static_cast<int>(descale(tmp13 + tmp0, sh));
+    ws[8 * 4 + c] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  }
+  for (int r = 0; r < 8; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + static_cast<size_t>(r) * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
+        w[6] == 0 && w[7] == 0) {
+      uint8_t dc = range_limit(
+          static_cast<int>(descale(static_cast<int64_t>(w[0]),
+                                   kPass1Bits + 3)));
+      for (int c = 0; c < 8; c++) o[c] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * F0_541;
+    int64_t tmp2 = z1 + z3 * -F1_847;
+    int64_t tmp3 = z1 + z2 * F0_765;
+    int64_t tmp0 = lshift(static_cast<int64_t>(w[0]) + w[4], kConstBits);
+    int64_t tmp1 = lshift(static_cast<int64_t>(w[0]) - w[4], kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int sh = kConstBits + kPass1Bits + 3;
+    o[0] = range_limit(static_cast<int>(descale(tmp10 + tmp3, sh)));
+    o[7] = range_limit(static_cast<int>(descale(tmp10 - tmp3, sh)));
+    o[1] = range_limit(static_cast<int>(descale(tmp11 + tmp2, sh)));
+    o[6] = range_limit(static_cast<int>(descale(tmp11 - tmp2, sh)));
+    o[2] = range_limit(static_cast<int>(descale(tmp12 + tmp1, sh)));
+    o[5] = range_limit(static_cast<int>(descale(tmp12 - tmp1, sh)));
+    o[3] = range_limit(static_cast<int>(descale(tmp13 + tmp0, sh)));
+    o[4] = range_limit(static_cast<int>(descale(tmp13 - tmp0, sh)));
+  }
+}
+
+struct ScanComponent {
+  Component* k;
+  Decoder dc, ac;
+  uint32_t pred = 0;                          // libjpeg's int last_dc_val
+};
+
+// one block of a component: its coefficients decoded, dequantized and
+// inverse-transformed into the component's plane at block (bx, by)
+void decode_block(Bits& b, ScanComponent& sc, int bx, int by) {
+  int16_t coef[64] = {};
+  int s = decode_symbol(b, sc.dc);
+  int diff = s ? extend(b.get(s), s) : 0;
+  sc.pred += static_cast<uint32_t>(diff);
+  coef[0] = static_cast<int16_t>(sc.pred);      // (JCOEF)s
+  for (int k = 1; k < 64; k++) {
+    int rs = decode_symbol(b, sc.ac);
+    int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      if (k > 63) corrupt("AC coefficients run past the block");
+      coef[kNaturalOrder[k]] =
+          static_cast<int16_t>(extend(b.get(s), s));
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+  Component& c = *sc.k;
+  idct_islow(coef, c.qt,
+             c.plane.data() + static_cast<size_t>(by) * 8 * c.stride + bx * 8,
+             c.stride);
+}
+
+struct Scan {
+  int ns = 0;
+  ScanComponent sc[4];
+  size_t data = 0;                            // first byte of entropy data
+};
+
+void build_table(const HuffTable* tables, int index, bool dc,
+                 Decoder* out) {
+  if (index >= 4) corrupt("Huffman table index out of 0-3");
+  const HuffTable* t = &tables[index];
+  HuffTable std_table;
+  if (!t->defined) {
+    if (index > 1) corrupt("scan uses an undefined Huffman table");
+    const uint8_t* bits =
+        dc ? (index ? kBitsDcChr : kBitsDcLum) : (index ? kBitsAcChr
+                                                        : kBitsAcLum);
+    const uint8_t* vals = dc ? kValDc : (index ? kValAcChr : kValAcLum);
+    int count = 0;
+    for (int i = 0; i < 16; i++) {
+      std_table.bits[i] = bits[i];
+      count += bits[i];
+    }
+    std::memcpy(std_table.vals, vals, count);
+    t = &std_table;
+  }
+  derive(*t, dc, out);
+}
+
+// SOS header: the components of the scan, their tables; entropy data next
+void read_sos(State& s, Scan* scan) {
+  if (!s.frame) corrupt("scan before the start-of-frame marker");
+  size_t p, end;
+  segment(s, &p, &end);
+  if (end - p < 1) corrupt("truncated scan header");
+  int ns = s.d[p];
+  if (ns < 1 || ns > 4 || end - p != static_cast<size_t>(4 + 2 * ns))
+    corrupt("bad scan header");
+  Image& im = s.im;
+  if (im.ncomp > 1 && ns != im.ncomp)
+    fail(kUnsupported, "a colour JPEG whose components come in separate "
+                       "scans; the decoder reads interleaved colour scans "
+                       "only");
+  scan->ns = ns;
+  int blocks = 0;
+  for (int i = 0; i < ns; i++) {
+    int id = s.d[p + 1 + 2 * i], tables = s.d[p + 2 + 2 * i];
+    Component* k = nullptr;
+    for (int c = 0; c < im.ncomp; c++)
+      if (im.comp[c].id == id) k = &im.comp[c];
+    if (!k) corrupt("scan names a component the frame does not have");
+    for (int o = 0; o < i; o++)
+      if (scan->sc[o].k == k) corrupt("scan names a component twice");
+    ScanComponent& sc = scan->sc[i];
+    sc.k = k;
+    sc.pred = 0;
+    build_table(s.dc, tables >> 4, true, &sc.dc);
+    build_table(s.ac, tables & 15, false, &sc.ac);
+    blocks += ns > 1 ? k->h * k->v : 1;
+  }
+  if (blocks > kMaxBlocksInMcu) corrupt("more than 10 blocks in an MCU");
+  // Ss, Se, Ah/Al: libjpeg warns and decodes sequentially whatever they say
+  scan->data = s.pos;
+}
+
+// upper bound check before any plane is allocated: every block costs at
+// least two bits (a DC code and an AC code), so the entropy data must hold
+// at least blocks / 4 bytes
+void check_plausible(const State& s, const Scan& scan) {
+  const Image& im = s.im;
+  uint64_t blocks = 0;
+  for (int i = 0; i < scan.ns; i++) {
+    const Component& k = *scan.sc[i].k;
+    blocks += scan.ns > 1 ? static_cast<uint64_t>(im.mcux) * im.mcuy * k.h * k.v
+                          : static_cast<uint64_t>(k.bw) * k.bh;
+  }
+  if (blocks > 4 * static_cast<uint64_t>(s.n - scan.data))
+    corrupt("the entropy-coded data is too short for the image size "
+            "(truncated JPEG)");
+}
+
+void decode_scan(State& s, Scan& scan) {
+  Image& im = s.im;
+  for (int i = 0; i < scan.ns; i++) {
+    Component& k = *scan.sc[i].k;
+    // the scan's tables as libjpeg latches them at its start
+    if (!s.qt_defined[k.tq]) corrupt("undefined quantization table");
+    for (int j = 0; j < 64; j++)
+      k.qt[j] = static_cast<int16_t>(s.qt[k.tq][j]);   // ISLOW_MULT_TYPE
+    k.plane.assign(static_cast<size_t>(k.stride) * k.rows, 0);
+  }
+  Bits b{s.d, s.n, scan.data};
+  long mcus_x, mcus_y;
+  if (scan.ns > 1) {
+    mcus_x = im.mcux;
+    mcus_y = im.mcuy;
+  } else {
+    mcus_x = scan.sc[0].k->bw;
+    mcus_y = scan.sc[0].k->bh;
+  }
+  long done = 0;
+  int next_rst = 0;
+  for (long my = 0; my < mcus_y; my++) {
+    for (long mx = 0; mx < mcus_x; mx++, done++) {
+      if (s.restart_interval && done > 0 && done % s.restart_interval == 0) {
+        // jdhuff.c's process_restart: drop the buffered bits, read RSTn
+        size_t at = b.pos;
+        if (next_marker(s.d, s.n, &at) != 0xD0 + next_rst)
+          corrupt("restart marker missing or out of order");
+        next_rst = (next_rst + 1) & 7;
+        b.reset(at);
+        for (int i = 0; i < scan.ns; i++) scan.sc[i].pred = 0;
+      }
+      if (scan.ns == 1) {
+        decode_block(b, scan.sc[0], static_cast<int>(mx),
+                     static_cast<int>(my));
+        continue;
+      }
+      for (int i = 0; i < scan.ns; i++) {
+        ScanComponent& sc = scan.sc[i];
+        for (int y = 0; y < sc.k->v; y++)
+          for (int x = 0; x < sc.k->h; x++)
+            decode_block(b, sc, static_cast<int>(mx) * sc.k->h + x,
+                         static_cast<int>(my) * sc.k->v + y);
+      }
+    }
+  }
+  // bits buffered past the last block (padding) are dropped; bytes before
+  // the next marker are skipped by next_marker
+  s.pos = b.pos;
+}
+
+// ----------------------------------------------------------------------------
+// upsampling (jdsample.c) and colour conversion (jdcolor.c)
+
+// one output row `y` of component k at full width into `row` (>= width + 1)
+void upsample_row(const Image& im, const Component& k, int y, uint8_t* row) {
+  const int w = im.width;
+  const uint8_t* pl = k.plane.data();
+  auto in_row = [&](int r) {
+    if (r < 0) r = 0;
+    if (r > k.dh - 1) r = k.dh - 1;           // jdmainct.c's edge rows
+    return pl + static_cast<size_t>(r) * k.stride;
+  };
+  const int hx = im.hmax / k.h, vx = im.vmax / k.v;
+  const int dw = k.dw;
+  if (hx == 1 && vx == 1) {                   // fullsize_upsample
+    std::memcpy(row, in_row(y), w);
+    return;
+  }
+  if (hx == 2 && vx == 1) {
+    const uint8_t* in = in_row(y);
+    if (dw > 2) {                             // h2v1_fancy_upsample
+      uint8_t* o = row;
+      o[0] = in[0];
+      o[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
+      for (int i = 1; i < dw - 1; i++) {
+        int v = in[i] * 3;
+        o[2 * i] = static_cast<uint8_t>((v + in[i - 1] + 1) >> 2);
+        o[2 * i + 1] = static_cast<uint8_t>((v + in[i + 1] + 2) >> 2);
+      }
+      o[2 * (dw - 1)] =
+          static_cast<uint8_t>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      o[2 * (dw - 1) + 1] = in[dw - 1];
+    } else {                                  // h2v1_upsample
+      for (int x = 0; x < w; x++) row[x] = in[x >> 1];
+    }
+    return;
+  }
+  if (hx == 1 && vx == 2) {                   // h1v2_fancy_upsample
+    int r = y >> 1;
+    const uint8_t* in0 = in_row(r);
+    const uint8_t* in1 = in_row((y & 1) ? r + 1 : r - 1);
+    int bias = (y & 1) ? 2 : 1;
+    for (int x = 0; x < w; x++)
+      row[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+    return;
+  }
+  if (hx == 2 && vx == 2) {
+    int r = y >> 1;
+    if (dw > 2) {                             // h2v2_fancy_upsample
+      const uint8_t* in0 = in_row(r);
+      const uint8_t* in1 = in_row((y & 1) ? r + 1 : r - 1);
+      uint8_t* o = row;
+      int this_sum = in0[0] * 3 + in1[0];
+      int next_sum = in0[1] * 3 + in1[1];
+      o[0] = static_cast<uint8_t>((this_sum * 4 + 8) >> 4);
+      o[1] = static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
+      int last_sum = this_sum;
+      this_sum = next_sum;
+      for (int i = 1; i < dw - 1; i++) {
+        next_sum = in0[i + 1] * 3 + in1[i + 1];
+        o[2 * i] = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
+        o[2 * i + 1] =
+            static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
+        last_sum = this_sum;
+        this_sum = next_sum;
+      }
+      o[2 * (dw - 1)] =
+          static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
+      o[2 * (dw - 1) + 1] = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
+    } else {                                  // h2v2_upsample
+      const uint8_t* in = in_row(r);
+      for (int x = 0; x < w; x++) row[x] = in[x >> 1];
+    }
+    return;
+  }
+  // int_upsample: every sample replicated hx x vx
+  const uint8_t* in = in_row(y / vx);
+  for (int x = 0; x < w; x++) row[x] = in[x / hx];
+}
+
+void convert(const Image& im, uint8_t* out) {
+  const int w = im.width;
+  if (im.ncomp == 1) {
+    for (int y = 0; y < im.height; y++) {
+      const uint8_t* in = im.comp[0].plane.data() +
+                          static_cast<size_t>(y) * im.comp[0].stride;
+      uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+      for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = in[x];
+    }
+    return;
+  }
+  // jdcolor.c's build_ycc_rgb_table: SCALEBITS 16, ONE_HALF into Cr_r, Cb_b
+  // and Cb_g
+  constexpr int kScale = 16;
+  constexpr int64_t kHalf = static_cast<int64_t>(1) << (kScale - 1);
+  auto fix = [](double x) {
+    return static_cast<int64_t>(x * (1L << kScale) + 0.5);
+  };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0; i < 256; i++) {
+    int64_t x = i - 128;
+    cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
+    cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + kHalf;
+  }
+  auto clamp = [](int v) {
+    return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  };
+  std::vector<uint8_t> rows(3 * (static_cast<size_t>(w) + 16));
+  uint8_t* r0 = rows.data();
+  uint8_t* r1 = r0 + w + 16;
+  uint8_t* r2 = r1 + w + 16;
+  for (int y = 0; y < im.height; y++) {
+    upsample_row(im, im.comp[0], y, r0);
+    upsample_row(im, im.comp[1], y, r1);
+    upsample_row(im, im.comp[2], y, r2);
+    uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+    if (im.rgb) {
+      for (int x = 0; x < w; x++) {
+        o[3 * x] = r2[x];
+        o[3 * x + 1] = r1[x];
+        o[3 * x + 2] = r0[x];
+      }
+      continue;
+    }
+    for (int x = 0; x < w; x++) {
+      int yy = r0[x], cb = r1[x], cr = r2[x];
+      o[3 * x + 2] = clamp(yy + cr_r[cr]);
+      o[3 * x + 1] =
+          clamp(yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >> kScale));
+      o[3 * x] = clamp(yy + cb_b[cb]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------
+
+// the markers up to the first scan's entropy data
+void read_headers(State& s, Scan* scan) {
+  if (s.n < 2 || s.d[0] != 0xFF || s.d[1] != 0xD8)
+    corrupt("not a JPEG file (no SOI marker)");
+  s.pos = 2;
+  for (;;) {
+    int m = next_marker(s);
+    if (m < 0) corrupt("JPEG data ends before its first scan");
+    if (m == 0xC4) {
+      read_dht(s);
+    } else if (m == 0xC8 || m == 0xDE || m == 0xDF) {
+      fail(kUnsupported, "hierarchical or extension JPEG (marker " +
+                             std::to_string(m) + ")");
+    } else if (m == 0xCC) {
+      size_t a, b;
+      segment(s, &a, &b);                     // DAC: arithmetic conditioning
+    } else if (m >= 0xC0 && m <= 0xCF) {
+      read_sof(s, m);
+    } else if (m == 0xDB) {
+      read_dqt(s);
+    } else if (m == 0xDD) {
+      read_dri(s);
+    } else if (m == 0xDA) {
+      read_sos(s, scan);
+      check_plausible(s, *scan);
+      return;
+    } else if (m == 0xD9) {
+      corrupt("JPEG ends (EOI) before its first scan");
+    } else if (m == 0xD8) {
+      corrupt("second SOI marker");
+    } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+      // RSTn and TEM outside a scan carry no segment; libjpeg passes them
+    } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+      if (m == 0xE0 || m == 0xEE) {
+        read_app(s, m);
+      } else {
+        size_t a, b;
+        segment(s, &a, &b);
+      }
+    } else {
+      corrupt("unknown JPEG marker " + std::to_string(m));
+    }
+  }
+}
+
+// the image after read_headers: its one scan, then the markers to EOI
+void decode(State& s, Scan& scan, uint8_t* out) {
+  decode_scan(s, scan);
+  // after a complete single scan: EOI, or the end of the data (libjpeg
+  // inserts a missing EOI); another scan is an error as in libjpeg
+  // (JERR_EOI_EXPECTED)
+  for (;;) {
+    int m = next_marker(s);
+    if (m < 0 || m == 0xD9) break;
+    if (m == 0xDA) corrupt("a second scan in a single-scan JPEG");
+    if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+    size_t a, b;
+    segment(s, &a, &b);
+  }
+  convert(s.im, out);
+}
+
+int report(const Failure& f, char* err, int errlen) {
+  if (err && errlen > 0) std::snprintf(err, errlen, "%s", f.what.c_str());
+  return f.code;
+}
+
+template <typename F>
+int guarded(char* err, int errlen, F&& body) {
+  try {
+    body();
+  } catch (const Failure& f) {
+    return report(f, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report({kCorrupt, "out of memory decoding the JPEG"}, err, errlen);
+  }
+  if (err && errlen > 0) err[0] = 0;
+  return kOk;
+}
+
+}  // namespace
+
+extern "C" {
+
+int i2v_jpeg_info(const uint8_t* data, size_t n, int* height, int* width,
+                  int* ncomp, char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    if (!data || !height || !width || !ncomp) fail(kArgument, "null argument");
+    State s(data, n);
+    Scan scan;
+    read_headers(s, &scan);
+    *height = s.im.height;
+    *width = s.im.width;
+    *ncomp = s.im.ncomp;
+  });
+}
+
+int i2v_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out,
+                    size_t capacity, char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    if (!data || !out) fail(kArgument, "null argument");
+    State s(data, n);
+    Scan scan;
+    read_headers(s, &scan);
+    if (capacity < static_cast<size_t>(s.im.width) * s.im.height * 3)
+      fail(kArgument, "output buffer smaller than height x width x 3");
+    decode(s, scan, out);
+  });
+}
+
+}  // extern "C"

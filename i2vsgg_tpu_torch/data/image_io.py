@@ -1,18 +1,25 @@
-"""Image decode for the port's loader, with the standard library and numpy.
+"""Image decode for the port's loader: PNG with the standard library and
+numpy, JPEG with the port's own baseline decoder (``data/jpeg.py``).
 
 The card's machine has no cv2, PIL or libjpeg/libpng headers, so the port
-decodes PNG itself: ``zlib`` inflates the IDAT stream and numpy undoes the
-row filters. ``imread_bgr`` returns what ``cv2.imread(path,
-cv2.IMREAD_COLOR)`` returns for the files it reads: BGR uint8 (H, W, 3),
-grey replicated, palettes expanded, alpha dropped.
+decodes both formats itself. PNG: ``zlib`` inflates the IDAT stream and numpy
+undoes the row filters. JPEG: ``csrc/jpeg.cc``, built with ``g++`` at first
+use and called through ctypes. ``imread_bgr`` returns what
+``cv2.imread(path, cv2.IMREAD_COLOR)`` returns for the files it reads, byte
+for byte: BGR uint8 (H, W, 3), grey replicated, palettes expanded, alpha
+dropped, a JPEG's EXIF orientation applied.
 
 Read: 8-bit PNG of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey +
-alpha) and 6 (RGBA), non-interlaced, with any of the five row filters.
-Everything else — other bit depths, Adam7 interlacing, JPEG and every other
-format — raises ``UnsupportedImageError`` naming the decoder that is
-missing; it never falls through to a wrong image. ``image_size`` reads the
-size from the header of a PNG or a JPEG (as the loader's roidb needs), and
-``write_png`` writes an 8-bit RGB PNG with one row filter throughout.
+alpha) and 6 (RGBA), non-interlaced, with any of the five row filters; and
+sequential Huffman JPEG, 8-bit, grey or three components, any integral
+chroma sampling, with or without restart intervals. Everything else —
+other PNG bit depths, Adam7 interlacing, progressive, lossless or
+arithmetic-coded JPEG, 12-bit or CMYK JPEG, and every other format — raises
+``UnsupportedImageError`` naming what is missing; it never falls through to
+a wrong image. ``image_size`` reads the size from the header of a PNG or a
+JPEG (as the loader's roidb needs: a JPEG's stored size, before any EXIF
+rotation, as PIL reports it to the JAX package's roidb), and ``write_png``
+writes an 8-bit RGB PNG with one row filter throughout.
 """
 
 from __future__ import annotations
@@ -22,14 +29,13 @@ import zlib
 
 import numpy as np
 
+from i2vsgg_tpu_torch.data import jpeg
+from i2vsgg_tpu_torch.data.jpeg import UnsupportedImageError, decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # PNG colour type -> samples
 # JPEG start-of-frame markers (C4 DHT, C8 JPG and CC DAC are not frames)
 _JPEG_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
-
-
-class UnsupportedImageError(ValueError):
-    """An image this module has no decoder for."""
 
 
 def _read(path: str) -> bytes:
@@ -71,22 +77,10 @@ def image_size(path: str) -> tuple:
         w, h = struct.unpack(">II", data[16:24])
         return int(w), int(h)
     if kind == "jpeg":
-        pos = 2
-        while pos + 4 <= len(data):
-            if data[pos] != 0xFF:
-                break
-            marker = data[pos + 1]
-            if marker == 0xFF:                      # fill byte
-                pos += 1
-                continue
-            if marker in (0x01, *range(0xD0, 0xD8)):  # no length field
-                pos += 2
-                continue
-            (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        for marker, body in jpeg.segments(data):
             if marker in _JPEG_SOF:
-                h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+                h, w = struct.unpack(">HH", body[1:5])
                 return int(w), int(h)
-            pos += 2 + length
         raise ValueError(f"{path}: JPEG without a start-of-frame marker")
     raise UnsupportedImageError(f"{path}: not a PNG or JPEG file")
 
@@ -186,18 +180,16 @@ def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:
 
 def imread_bgr(path: str) -> np.ndarray:
     """The image at ``path`` as BGR uint8 (H, W, 3). A missing file raises
-    ``FileNotFoundError``; a JPEG or any other undecodable file raises
-    ``UnsupportedImageError``."""
+    ``FileNotFoundError``; a file in a format or mode the port does not
+    decode raises ``UnsupportedImageError``, a corrupt one ``ValueError``."""
     data = _read(path)
     kind = _kind(data)
     if kind == "png":
         return decode_png(data, path)
     if kind == "jpeg":
-        raise UnsupportedImageError(
-            f"{path}: JPEG; the port has no JPEG decoder (cv2, PIL and "
-            "libjpeg are absent on the card's machine)")
-    raise UnsupportedImageError(f"{path}: not a PNG file; the port decodes "
-                                "PNG only")
+        return decode_jpeg(data, path)
+    raise UnsupportedImageError(f"{path}: not a PNG or JPEG file; the port "
+                                "decodes PNG and JPEG only")
 
 
 def _filter_rows(x: np.ndarray, ftype: int) -> np.ndarray:

@@ -4,7 +4,8 @@ resize, static padding into buckets, and the batched loader with its
 prefetch thread.
 
 cv2 is not on the card's machine, so the port decodes with
-``data/image_io.py`` (PNG; JPEG raises) and resizes with its own copy of
+``data/image_io.py`` (PNG, and baseline JPEG through its own decoder,
+``data/jpeg.py``) and resizes with its own copy of
 ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)``:
 
 * the output is ``round(w * fx)`` x ``round(h * fy)`` and output pixel
@@ -22,8 +23,10 @@ cv2 is not on the card's machine, so the port decodes with
   test_torch_drivers.py), off by one on under 0.1 % of values at upscales
   near 10x.
 
-The native C++ decode runtime of the JAX package is not ported. The
-loader's training branch (``training=True``: the ratio-sorted roidb without
+The native C++ batch runtime of the JAX package (``i2v_load_batch``:
+decode, resize and pack on a thread pool) is not ported; the port's JPEG
+decoder releases the GIL, so the prefetch thread decodes beside the main
+thread. The loader's training branch (``training=True``: the ratio-sorted roidb without
 its ``need_crop`` entries, flipped entries mirrored, aspect-grouped batches
 in a seeded random order, GT rows beyond ``MAX_NUM_GT_BOXES`` shuffled and
 truncated) feeds ``tools/trainval_det_da.py``; JAX's multi-host

@@ -10,14 +10,15 @@ Checkpoints go to ``<save_dir>/<net>/<dataset>/session_<s>/step_%08d``, in
 the port's format (``train/checkpoint.py``); ``--r`` resumes from the newest
 one there (weights, momentum, step), ``--load_name <dir>/<step>`` starts from
 a detector without its heads, ``--pretrained_backbone`` from a torchvision
-or jwyang state dict. The port's loader decodes PNG only, so the source and
-target devkits must be PNG (``MVidVRD``, ``MVG``, ``MVidOR``).
+or jwyang state dict. The port's loader decodes PNG and baseline JPEG
+(``data/image_io.py``), so the paper's pairing runs as it is: the MVRD
+stills (JPEG) as the source, the MVidVRD frames (PNG) as the target.
 
-Usage (mirrors scripts/instance_styleD_resnet101.sh):
-  python -m i2vsgg_tpu_torch.tools.trainval_det_da --dataset MVidVRD \\
+Usage (as scripts/port_instance_styleD_resnet101.sh runs it):
+  python -m i2vsgg_tpu_torch.tools.trainval_det_da --dataset MVRD \\
       --dataset_t MVidVRD --net res101 --lr 5e-4 --lr_decay_step 10 \\
       --epochs 10 --eta 0.1 --eta_style 0.001 --style_lambda 1 --ic --gc \\
-      --cr [--device cpu]
+      [--device cpu]
 """
 
 from __future__ import annotations

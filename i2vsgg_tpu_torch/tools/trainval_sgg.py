@@ -14,12 +14,12 @@ pair-bearing updates. Checkpoints go to
 ``<save_dir>/<net>/<dataset>_SGG/session_<s>/step_%08d`` at the end of
 every epoch, in the port's format with the JAX driver's metadata
 (``vrd_pooling`` among it, which ``test_sgg`` reads back). The port's
-loader decodes PNG only.
+loader decodes PNG and baseline JPEG, so it trains on the MVRD stills.
 
-Usage (mirrors scripts/SGG_emb_resnet.sh):
-  python -m i2vsgg_tpu_torch.tools.trainval_sgg --dataset MVidVRD \\
+Usage (as scripts/port_SGG_emb_resnet.sh runs it):
+  python -m i2vsgg_tpu_torch.tools.trainval_sgg --dataset MVRD \\
       --net res101 --vrd_lr 1e-4 --num_relations 62 \\
-      --load_name models/res101/MVidVRD/session_1/<step> \\
+      --load_name models/res101/MVRD/session_1/<step> \\
       --source_gt_rels_path data/MVidVRD/source_gt_rels.pkl [--device cpu]
 """
 

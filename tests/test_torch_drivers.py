@@ -1,11 +1,13 @@
 """The port's drivers and what they read, against the JAX package on the
 CPU: ``cfg_from_file`` on ``cfgs/*.yml``, ``parse_args`` /
 ``set_dataset_args``, ``combined_roidb`` on the fixture datasets of
-tests/fixtures.py, the PNG decoder against cv2, the cv2-free resize
-(``prep_image`` within 1e-4, ``prep_image_u8`` bit-equal), the
-``DetectionLoader``, the checkpoint format, the predicate vectors'
-fallback, ``voc_eval``, and ``serve_video``, ``test_sgg`` and ``test_det``
-of both packages end to end at res10 on 96 px frames (``TINY`` below, the
+tests/fixtures.py, the PNG decoder against cv2 (the JPEG decoder has
+tests/test_torch_jpeg.py), the cv2-free resize (``prep_image`` within
+1e-4, ``prep_image_u8`` bit-equal), the ``DetectionLoader`` (on the MVidVRD
+PNG frames and on the MVRD JPEG stills), the checkpoint format, the
+predicate vectors' fallback, ``voc_eval``, and ``serve_video``, ``test_sgg``
+and ``test_det`` of both packages end to end (the last two on the MVidVRD
+and on the MVRD test split) at res10 on 96 px frames (``TINY`` below, the
 ``TINY_CFG`` of tests/test_drivers_e2e.py), on one set of weights: JAX's
 init saved with JAX's ``save_checkpoint`` and converted by
 ``tools/jax_to_torch_checkpoint.py``. Random weights tie, so the box
@@ -295,12 +297,21 @@ def test_png_decode_equals_cv2(tmp_path):
 
 
 def test_undecodable_images_raise(tmp_path, data_root):
+    """A baseline JPEG (the fixture's MVRD stills) decodes as cv2 decodes
+    it; a progressive JPEG, 16-bit and interlaced PNG and other formats
+    raise ``UnsupportedImageError``."""
     jpg = os.path.join(data_root["root"], "MVRD", "JPEGImages",
                        "img000.jpg")
     with Image.open(jpg) as im:
         assert image_io.image_size(jpg) == im.size
-    with pytest.raises(image_io.UnsupportedImageError, match="JPEG"):
-        image_io.imread_bgr(jpg)
+    assert np.array_equal(image_io.imread_bgr(jpg),
+                          cv2.imread(jpg, cv2.IMREAD_COLOR))
+    prog = str(tmp_path / "progressive.jpg")
+    cv2.imwrite(prog, cv2.imread(jpg), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with Image.open(prog) as im:
+        assert image_io.image_size(prog) == im.size
+    with pytest.raises(image_io.UnsupportedImageError, match="progressive"):
+        image_io.imread_bgr(prog)
     p16 = str(tmp_path / "deep.png")
     cv2.imwrite(p16, np.full((4, 5, 3), 1000, np.uint16))
     with pytest.raises(image_io.UnsupportedImageError, match="16-bit"):
@@ -373,12 +384,46 @@ def test_detection_loader_matches_jax(data_root, uint8):
             close(a[key], b[key], 0.0, 1e-4 / float(np.abs(b[key]).max()))
 
 
-def test_loader_raises_on_an_undecodable_image(data_root):
+@pytest.mark.parametrize("uint8", [False, True])
+def test_detection_loader_matches_jax_on_jpeg_stills(data_root, uint8):
+    """The source domain: batches of 3 over the 8 MVRD stills (JPEG, 4:2:0,
+    written by PIL; a ragged last batch), resized to 120 rows. JAX's loader
+    decodes with cv2, the port's with its own decoder."""
+    cfg = config.cfg_from_list(["TEST.SCALES", "[120]"])
+    cfg_j = jax_config.cfg_from_list(["TEST.SCALES", "[120]"])
+    _, rdb, _, idx = roidb.combined_roidb("MVRD_test", training=False,
+                                          use_flipped=False)
+    assert all(e["image"].endswith(".jpg") for e in rdb)
+    got = list(pipeline.DetectionLoader(rdb, idx, cfg, 3, training=False,
+                                        uint8_transport=uint8))
+    exp = list(jax_pipeline.DetectionLoader(rdb, idx, cfg_j, 3,
+                                            training=False, native=False,
+                                            uint8_transport=uint8))
+    assert len(got) == len(exp) == 3
+    key = "image_u8" if uint8 else "image"
+    for a, b in zip(got, exp):
+        assert set(a) == set(b)
+        for k in ("im_info", "gt_boxes", "num_boxes", "indices"):
+            np.testing.assert_array_equal(a[k], b[k])
+        assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape
+        if uint8:
+            assert np.array_equal(a[key], b[key])
+        else:
+            close(a[key], b[key], 0.0, 1e-4 / float(np.abs(b[key]).max()))
+
+
+def test_loader_raises_on_an_undecodable_image(tmp_path, monkeypatch):
+    """The loader's prefetch thread re-raises a decode error in the
+    consumer: here a progressive JPEG among the MVRD stills."""
+    root = make_fixture_root(str(tmp_path), n_rel=N_REL)["root"]
+    jpg = os.path.join(root, "MVRD", "JPEGImages", "img001.jpg")
+    cv2.imwrite(jpg, cv2.imread(jpg), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", root)
     _, rdb, _, idx = roidb.combined_roidb("MVRD_test", training=False,
                                           use_flipped=False)
     loader = pipeline.DetectionLoader(rdb, idx, config.Config(), 2,
                                       training=False)
-    with pytest.raises(image_io.UnsupportedImageError, match="JPEG"):
+    with pytest.raises(image_io.UnsupportedImageError, match="progressive"):
         next(iter(loader))
 
 
@@ -522,9 +567,9 @@ class Recorder:
 
 
 def _run_both(monkeypatch, roots, jax_main, jax_mod, port_main, port_mod,
-              argv_j, argv_p):
+              argv_j, argv_p, n_frames=12):
     """Each package's driver on its own copy of the datasets, with the
-    ``detection_output`` calls recorded."""
+    ``detection_output`` calls recorded (one for each of ``n_frames``)."""
     rec_j = Recorder(jax_mod.detection_output)
     rec_p = Recorder(port_mod.detection_output)
     monkeypatch.setattr(jax_mod, "detection_output", rec_j)
@@ -533,16 +578,16 @@ def _run_both(monkeypatch, roots, jax_main, jax_mod, port_main, port_mod,
     exp = jax_main(argv_j)
     monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["port"]["root"])
     got = port_main(argv_p)
-    assert len(rec_j.calls) == len(rec_p.calls) == 12
+    assert len(rec_j.calls) == len(rec_p.calls) == n_frames
     return exp, got, rec_j.calls, rec_p.calls
 
 
-def _same_frames(path_j, path_p, rtol=1e-4):
+def _same_frames(path_j, path_p, rtol=1e-4, videos=("vid00", "vid01")):
     """The two frame_detections.json: same videos and frames, and per frame
     the same relation triplets (every tuple is kept: 12 pairs x 7
     predicates < top 100)."""
     a, b = json.load(open(path_j)), json.load(open(path_p))
-    assert set(a) == set(b) == {"vid00", "vid01"}
+    assert set(a) == set(b) == set(videos)
     for vid in a:
         assert [f for f, _ in a[vid]] == [f for f, _ in b[vid]]
         for (_, ta), (_, tb) in zip(a[vid], b[vid]):
@@ -616,36 +661,63 @@ def test_serve_video_levers_match_jax(weights, data_roots, monkeypatch):
     assert len(calls) == 12
 
 
-def test_test_sgg_matches_jax(data_roots, weights, monkeypatch):
+def _argv(dataset):
+    """COMMON with ``--dataset dataset``."""
+    argv = list(COMMON)
+    argv[argv.index("--dataset") + 1] = dataset
+    return argv
+
+
+def _sgg_both(data_roots, weights, monkeypatch, dataset, n_frames, videos):
+    """test_sgg of both packages on ``dataset``'s test split (GT boxes):
+    per frame the same GT boxes, classes and pairs, the per-pair
+    probabilities within rtol 1e-5; the same metrics; the same
+    frame_detections.json."""
     from i2vsgg_tpu_torch.tools import test_sgg
     d = weights["dir"]
+    tag = "" if dataset == "MVidVRD" else "_" + dataset
     exp, got, calls_j, calls_p = _run_both(
         monkeypatch, data_roots, jax_test_sgg.main, jax_metrics,
         test_sgg.main, port_metrics,
-        COMMON + ["--video_ann", data_roots["jax"]["video_ann"],
-                  "--save_dir", os.path.join(d, "out_jax"),
-                  "--load_name", weights["sgg"][0]],
-        COMMON + ["--video_ann", data_roots["port"]["video_ann"],
-                  "--save_dir", os.path.join(d, "out_port"),
-                  "--load_name", weights["sgg"][1], "--device", "cpu"])
+        _argv(dataset) + ["--video_ann", data_roots["jax"]["video_ann"],
+                          "--save_dir", os.path.join(d, "out_jax" + tag),
+                          "--load_name", weights["sgg"][0]],
+        _argv(dataset) + ["--video_ann", data_roots["port"]["video_ann"],
+                          "--save_dir", os.path.join(d, "out_port" + tag),
+                          "--load_name", weights["sgg"][1],
+                          "--device", "cpu"], n_frames)
     for cj, cp in zip(calls_j, calls_p):
         for k in (1, 2, 3, 4, 5):         # GT boxes, classes, confs, pairs
             np.testing.assert_array_equal(cp[k], cj[k])
         assert len(cj[4]) > 0
         close(cp[0], cj[0], 1e-5)         # the per-pair probabilities
     assert got == exp                      # mAP, recall@K, precision@K
-    rel = os.path.join("eval", "MVidVRD_test_SGG", "frame_detections.json")
-    _same_frames(os.path.join(d, "out_jax", rel),
-                 os.path.join(d, "out_port", rel))
+    rel = os.path.join("eval", f"{dataset}_test_SGG", "frame_detections.json")
+    _same_frames(os.path.join(d, "out_jax" + tag, rel),
+                 os.path.join(d, "out_port" + tag, rel), videos=videos)
 
 
-def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None):
-    """test_det of both packages, each on its own datasets: the same APs,
-    the same detections per class and image within ``tol`` (boxes within
-    ``box_atol`` px where it is given)."""
+def test_test_sgg_matches_jax(data_roots, weights, monkeypatch):
+    _sgg_both(data_roots, weights, monkeypatch, "MVidVRD", 12,
+              ("vid00", "vid01"))
+
+
+def test_test_sgg_on_jpeg_stills_matches_jax(data_roots, weights,
+                                             monkeypatch):
+    """The source domain's test split: the 8 MVRD stills (JPEG), each
+    image its own "video" of one frame in frame_detections.json."""
+    _sgg_both(data_roots, weights, monkeypatch, "MVRD", 8,
+              [f"img{i:03d}" for i in range(8)])
+
+
+def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None,
+              dataset="MVidVRD"):
+    """test_det of both packages on ``dataset``'s test split, each on its
+    own datasets: the same APs, the same detections per class and image
+    within ``tol`` (boxes within ``box_atol`` px where it is given)."""
     from i2vsgg_tpu_torch.tools import test_det
     d = weights["dir"]
-    args = COMMON + ["--ic", "--gc"] + extra
+    args = _argv(dataset) + ["--ic", "--gc"] + extra
     monkeypatch.setenv("I2VSGG_DATA_ROOT", roots["jax"]["root"])
     exp = jax_test_det.main(args + ["--save_dir", os.path.join(d, "dj" + tag),
                                     "--load_name", weights["det"][0]])
@@ -654,7 +726,8 @@ def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None):
                                 "--load_name", weights["det"][1],
                                 "--device", "cpu"])
     assert got == exp and set(got) > {"mAP"}
-    dets = [pickle.load(open(os.path.join(d, x + tag, "eval", "MVidVRD_test",
+    dets = [pickle.load(open(os.path.join(d, x + tag, "eval",
+                                          f"{dataset}_test",
                                           "detections.pkl"), "rb"))
             for x in ("dj", "dp")]
     for per_j, per_p in zip(*dets):
@@ -666,13 +739,20 @@ def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None):
                 np.testing.assert_allclose(b[:, :4], a[:, :4], rtol=0,
                                            atol=box_atol)
                 close(b[:, 4], a[:, 4], tol)
-    res = os.path.join(d, "dp" + tag, "eval", "MVidVRD_test", "adapt")
+    res = os.path.join(d, "dp" + tag, "eval", f"{dataset}_test", "adapt")
     assert os.path.exists(os.path.join(res, "det_test_person.txt"))
     return dets[1]
 
 
 def test_test_det_matches_jax(weights, data_roots, monkeypatch):
     _det_both(weights, data_roots, monkeypatch, [], "", 1e-4)
+
+
+def test_test_det_on_jpeg_stills_matches_jax(weights, data_roots,
+                                             monkeypatch):
+    """The source domain's test split: the 8 MVRD stills (JPEG)."""
+    _det_both(weights, data_roots, monkeypatch, [], "_mvrd", 1e-4,
+              dataset="MVRD")
 
 
 def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch):

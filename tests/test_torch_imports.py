@@ -84,7 +84,7 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "models.targets", "models.inits", "train.optim",
                      "train.det_da", "utils.logging",
                      "tools.trainval_det_da", "train.sgg",
-                     "tools.trainval_sgg"):
+                     "tools.trainval_sgg", "data.jpeg", "utils.cuda_build"):
             assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
@@ -510,3 +510,41 @@ def test_stage_b_step_and_driver_help_without_the_blocked_names():
         assert not bad, bad
     """)
     assert "--source_gt_rels_path" in out and "--decay_spe" in out
+
+
+def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
+    """``data/jpeg.py`` and ``utils/cuda_build.py`` load with cv2, PIL, jax
+    and yaml refused; the decoder builds with the host compiler and holds
+    every committed fixture to its golden (read by the port's PNG decoder),
+    refusing the refused ones, as ``chip_smoke.py`` does on the card's
+    machine."""
+    out = run_isolated("""
+        import json
+        import os
+
+        import numpy as np
+
+        from i2vsgg_tpu_torch.data import image_io, jpeg
+        from i2vsgg_tpu_torch.utils import cuda_build
+
+        assert cuda_build.build_host(jpeg.SOURCE).exists()
+        d = os.path.join("tests", "data", "jpeg")
+        manifest = json.load(open(os.path.join(d, "MANIFEST.json")))
+        held = 0
+        for name, entry in sorted(manifest.items()):
+            path = os.path.join(d, name + ".jpg")
+            if entry["set"] == "refused":
+                try:
+                    image_io.imread_bgr(path)
+                except image_io.UnsupportedImageError as e:
+                    assert entry["mode"] in str(e), e
+                    continue
+                raise SystemExit(f"{name} decoded")
+            golden = image_io.imread_bgr(os.path.join(d, entry["golden"]))
+            assert np.array_equal(image_io.imread_bgr(path), golden), name
+            held += 1
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("held", held)
+    """)
+    assert "held 27" in out

@@ -2,9 +2,10 @@
 tests/fixtures.py, on the CPU.
 
 Each package reads its own copy of the fixture devkit (so each builds its
-gt_roidb cache from the XML). The port's loader decodes PNG only, so the
-source is the devkit's PNG video frames too: ``--dataset MVidVRD
---dataset_t MVidVRD`` (the fixture's MVRD stills are JPEG). Both start from
+gt_roidb cache from the XML). Two pairings: the devkit's PNG video frames
+as both domains (``--dataset MVidVRD --dataset_t MVidVRD``), and the
+paper's, the MVRD stills (JPEG, decoded by the port's own decoder and by
+JAX's cv2) as the source (``--dataset MVRD --dataset_t MVidVRD``). Both start from
 one reference-layout detector checkpoint (``--pretrained_backbone
 --pretrained_full``: every tensor of the training tree, so both hold the
 same weights) and train res10 ic+gc with f32 compute under
@@ -12,7 +13,8 @@ same weights) and train res10 ic+gc with f32 compute under
 configuration, with anchor scales (2, 4, 8) so that the 96 px frames hold
 anchors and the RPN losses are not 0.
 
-Checked: the losses in ``metrics.jsonl`` agree at rtol 1e-4 over 2 steps;
+Checked: the losses in ``metrics.jsonl`` agree at rtol 1e-4 over 2 steps
+(under both pairings);
 the checkpoints' metadata keys are equal; the port's momentum buffers after
 2 steps agree with JAX's within 1e-3 of each buffer's norm and at cosine
 >= 0.9999 (the gradients' tolerance of tests/test_torch_train_step.py);
@@ -61,23 +63,23 @@ TINY = ["--cfg",
         "TRAIN.SCALES", "[96]",
         "TEST.SCALES", "[96]",
         "ANCHOR_SCALES", "[2, 4, 8]"]
-RUN = ["--dataset", "MVidVRD", "--dataset_t", "MVidVRD", "--net", "res10",
+RUN = ["--dataset_t", "MVidVRD", "--net", "res10",
        "--bs", "1", "--epochs", "1", "--lr", "1e-4", "--ic", "--gc",
        "--style_lambda", "1", "--disp_interval", "1",
        "--compute_dtype", "float32"]
 SESSION = ("res10", "MVidVRD", "session_1")
 
 
-def metrics(save_dir):
-    path = os.path.join(save_dir, *SESSION, "logs", "metrics.jsonl")
+def metrics(save_dir, source="MVidVRD"):
+    path = os.path.join(save_dir, "res10", source, "session_1", "logs",
+                        "metrics.jsonl")
     return [json.loads(line) for line in open(path)]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both drivers, 2 steps, then ``--r`` to step 3, each on its own copy
-    of the devkit; returns the save directories."""
-    root = tmp_path_factory.mktemp("train_driver")
+def train_both(root, source, resume):
+    """Both drivers on ``source`` -> MVidVRD, 2 steps (then ``--r`` to step
+    3 where ``resume``), each on its own copy of the devkit; yields the save
+    directories."""
     data = {pkg: make_fixture_root(str(root / f"data_{pkg}"))["root"]
             for pkg in ("jax", "port")}
     ckpt = str(root / "jwyang.pth")
@@ -91,13 +93,15 @@ def runs(tmp_path_factory):
                                  ("port", port_driver.main,
                                   ["--device", "cpu"])):
             os.environ["I2VSGG_DATA_ROOT"] = data[pkg]
-            common = RUN + extra + ["--save_dir", out[pkg]] + TINY
+            common = (["--dataset", source] + RUN + extra
+                      + ["--save_dir", out[pkg]] + TINY)
             state = main(common + ["--max_steps", "2",
                                    "--pretrained_backbone", ckpt,
                                    "--pretrained_full"])
             assert int(state.step) == 2
-            state = main(common + ["--max_steps", "3", "--r"])
-            assert int(state.step) == 3
+            if resume:
+                state = main(common + ["--max_steps", "3", "--r"])
+                assert int(state.step) == 3
         yield {"out": out, "data": data}
     finally:
         for k, v in old.items():
@@ -107,9 +111,20 @@ def runs(tmp_path_factory):
                 os.environ[k] = v
 
 
-def test_losses_agree(runs):
-    got, want = (metrics(runs["out"][p]) for p in ("port", "jax"))
-    assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3]
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    yield from train_both(tmp_path_factory.mktemp("train_driver"),
+                          "MVidVRD", resume=True)
+
+
+@pytest.fixture(scope="module")
+def runs_jpeg_source(tmp_path_factory):
+    yield from train_both(tmp_path_factory.mktemp("train_driver_mvrd"),
+                          "MVRD", resume=False)
+
+
+def same_losses(got, want, steps):
+    assert [r["step"] for r in got] == [r["step"] for r in want] == steps
     names = [k for k in want[0] if k.startswith(("loss", "dloss"))]
     assert set(names) <= set(got[0]) and "loss_rpn_cls" in names
     for g, w in zip(got, want):
@@ -117,6 +132,22 @@ def test_losses_agree(runs):
             np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-6,
                                        err_msg=f"step {w['step']} {k}")
     assert want[0]["loss_rpn_cls"] > 0
+
+
+def test_losses_agree(runs):
+    same_losses(*(metrics(runs["out"][p]) for p in ("port", "jax")),
+                [1, 2, 3])
+
+
+def test_losses_agree_on_the_jpeg_source(runs_jpeg_source):
+    """The paper's pairing: the MVRD stills (JPEG) as the source domain."""
+    out = runs_jpeg_source["out"]
+    same_losses(*(metrics(out[p], "MVRD") for p in ("port", "jax")), [1, 2])
+    port_dir = os.path.join(out["port"], "res10", "MVRD", "session_1")
+    jax_dir = os.path.join(out["jax"], "res10", "MVRD", "session_1")
+    got = checkpoint.load_metadata(port_dir, 2)
+    assert got == jax_ckpt.load_metadata(jax_dir, 2)
+    assert got["dataset"] == "MVRD"
 
 
 def test_checkpoints_agree_and_resume(runs):
