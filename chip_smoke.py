@@ -110,7 +110,27 @@ class, with seeded random weights, along five paths:
   times the decode of the VRD-sized stills and a 360x640 frame beside the
   PNG decode of the same pixels; 16b, after phase 15, times the loader on
   14c's MVRD stills (decode + resize) and runs ``test_det`` on
-  ``MVRD_test`` at full width from 14c's checkpoint.
+  ``MVRD_test`` at full width from 14c's checkpoint;
+* phase 17, the fourteenth slice's paths, data parallelism
+  (``parallel/mesh.py``) on the one card: 17a runs 14c's
+  ``trainval_det_da`` (3 steps, then ``--resume`` to 4) and 15c's
+  ``trainval_sgg`` (3 steps) again, each in a process that ``python -m
+  torch.distributed.run --standalone --nproc_per_node 1`` starts (NCCL,
+  world size 1, ``--mesh 1``; this script's ``--rank-driver`` calls the
+  driver's ``main`` and reads the rank's launch counters), step 1's losses
+  held to 14c's and 15c's (``DP_STEP1_RTOL``) and the all-reduce of the
+  last step's gradients timed; 17b runs 14d's and 15d's tiny steps on two
+  gloo ranks on the card (``--gloo-rank``; NCCL refuses two ranks on one
+  device) at batch 1 against this process at batch 2 (``updates_vs``),
+  the two ranks building the RoI kernel they need at once, cold; 17c
+  serves phase 6's and phase 5's models over two replicas on cuda:0
+  (``serve.make_sharded_program``; host planes under align: B1, B3; f32
+  images under pool: B2), each replica bit-equal to the unsharded program
+  on its own rows and measured against it on the whole request, each
+  replica's RoI and conv1 calls held to their plain versions, then
+  ``serve_video --mesh 1`` against 13b's ``--mesh 0`` run and a ragged
+  tail at ``--bs 4 --mesh 2`` against ``--bs 2 --mesh 0`` (tiny, f32),
+  the files equal.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -126,9 +146,10 @@ each accumulation depth (``kDepth`` 16, 32, 64 in ``csrc/bottleneck.cu``)
 and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
-The lines before the last are the training, JPEG and serving record (phase
-14's and 15's steps; phase 16's decode times, host ms of the card's
-machine; ms per 4-frame request of each path served) and the
+The lines before the last are the training, data-parallel, JPEG and
+serving record (phase 14's and 15's steps; phase 17's; phase 16's decode
+times, host ms of the card's machine; ms per 4-frame request of each path
+served) and the
 kernels' JSON record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
 version's, the library call's and the bound), then the card's name and
@@ -1733,9 +1754,11 @@ def held_chain_calls(program, inputs, what: str, card: str) -> list:
     return out
 
 
-def drivers_on_card(dev, counters, card: str) -> dict:
+def drivers_on_card(dev, counters, card: str, work: str) -> dict:
     """Phase 13: the port's drivers on this card (13a-13d; see the module
-    docstring). Returns the phase's record."""
+    docstring), their devkits and checkpoints under ``work`` (phase 17c
+    serves them again; the caller removes it). Returns the phase's record,
+    with those files under ``"files"``."""
     from i2vsgg_tpu_torch import serve
     from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
     from i2vsgg_tpu_torch.data.image_io import imread_bgr
@@ -1751,7 +1774,6 @@ def drivers_on_card(dev, counters, card: str) -> dict:
     b = FULL["frames"]
     n_frames = DEVKIT["videos"] * DEVKIT["frames"]
     n_req = n_frames // b
-    work = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
     saved_env = os.environ.get("I2VSGG_DATA_ROOT")
     saved_det = torch.backends.cudnn.deterministic
     try:
@@ -2000,6 +2022,11 @@ def drivers_on_card(dev, counters, card: str) -> dict:
             raise AssertionError(f"tiny test_sgg rel_prob: card vs CPU "
                                  f"{worst_sgg} > {TINY_TOL['rel_prob']}")
         rec["tiny"] = dict(worst, test_sgg_rel_prob=worst_sgg)
+        rec["files"] = {
+            "data": roots["16:9"], "det": det_ck, "sgg": sgg_ck,
+            "default_out": os.path.join(work, "out", "default"),
+            "det_tiny": os.path.join(ck, "det_tiny", "1"),
+            "sgg_tiny": os.path.join(ck, "sgg_tiny", "1")}
         log(f"tiny serve_video: validity, classes and pairs equal after "
             f"matching; boxes {worst['boxes']:.3g} px, scores "
             f"{worst['scores']:.3g}, rel_prob {worst['rel_prob']:.3g} (tols "
@@ -2011,7 +2038,6 @@ def drivers_on_card(dev, counters, card: str) -> dict:
             os.environ.pop("I2VSGG_DATA_ROOT", None)
         else:
             os.environ["I2VSGG_DATA_ROOT"] = saved_env
-        shutil.rmtree(work, ignore_errors=True)
     return rec
 
 
@@ -2336,7 +2362,7 @@ def train_driver_on_card(dev, counters, card: str, work: str) -> dict:
                    if f.startswith("det_test_")]
         if len(results) != 15:
             raise AssertionError(f"14c test_det wrote {len(results)} files")
-        rec.update(losses=[r["loss"] for r in logged],
+        rec.update(losses=[r["loss"] for r in logged], logged=logged,
                    imgs_per_sec=[r["imgs_per_sec"] for r in logged],
                    test_det_mAP=float(aps["mAP"]),
                    test_det_launches={k: v for k, v in
@@ -2697,7 +2723,7 @@ def train_sgg_driver_on_card(dev, counters, card: str, work: str,
             frames = json.load(fh)
         if sum(len(v) for v in frames.values()) != 12:
             raise AssertionError(f"15c frame_detections: {list(frames)}")
-        rec.update(losses=[r["loss"] for r in logged],
+        rec.update(losses=[r["loss"] for r in logged], logged=logged,
                    imgs_per_sec=[r["imgs_per_sec"] for r in logged],
                    test_sgg_mAP=float(res[0]), test_sgg_launches=launched)
         log(f"15c: trainval_sgg trained 3 steps in {rec['train_s']:.1f} s "
@@ -2792,8 +2818,9 @@ def stage_b_on_card(dev, counters, card: str, work: str,
 
 
 def training_phases(dev, counters, card: str) -> tuple:
-    """Phases 14, 15 and 16b in one work directory (14c's devkits and Stage
-    A checkpoint are phase 15's and 16b's start), removed afterwards."""
+    """Phases 14, 15, 16b, 17a and 17b in one work directory (14c's devkits
+    and Stage A checkpoint are phase 15's, 16b's and 17a's start), removed
+    afterwards."""
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         training = training_on_card(dev, counters, card, work)
@@ -2804,9 +2831,18 @@ def training_phases(dev, counters, card: str) -> tuple:
               "a still (JPEG decode + resize), then test_det on MVRD_test at "
               "full width from 14c's checkpoint")
         mvrd = mvrd_eval_on_card(counters, card, work, d["stage_a"])
+        phase("17a the training drivers under torchrun (NCCL, world size 1, "
+              "--mesh 1): 14c's run for 3 steps, --r to 4, and 15c's for 3 "
+              "steps; step 1 against theirs")
+        dp = {"17a torchrun": torchrun_training(card, work, training,
+                                                stage_b)}
+        phase("17b two gloo ranks on the one card at batch 1 against one "
+              "process at batch 2: 14d's tiny Stage A and 15d's tiny Stage "
+              f"B, {DP_STEPS} steps")
+        dp["17b gloo"] = gloo_ranks_on_card(dev, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return training, stage_b, mvrd
+    return training, stage_b, mvrd, dp
 
 
 # ----------------------------------------------------------------------------
@@ -3138,6 +3174,614 @@ def chain_depths(depths=(16, 32, 64), seeds: int = 3) -> int:
                     f"{held(x, wts, f'depth {depth}')}")
     print(smi_name_power() or torch.cuda.get_device_name(0), flush=True)
     return 0
+
+
+# ----------------------------------------------------------------------------
+# phase 17: data parallelism (``parallel/mesh.py``): the training drivers
+# under torchrun (NCCL, world size 1), two gloo ranks on the one card against
+# one process, and serving over a mesh of two replicas on cuda:0
+
+# 17a's step 1 against the non-distributed driver's step 1 (14c, 15c) on the
+# same weights and data: the same kernels and cuDNN algorithms, the all-reduce
+# of one rank a copy; bit-equal predicted, held to this
+DP_STEP1_RTOL = 1e-5
+# 17b: the two-rank run's metrics and its updates after DP_STEPS steps
+# against one process at batch 2, by 14d's and 15d's limits, at an lr of
+# DP_LR (at 14d's 1e-3 the tiny detector's RPN loss grows from 60 to ~3400
+# in one step, and the second step magnifies the last bits of netD_style's
+# updates past 14d's gradient limits: measured on the CPU)
+DP_STEPS = 2
+DP_LR = 1e-4
+# 17c: the sharded program is held bit for bit to the unsharded program on
+# each replica's own rows (the batch size of the replica); against the
+# unsharded program on the whole 4-frame request it is measured, not held:
+# the same frame in a batch of 2 and of 4 takes other cuDNN and cuBLAS
+# algorithms in bf16, and the random-weight detector's near-ties then pick
+# other detections (measured on an H100: a 508 px gap after matching).
+# MATCH_PX: a detection of the whole request counts as found in the sharded
+# output where one of its class lies within this many pixels
+MATCH_PX = 4.0
+# 17c's ragged tail: one video of 5 frames at --bs 4 --mesh 2 (a tail of 1
+# frame, padded to the two replicas), against --mesh 0 at --bs 2, the
+# replicas' batch: each program call then sees the same frames in both runs
+# and the files must be equal (at --bs 4 the same frame in a batch of 4 and
+# of 2 takes other cuDNN algorithms, and the random detector's near-ties
+# move: 0.21 px between two CPU runs of one configuration)
+DEVKIT_RAGGED = dict(DEVKIT, videos=1, frames=5)
+
+
+def rank_driver(argv: list) -> int:
+    """``python3 chip_smoke.py --rank-driver <module> <out.json> <args>``,
+    the process that ``torch.distributed.run`` starts for each rank in phase
+    17a: the port's training driver ``module`` (its ``main(args)``, which
+    joins the process group from torchrun's variables), with the kernels'
+    launch counters set to 0 just before and read just after; then the
+    all-reduce of the last step's gradients timed by CUDA events
+    (``all_reduce_grads``: flatten, NCCL, copy back). Rank 0 writes the
+    record to ``out.json``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    import importlib
+    from i2vsgg_tpu_torch.parallel import mesh
+    module, out_path, args = argv[0], argv[1], argv[2:]
+    counters = Counters()
+    counters.reset()
+    t = time.time()
+    state = importlib.import_module(module).main(args)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launched = counters.read()
+    params = state.optimizer.params()
+    nbytes = sum(p.grad.numel() * p.grad.element_size() for p in params)
+    ar_ms = cuda_ms(lambda: mesh.all_reduce_grads(params), 10)
+    rec = {"rank": mesh.process_index(), "world": mesh.process_count(),
+           "backend": mesh.backend(), "step": state.step,
+           "device": str(next(state.model.parameters()).device),
+           "lr": state.optimizer.opt.param_groups[0]["lr"],
+           "launches": launched, "wall_s": wall, "allreduce_ms": ar_ms,
+           "allreduce_bytes": nbytes, "allreduce_tensors": len(params)}
+    if mesh.process_index() == 0:
+        with open(out_path, "w") as fh:
+            json.dump(rec, fh)
+    return 0
+
+
+def torchrun(module: str, args: list, out: str, timeout_s: int = 600
+             ) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    over this script's ``--rank-driver`` (the driver ``module`` with
+    ``args``); a failed or hung rank fails the phase. Returns rank 0's
+    record."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--rank-driver", module, out] + args
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout_s)
+    if proc.returncode:
+        raise AssertionError(f"torchrun {module}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    printed = [line for line in proc.stdout.splitlines()
+               if line.startswith("data parallel:")]
+    with open(out) as fh:
+        rec = json.load(fh)
+    rec["printed"] = printed
+    return rec
+
+
+def step1_vs(logged_dp: list, logged_ref: list, what: str) -> float:
+    """Step 1's losses of a distributed run against the non-distributed
+    driver's (every ``loss*`` metric): the largest relative gap, held to
+    ``DP_STEP1_RTOL``."""
+    a, b = logged_dp[0], logged_ref[0]
+    keys = [k for k in b if k.startswith(("loss", "dloss"))]
+    gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys)
+    if not (a["step"] == b["step"] == 1 and gap <= DP_STEP1_RTOL):
+        raise AssertionError(f"{what}: step 1 {a} vs {b}: {gap} > "
+                             f"{DP_STEP1_RTOL}")
+    return gap
+
+
+def torchrun_training(card: str, work: str, training: dict,
+                      stage_b: dict) -> dict:
+    """17a (see the module docstring): 14c's and 15c's runs again, each a
+    process that torchrun starts (NCCL, world size 1, ``--mesh 1``), on
+    their devkit and from their checkpoints under ``work``."""
+    d14, d15 = training["14c driver"], stage_b["15c driver"]
+    rec = {}
+    out = os.path.join(work, "out_dp")
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+    try:
+        common = TRAIN_ARGS + ["--save_dir", out, "--disp_interval", "1",
+                               "--mesh", "1"]
+        module = "i2vsgg_tpu_torch.tools.trainval_det_da"
+        a = torchrun(module, common + [
+            "--max_steps", "3", "--load_name",
+            os.path.join(work, "init", "0")], os.path.join(work, "a.json"))
+        # --resume, not --r: torchrun's parser would take --r for its own
+        r = torchrun(module, common + ["--max_steps", "4", "--resume"],
+                     os.path.join(work, "a_r.json"))
+        ck = os.path.join(out, "res101", "MVRD", "session_1")
+        with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        per_step = dict(NO_LAUNCHES, roi_align=2)
+        for run, steps in ((a, 3), (r, 1)):
+            if (run["backend"], run["world"]) != ("nccl", 1) or \
+                    run["launches"] != {k: v * steps
+                                        for k, v in per_step.items()}:
+                raise AssertionError(f"17a Stage A: {run}")
+        if (a["step"], r["step"]) != (3, 4) or \
+                [x["step"] for x in logged] != [1, 2, 3, 4] or \
+                not all(np.isfinite(x["loss"]) for x in logged) or \
+                not os.path.isdir(os.path.join(ck, "step_00000004")):
+            raise AssertionError(f"17a Stage A: steps {a['step']}, "
+                                 f"{r['step']}; logged {logged}")
+        gap = step1_vs(logged, d14["logged"], "17a Stage A")
+        rec["stage_a"] = dict(run=a, resume=r, step1_rtol=gap,
+                              losses=[x["loss"] for x in logged],
+                              imgs_per_sec=[x["imgs_per_sec"]
+                                            for x in logged])
+        log(f"17a Stage A under torchrun: {a['printed']}; backend "
+            f"{a['backend']}, world {a['world']}, {a['device']}; launches "
+            f"{ {k: v for k, v in a['launches'].items() if v} } in 3 steps, "
+            f"--r to step {r['step']} (lr {r['lr']:g}); step 1's losses "
+            f"within {gap:.3g} of 14c's (tol {DP_STEP1_RTOL:g}); losses "
+            f"{[round(x['loss'], 4) for x in logged]}, images/s "
+            f"{[round(x['imgs_per_sec'], 3) for x in logged]} (14c "
+            f"{[round(x, 3) for x in d14['imgs_per_sec']]}); all-reduce of "
+            f"{a['allreduce_tensors']} gradients ({a['allreduce_bytes']} B) "
+            f"{a['allreduce_ms']:.3f} ms [{card}]")
+
+        out_b = os.path.join(work, "out_dp_sgg")
+        b = torchrun("i2vsgg_tpu_torch.tools.trainval_sgg", SGG_ARGS + [
+            "--save_dir", out_b, "--disp_interval", "1", "--max_steps", "3",
+            "--mesh", "1", "--load_name", d14["stage_a"],
+            "--source_gt_rels_path", d14["devkit"]["mvrd_gt_rels"]],
+            os.path.join(work, "b.json"))
+        ck = os.path.join(out_b, "res101", "MVRD_SGG", "session_1")
+        with open(os.path.join(ck, "logs", "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        if (b["backend"], b["world"], b["step"]) != ("nccl", 1, 3) or \
+                b["launches"] != dict(NO_LAUNCHES, roi_pool=3) or \
+                [x["step"] for x in logged] != [1, 2, 3] or \
+                not all(np.isfinite(x["loss"]) for x in logged):
+            raise AssertionError(f"17a Stage B: {b}; logged {logged}")
+        gap_b = step1_vs(logged, d15["logged"], "17a Stage B")
+        rec["stage_b"] = dict(run=b, step1_rtol=gap_b,
+                              losses=[x["loss"] for x in logged],
+                              imgs_per_sec=[x["imgs_per_sec"]
+                                            for x in logged])
+        log(f"17a Stage B under torchrun: {b['printed']}; launches "
+            f"{ {k: v for k, v in b['launches'].items() if v} } in 3 steps; "
+            f"step 1's loss within {gap_b:.3g} of 15c's; losses "
+            f"{[round(x['loss'], 4) for x in logged]}, images/s "
+            f"{[round(x['imgs_per_sec'], 3) for x in logged]} (15c "
+            f"{[round(x, 3) for x in d15['imgs_per_sec']]}); all-reduce of "
+            f"{b['allreduce_tensors']} gradients ({b['allreduce_bytes']} B) "
+            f"{b['allreduce_ms']:.3f} ms [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
+
+
+def tiny_dp_steps(stage: str, dev, rows: slice) -> list:
+    """17b's run: ``DP_STEPS`` steps of 14d's tiny Stage A (``stage`` "a":
+    res10 ic+gc+cr, f32, deterministic sampling) or of 15d's tiny Stage B
+    ("b": dropout 0; image 1 keeps 2 of its valid pairs, so that the images'
+    counts differ) on the ``rows`` of their two-frame batch, each model
+    built from its seed, TF32 off. In a process group the step is the
+    global batch's. Returns per step the metrics and the parameters."""
+    from i2vsgg_tpu_torch.config import Config
+    from i2vsgg_tpu_torch.train import det_da, sgg
+    from i2vsgg_tpu_torch.train.optim import ReferenceSGD
+    steps = []
+    with tf32_off():
+        if stage == "a":
+            cfg = Config().replace(
+                TRAIN=Config().TRAIN.__class__(
+                    RPN_PRE_NMS_TOP_N=200, RPN_POST_NMS_TOP_N=32,
+                    RPN_POST_NMS_TOP_N_TARGET=16, RPN_BATCHSIZE=32,
+                    BATCH_SIZE=16, MAX_NUM_GT_BOXES=30),
+                COMPUTE_DTYPE="float32", ANCHOR_SCALES=(1, 2, 4))
+            model = training_model(cfg, TRAIN_TINY, 4)
+            with torch.no_grad():
+                model.rpn.cls_score.weight.mul_(40.0)
+            model.to(dev)
+            src, tgt = ({k: torch.as_tensor(v[rows], device=dev)
+                         for k, v in b.items()}
+                        for b in train_frames(TRAIN_TINY, 4,
+                                              TRAIN_TINY["frames"]))
+            state = det_da.TrainState(model, ReferenceSGD(model, DP_LR,
+                                                          cfg), seed=4)
+
+            def step():
+                return det_da.train_step(state, src, tgt, eta=0.1,
+                                         eta_style=0.01, style_lambda=1.0,
+                                         cr=True)
+        else:
+            from i2vsgg_tpu_torch.cli.args import parse_args, set_dataset_args
+            args = set_dataset_args(parse_args(
+                ["--net", "res10", "--num_relations", "7", "--max_pairs",
+                 "12"]))
+            cfg = Config().replace(COMPUTE_DTYPE="float32")
+            model = sgg_training_model(args, cfg, "pool", 5, fc_dim=128,
+                                       dropout_rate=0.0).to(dev)
+            batch = sgg_batches(SGG_TINY, 5, 12, 7, dev)
+            kept = batch["pair_valid"][1].nonzero()[:2, 0]
+            batch["pair_valid"][1] = False
+            batch["pair_valid"][1, kept] = True
+            batch = {k: v[rows] for k, v in batch.items()}
+            prd = torch.as_tensor(np.random.RandomState(5).randn(
+                7, 300).astype(np.float32), device=dev)
+            state = det_da.TrainState(model, sgg.sgg_optimizer(model, DP_LR,
+                                                               cfg), seed=5)
+
+            def step():
+                return sgg.train_step(state, batch, prd)
+        params = lambda: {n: p.detach().cpu().clone()          # noqa: E731
+                          for n, p in model.named_parameters()
+                          if p.requires_grad}
+        steps.append({"params": params()})
+        for _ in range(DP_STEPS):
+            m = step()
+            steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                          "params": params()})
+    return steps
+
+
+def gloo_rank(argv: list) -> int:
+    """``python3 chip_smoke.py --gloo-rank <rank> <world> <rendezvous file>
+    <stage> <out.pt>``, one of phase 17b's ranks: it joins a gloo group on
+    the card (NCCL refuses two ranks on one device) through the file
+    rendezvous itself, then the port's ``maybe_init_distributed`` must find
+    it; runs ``tiny_dp_steps`` on its row of the batch and saves them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    import datetime
+    import torch.distributed as dist
+    from i2vsgg_tpu_torch.parallel import mesh
+    from i2vsgg_tpu_torch.utils import cuda_build
+    rank, world, rdv, stage, out = (int(argv[0]), int(argv[1]), argv[2],
+                                    argv[3], argv[4])
+    # which RoI libraries this rank has to build (17b removes them first)
+    cold = {src: not cuda_build.library_path(src).exists()
+            for src in ("roi_align.cu", "roi_pool.cu")}
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    if not mesh.maybe_init_distributed("cuda") or mesh.backend() != "gloo":
+        raise AssertionError("the port did not take the harness's group")
+    os.environ["I2VSGG_DETERMINISTIC_SAMPLING"] = "1"
+    torch.save({"steps": tiny_dp_steps(stage, torch.device("cuda"),
+                                       slice(rank, rank + 1)),
+                "cold": cold}, out)
+    mesh.sync_global_devices("done")
+    dist.destroy_process_group()
+    return 0
+
+
+def updates_vs(got: list, ref: list, tol: dict, what: str) -> dict:
+    """``got``'s run against ``ref``'s, step by step: the metrics within
+    ``loss_rtol``, each tensor's update since the start at cosine >=
+    ``grad_cos`` (14d's and 15d's limits), and each parameter within rtol
+    1e-5 with an atol of 1e-3 of its tensor's largest update (the rule of
+    tests/test_torch_train_step.py and tests/test_torch_parallel.py for a
+    step: ``param_rule`` <= 1). 14d's and 15d's ``grad_frac`` (a gradient's
+    gap over its norm, card against CPU) is reported over the whole update
+    and not held: a batch split in two moves an update further (on the CPU,
+    Stage B at 7.4e-6 of the whole update against 15d's 2e-6; netD_style's
+    biases, whose update is ~1e-6, at ~7e-4 of their own). Returns the
+    worst of each."""
+    worst = {"loss_rtol": 0.0, "grad_cos": 1.0, "param_rule": 0.0,
+             "grad_frac": 0.0}
+    for i in range(1, len(ref)):
+        for k, v in ref[i]["metrics"].items():
+            worst["loss_rtol"] = max(worst["loss_rtol"], abs(
+                got[i]["metrics"][k] - v) / max(abs(v), 1e-6))
+        ups = {n: ((got[i]["params"][n] - got[0]["params"][n]).double(),
+                   (p - ref[0]["params"][n]).double())
+               for n, p in ref[i]["params"].items()}
+        whole = float(torch.cat([u.flatten() for _, u in ups.values()])
+                      .norm())
+        for n, (g, u) in ups.items():
+            p = ref[i]["params"][n].double()
+            gap = (got[i]["params"][n].double() - p).abs()
+            allow = 1e-5 * p.abs() + max(1e-3 * float(u.abs().max()), 1e-12)
+            worst["param_rule"] = max(worst["param_rule"],
+                                      float((gap / allow).max()))
+            worst["grad_frac"] = max(worst["grad_frac"], float(
+                (g - u).abs().max()) / max(whole, 1e-12))
+            if float(u.norm()) > 0:
+                worst["grad_cos"] = min(worst["grad_cos"], float(
+                    (g * u).sum() / (g.norm() * u.norm())))
+    if not (worst["loss_rtol"] <= tol["loss_rtol"]
+            and worst["grad_cos"] >= tol["grad_cos"]
+            and worst["param_rule"] <= 1.0):
+        raise AssertionError(f"{what}: {worst} out of bounds {tol} (and "
+                             "param_rule 1)")
+    return worst
+
+
+def gloo_ranks_on_card(dev, card: str) -> dict:
+    """17b (see the module docstring): for Stage A (``TRAIN_TINY_TOL``) and
+    Stage B (``SGG_TINY_TOL``), two gloo ranks on cuda:0 at batch 1 against
+    this process at batch 2: the ranks bit-equal to each other, their
+    metrics and updates after ``DP_STEPS`` steps within the limits. The
+    built RoI libraries are removed first, so that both ranks of a stage
+    build its RoI kernel at once (RoIAlign for Stage A, RoIPool for Stage
+    B): ``utils/cuda_build.py`` writes aside and renames over."""
+    from i2vsgg_tpu_torch.utils import cuda_build
+    rec = {}
+    for src in ("roi_align.cu", "roi_pool.cu"):
+        cuda_build.library_path(src).unlink(missing_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    saved = os.environ.get("I2VSGG_DETERMINISTIC_SAMPLING")
+    try:
+        for stage, tol in (("a", TRAIN_TINY_TOL), ("b", SGG_TINY_TOL)):
+            outs = [os.path.join(work, f"{stage}{r}.pt") for r in range(2)]
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                 str(r), "2", os.path.join(work, f"{stage}.rendezvous"),
+                 stage, outs[r]], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            os.environ["I2VSGG_DETERMINISTIC_SAMPLING"] = "1"
+            one = tiny_dp_steps(stage, dev, slice(None))
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=600)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            for p, text in zip(procs, logs):
+                if p.returncode:
+                    raise AssertionError(f"17b {stage}: a rank failed "
+                                         f"({p.returncode}):\n{text[-3000:]}")
+            (r0, cold0), (r1, cold1) = ((d["steps"], d["cold"]) for d in (
+                torch.load(o, weights_only=False) for o in outs))
+            lib = "roi_align.cu" if stage == "a" else "roi_pool.cu"
+            if not (cold0[lib] and cold1[lib]
+                    and cuda_build.library_path(lib).exists()):
+                raise AssertionError(f"17b {stage}: the ranks did not both "
+                                     f"build {lib} ({cold0}, {cold1})")
+            for a, b in zip(r0, r1):
+                if a.get("metrics") != b.get("metrics") or any(
+                        not torch.equal(a["params"][n], b["params"][n])
+                        for n in a["params"]):
+                    raise AssertionError(f"17b {stage}: the ranks differ")
+            worst = updates_vs(r0, one, tol, f"17b Stage {stage.upper()}")
+            rec[f"stage_{stage}"] = dict(worst, tolerances=tol,
+                                         built_at_once=lib,
+                                         metrics=[s["metrics"]
+                                                  for s in r0[1:]])
+            log(f"17b Stage {stage.upper()}: two gloo ranks on {dev} (both "
+                f"built {lib} cold, at once) at "
+                f"batch 1, bit-equal to each other, against one process at "
+                f"batch 2 after {DP_STEPS} steps: metrics rtol "
+                f"{worst['loss_rtol']:.3g} (tol {tol['loss_rtol']:g}), least "
+                f"update cosine {worst['grad_cos']:.8f} (tol "
+                f"{tol['grad_cos']}), parameters at {worst['param_rule']:.3g}"
+                f" of the step rule's allowance; largest update gap "
+                f"{worst['grad_frac']:.3g} of the whole update (reported); "
+                f"metrics {r0[-1]['metrics']} [{card}]")
+    finally:
+        if saved is None:
+            os.environ.pop("I2VSGG_DETERMINISTIC_SAMPLING", None)
+        else:
+            os.environ["I2VSGG_DETERMINISTIC_SAMPLING"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+PROGRAM_KEYS = ("boxes", "scores", "classes", "det_valid", "rel_prob",
+                "pair_valid")
+
+
+def whole_request_gap(got: list, ref: list) -> dict:
+    """A sharded program's outputs against the unsharded program's on the
+    whole requests, measured: whether they are bit-equal, and how many of
+    the reference's valid detections the sharded output has (a valid
+    detection of the same class within ``MATCH_PX`` px) and the largest
+    gap among those."""
+    equal, total, found, gap = True, 0, 0, 0.0
+    for g, r in zip(got, ref):
+        g = {k: g[k].cpu() for k in PROGRAM_KEYS}
+        r = {k: r[k].cpu() for k in PROGRAM_KEYS}
+        equal = equal and all(torch.equal(g[k], r[k]) for k in PROGRAM_KEYS)
+        for f, i in r["det_valid"].nonzero().tolist():
+            total += 1
+            same = g["det_valid"][f] & (g["classes"][f] == r["classes"][f, i])
+            if bool(same.any()):
+                d = float((g["boxes"][f][same].float()
+                           - r["boxes"][f, i].float()).abs().amax(-1).min())
+                if d <= MATCH_PX:
+                    found += 1
+                    gap = max(gap, d)
+    return {"bit_equal": equal, "detections": total, "found": found,
+            "found_gap_px": gap}
+
+
+@contextlib.contextmanager
+def meshes_on_one_card(dev):
+    """Within the block, ``make_mesh(n, ...)`` gives ``n`` times ``dev``:
+    the drivers' ``--mesh n`` on the one card of this machine."""
+    from i2vsgg_tpu_torch.parallel import mesh
+    real = mesh.make_mesh
+    mesh.make_mesh = lambda n=0, device="cuda": [torch.device(dev)] * max(
+        n, 1)
+    try:
+        yield
+    finally:
+        mesh.make_mesh = real
+
+
+def serving_over_mesh(dev, counters, card: str, det, sgg, sgg_align, prd,
+                      cfg, drivers: dict) -> dict:
+    """17c (see the module docstring): the frame program over
+    ``make_mesh([cuda:0, cuda:0])`` against the unsharded program, host
+    planes under align (B1, B3) and f32 images under pool (B2); the last
+    request's kernels held per replica; then ``serve_video`` with
+    ``--mesh 1`` against phase 13b's ``--mesh 0`` run, and a ragged tail at
+    ``--bs 4 --mesh 2`` against ``--bs 2 --mesh 0`` (``DEVKIT_RAGGED``)."""
+    from i2vsgg_tpu_torch import serve
+    from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+    from i2vsgg_tpu_torch.parallel import mesh
+    from i2vsgg_tpu_torch.tools import serve_video
+    rec = {}
+    b = FULL["frames"]
+    kw = dict(max_det=FULL["max_det"], max_per_class=FULL["max_per_class"])
+    grid = mesh.make_mesh([dev, dev])
+    requests = [make_inputs(FULL, 40 + i) for i in range(FULL["requests"])]
+    saved_det = torch.backends.cudnn.deterministic
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, head, to_input, per in (
+                ("host planes, align", sgg_align,
+                 lambda r: (Conv1Planes.pack(r[0]), r[1]),
+                 dict(NO_LAUNCHES, conv1=1, roi_align=2 + b)),
+                ("f32 images, pool", sgg, lambda r: r,
+                 dict(NO_LAUNCHES, roi_align=2, roi_pool=b))):
+            what = f"17c {name}"
+            t = time.time()
+            replicas = mesh.replicate((det, head), grid)
+            programs = [serve.make_frame_program(d, s, prd, cfg, device=m,
+                                                 **kw)
+                        for (d, s), m in zip(replicas, grid)]
+            sharded = serve.make_sharded_program(programs, grid)
+            torch.cuda.synchronize()
+            build_s = time.time() - t
+            unsharded = serve.make_frame_program(det, head, prd, cfg,
+                                                 device=dev, **kw)
+            # the stem and the detector's two RoIAlign sites run once a
+            # replica, the head's site once a frame
+            per_mesh = dict(per, conv1=2 * per["conv1"],
+                            roi_align=per["roi_align"] + 2)
+            outs, times = serve_requests(sharded, requests, to_input,
+                                         counters, per_mesh, what)
+            for out in outs:
+                check_outputs(out, FULL)
+            ref, ref_times = serve_requests(unsharded, requests, to_input,
+                                            counters, per,
+                                            f"{what}: unsharded")
+            # each replica against the unsharded program on its own rows:
+            # the same shapes, so the same algorithms: bit-equal
+            for req, out in zip(requests, outs):
+                x, info = to_input(req)
+                for i in range(len(grid)):
+                    rows = range(i * b // 2, (i + 1) * b // 2)
+                    part = unsharded(mesh.take_rows(x, rows),
+                                     info[list(rows)])
+                    for k in PROGRAM_KEYS:
+                        if not torch.equal(part[k].cpu(),
+                                           out[k][list(rows)].cpu()):
+                            raise AssertionError(f"{what}: replica {i}'s "
+                                                 f"{k} != the unsharded "
+                                                 "program on its rows")
+            cmp = whole_request_gap(outs, ref)
+            x, info = to_input(requests[-1])
+            held = {"sites": held_request_sites(what, sharded, (x, info),
+                                                {k: per_mesh[k] for k in (
+                                                    "roi_align",
+                                                    "roi_pool")}, card)}
+            if per["conv1"]:
+                held["conv1"] = [held_conv1_planes(
+                    d, mesh.take_rows(x, range(i * b // 2,
+                                               (i + 1) * b // 2)).to(
+                        m).planes, FULL["height"], FULL["width"],
+                    f"{what} replica {i} conv1 stem", card)
+                    for i, ((d, _), m) in enumerate(zip(replicas, grid))]
+            rec[name] = dict(cmp, ms_per_request=steady_ms(times),
+                             unsharded_ms_per_request=steady_ms(ref_times),
+                             request_ms=times, build_s=build_s,
+                             launches_per_request=per_mesh, **held)
+            log(f"{what}: two replicas on {dev}; each replica bit-equal to "
+                f"the unsharded program on its own rows; against the "
+                f"unsharded program on the whole request (measured): "
+                f"bit-equal {cmp['bit_equal']}, {cmp['found']} of "
+                f"{cmp['detections']} detections found within {MATCH_PX} px "
+                f"(largest gap {cmp['found_gap_px']:.3g} px); steady "
+                f"{rec[name]['ms_per_request']:.2f} ms/request against "
+                f"{rec[name]['unsharded_ms_per_request']:.2f} unsharded "
+                f"[{card}]")
+            del replicas, programs, sharded, unsharded
+            torch.cuda.empty_cache()
+
+        files = drivers["files"]
+        os.environ["I2VSGG_DATA_ROOT"] = files["data"]
+        out = os.path.join(os.path.dirname(files["default_out"]), "mesh1")
+        argv = DRIVER_FULL + ["--load_name", files["det"], "--sgg_load_name",
+                              files["sgg"], "--max_det", str(FULL["max_det"]),
+                              "--save_dir", out, "--mesh", "1"]
+        n_req = DEVKIT["videos"] * DEVKIT["frames"] // b
+        t = time.time()
+        _, launched = driver_launches(
+            counters, "17c serve_video --mesh 1", lambda: serve_video.main(
+                argv), dict(NO_LAUNCHES, roi_align=2, roi_pool=b), n_req)
+        wall = time.time() - t
+        rel = os.path.join("serve", "MVidVRD_test", "frame_detections.json")
+        with open(os.path.join(out, rel)) as fh, \
+                open(os.path.join(files["default_out"], rel)) as fh0:
+            if json.load(fh) != json.load(fh0):
+                raise AssertionError("17c serve_video --mesh 1: "
+                                     "frame_detections.json != --mesh 0's")
+        rec["serve_video mesh 1"] = {"wall_s": wall, "launches": {
+            k: v // n_req for k, v in launched.items() if v}}
+        log(f"17c serve_video --mesh 1 at full width: frame_detections.json "
+            f"equal to 13b's --mesh 0 run; {wall:.2f} s with model build and "
+            f"load [{card}]")
+
+        root = os.path.join(os.path.dirname(files["data"]), "data_ragged")
+        write_devkit(root, seed=2, shape=DEVKIT_RAGGED)
+        os.environ["I2VSGG_DATA_ROOT"] = root
+        runs, launches = {}, {}
+        for m, bs in (("0", "2"), ("2", "4")):
+            runs[m] = os.path.join(root, f"out_mesh{m}")
+            argv = DRIVER_TINY + ["--bs", bs, "--max_det", "4",
+                                  "--load_name", files["det_tiny"],
+                                  "--sgg_load_name", files["sgg_tiny"],
+                                  "--save_dir", runs[m], "--mesh", m]
+            counters.reset()
+            with tf32_off(), meshes_on_one_card(dev):
+                serve_video.main(argv)
+            torch.cuda.synchronize()
+            launches[m] = {k: v for k, v in counters.read().items() if v}
+        # 5 frames: at --bs 2 three program calls; at --bs 4 over 2
+        # replicas four, the tail frame padded to 2 (one copy)
+        frames = DEVKIT_RAGGED["frames"]
+        want = {"0": {"roi_align": 2 * 3, "roi_pool": frames},
+                "2": {"roi_align": 2 * 4, "roi_pool": frames + 1}}
+        if launches != want:
+            raise AssertionError(f"17c ragged: launches {launches}, "
+                                 f"expected {want}")
+        with open(os.path.join(runs["0"], rel)) as fh, \
+                open(os.path.join(runs["2"], rel)) as fh2:
+            got0, got2 = json.load(fh), json.load(fh2)
+        n = sum(len(t) for v in got0.values() for _, t in v)
+        if got0 != got2 or not n:
+            raise AssertionError("17c ragged: --bs 4 --mesh 2's "
+                                 "frame_detections.json != --bs 2 --mesh "
+                                 f"0's ({n} tuples)")
+        rec["ragged"] = dict(tuples=n, launches=launches)
+        log(f"17c ragged tail: {frames} frames at --bs 4 --mesh 2 (two "
+            f"replicas on {dev}; the tail of 1 frame padded to 2): "
+            f"frame_detections.json ({n} tuples) equal to --bs 2 --mesh "
+            f"0's; launches {launches}")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
 
 
 def main() -> int:
@@ -4172,16 +4816,29 @@ def main() -> int:
         small_card_vs_cpu(name, spec, cfg12, extra, per, counters, dev,
                           imgs_s, info_s)
 
-    drivers = drivers_on_card(dev, counters, card)
-    phase("16a JPEG decode: the decoder built with the host compiler, every "
-          "committed fixture held to its golden, the refused ones refused, "
-          "decode times beside PNG (16b runs after phase 15)")
-    jpeg_rec = {"16a fixtures": jpeg_fixtures_on_host(card)}
-    training, stage_b, jpeg_rec["16b mvrd"] = training_phases(dev, counters,
-                                                              card)
+    work13 = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    try:
+        drivers = drivers_on_card(dev, counters, card, work13)
+        phase("16a JPEG decode: the decoder built with the host compiler, "
+              "every committed fixture held to its golden, the refused ones "
+              "refused, decode times beside PNG (16b runs after phase 15)")
+        jpeg_rec = {"16a fixtures": jpeg_fixtures_on_host(card)}
+        training, stage_b, jpeg_rec["16b mvrd"], dp = training_phases(
+            dev, counters, card)
+        phase("17c serving over a mesh of two replicas on cuda:0 at full "
+              "width (host planes under align: B1, B3; f32 images under "
+              "pool: B2), 3 requests, each replica held to the unsharded "
+              "program on its rows, each replica's kernels held; "
+              "serve_video --mesh 1 against 13b's --mesh 0; a ragged tail "
+              "at --bs 4 --mesh 2 against --bs 2 --mesh 0")
+        dp["17c mesh"] = serving_over_mesh(dev, counters, card, det, sgg,
+                                           sgg_align, prd, cfg, drivers)
+    finally:
+        shutil.rmtree(work13, ignore_errors=True)
 
-    phase("17 results")
+    phase("18 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
+                      "data_parallel": dp,
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
@@ -4243,6 +4900,17 @@ def main() -> int:
         t = stage_b[run]
         kernels[name]["phase15_launches_per_step"] = t["launches_per_step"]
         kernels[name]["phase15_sites"] = t["sites"]
+    # the kernels at phase 17c's replicas (two on cuda:0, a request of
+    # 4 frames split 2 + 2)
+    mesh_rec = dp["17c mesh"]
+    for name in ("roi_pool", "roi_align"):
+        kernels[name]["phase17_sites"] = [
+            dict(t, path=path, site=key.split()[1])
+            for path in ("host planes, align", "f32 images, pool")
+            for key, t in mesh_rec[path]["sites"].items()
+            if key.startswith(name + " ")]
+    kernels["conv1"]["phase17_planes"] = mesh_rec["host planes, align"][
+        "conv1"]
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -4275,7 +4943,9 @@ def main() -> int:
                                                 "phase14_launches_per_step",
                                                 "phase14_sites",
                                                 "phase15_launches_per_step",
-                                                "phase15_sites")
+                                                "phase15_sites",
+                                                "phase17_sites",
+                                                "phase17_planes")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)
@@ -4285,6 +4955,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-driver"]:
+        sys.exit(rank_driver(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(gloo_rank(sys.argv[2:]))
     if sys.argv[1:] == ["--chain-depths"]:
         if not torch.cuda.is_available():
             print("chip_smoke: --chain-depths needs a CUDA card",

@@ -59,7 +59,9 @@ def parse_args(argv=None):
     p.add_argument("--lr_decay_step", default=5, type=int)
     p.add_argument("--lr_decay_gamma", default=0.1, type=float)
     p.add_argument("--s", dest="session", default=1, type=int)
-    p.add_argument("--r", dest="resume", action="store_true")
+    # --resume: under torchrun, whose own parser takes --r for an
+    # abbreviation of its options (--rdzv-*, --role, --run-path, ...)
+    p.add_argument("--r", "--resume", dest="resume", action="store_true")
     p.add_argument("--checksession", default=1, type=int)
     p.add_argument("--checkepoch", default=1, type=int)
     p.add_argument("--checkpoint", default=0, type=int)
@@ -129,8 +131,13 @@ def parse_args(argv=None):
                         "is refused")
     p.add_argument("--semi", action="store_true")
     p.add_argument("--mesh", default=0, type=int,
-                   help="data-parallel mesh size (not ported; refused by "
-                        "the drivers when set)")
+                   help="data parallelism. Training: the world size, one "
+                        "process a card (launch with torchrun "
+                        "--nproc_per_node N; --bs is per process); 0 takes "
+                        "the world size, another value is refused. "
+                        "serve_video: N local devices in one process (0: "
+                        "one device). test_det/test_sgg: ignored, they run "
+                        "on one device, as the JAX drivers do")
     p.add_argument("--pretrained_backbone", default="",
                    help="torch .pth (torchvision/caffe-converted layout) to "
                         "initialize the backbone from (reference: "
@@ -152,7 +159,8 @@ def parse_args(argv=None):
                    help="video_annotations JSON for relation metrics")
     p.add_argument("--profile_dir", default="",
                    help="trainval_det_da: a torch.profiler trace of "
-                        "steps 10-20 (trace.json)")
+                        "steps 10-20 (trace.json; under torchrun "
+                        "trace_rank<r>.json, one a rank)")
     p.add_argument("--cfg", dest="extra_cfgs", nargs="*", default=[],
                    help="extra KEY VALUE config overrides "
                         "(reference cfg_from_list format)")

@@ -44,6 +44,7 @@ import torch
 
 from i2vsgg_tpu_torch.config import Config
 from i2vsgg_tpu_torch.data.image_io import imread_bgr
+from i2vsgg_tpu_torch.parallel.mesh import host_shard
 
 __all__ = ["DEFAULT_BUCKETS", "DetectionLoader", "bucket_hw",
            "dequantize_image_u8", "imread_bgr", "prep_image",
@@ -146,6 +147,11 @@ class DetectionLoader:
     """Batched detection data iterator with a prefetch thread (the JAX
     ``DetectionLoader`` without its native C++ decode path).
 
+    Training: aspect-grouped batches of the ratio-sorted roidb in a seeded
+    random order; in a process group each rank takes its slice of it
+    (``parallel/mesh.py::host_shard``), every rank with the same ``seed``,
+    as every JAX host does.
+
     Eval (``training=False``): the roidb in order, batches of
     ``batch_size`` (the last one ragged), each image mean-subtracted f32
     (``image``) or, with ``uint8_transport``, resized uint8 BGR
@@ -173,6 +179,9 @@ class DetectionLoader:
         if training:
             roidb_sorted = [roidb[i] for i in ratio_index]
             self.entries = [e for e in roidb_sorted if not e.get("need_crop")]
+            # in a process group, each rank loads its contiguous slice of
+            # the ratio-sorted roidb (unchanged in one process)
+            self.entries = host_shard(self.entries, batch_size)
         else:
             self.entries = list(roidb)
         self.prefetch = prefetch

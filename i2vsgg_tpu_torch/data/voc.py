@@ -12,7 +12,8 @@ One generic class replaces the four near-identical reference dataset classes
   whose class name is not in the class list, records the ``difficult`` flag
   (``MVRD.py:203-260``).
 * ``gt_roidb`` is pickle-cached under ``<cache_dir>/<name>_gt_roidb.pkl``
-  (``MVRD.py:116-135``).
+  (``MVRD.py:116-135``), written atomically (the ranks of a process group
+  may write it at once).
 * horizontal-flip augmentation duplicates the index list with flipped boxes
   (``imdb.py:114-132``).
 * ``evaluate_detections`` writes VOC-style per-class result files and runs
@@ -122,8 +123,12 @@ class VOCDetectionDataset:
                 self._roidb = pickle.load(f)
             return self._roidb
         roidb = [self._parse_xml(idx) for idx in self._image_index]
-        with open(cache, "wb") as f:
+        # written aside, then renamed over: the ranks of a process group
+        # parse and write it at once, and none may read a partial file
+        part = f"{cache}.{os.getpid()}.part"
+        with open(part, "wb") as f:
             pickle.dump(roidb, f, pickle.HIGHEST_PROTOCOL)
+        os.replace(part, cache)
         self._roidb = roidb
         return roidb
 

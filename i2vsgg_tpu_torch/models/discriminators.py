@@ -40,15 +40,17 @@ def grad_reverse(x: torch.Tensor, lamb: float) -> torch.Tensor:
     return _GradReverse.apply(x, float(lamb))
 
 
-def lsgan_source_loss(d_out: torch.Tensor) -> torch.Tensor:
-    """0.5 * mean(D^2): the source pushed toward 0.
+def lsgan_source_loss(d_out: torch.Tensor, count) -> torch.Tensor:
+    """0.5 * mean(D^2), the source pushed toward 0: the sum over ``count``,
+    the global batch's count of outputs (one process: ``d_out.numel()``).
     [trainval_net_instance_styleD_bilinear.py:284-285]"""
-    return 0.5 * (d_out ** 2).mean()
+    return 0.5 * (d_out ** 2).sum() / count
 
 
-def lsgan_target_loss(d_out: torch.Tensor) -> torch.Tensor:
-    """0.5 * mean((1 - D)^2): the target pushed toward 1. [trainval...:293-295]"""
-    return 0.5 * ((1.0 - d_out) ** 2).mean()
+def lsgan_target_loss(d_out: torch.Tensor, count) -> torch.Tensor:
+    """0.5 * mean((1 - D)^2), the target pushed toward 1; ``count`` as in
+    ``lsgan_source_loss``. [trainval...:293-295]"""
+    return 0.5 * ((1.0 - d_out) ** 2).sum() / count
 
 
 class NetDPixel(nn.Module):

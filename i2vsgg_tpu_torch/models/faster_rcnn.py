@@ -31,6 +31,13 @@ proposals (``faster_rcnn.py:99-108``), the rois carry no gradient into the
 pooling, the ic and gc context features are computed a second time from a
 detached input (``:182-185, 237-240``), and random draws (anchor and roi
 sampling, VGG16's dropout) come from the ``torch.Generator`` passed in.
+
+The losses of ``train_source`` are those of the global batch, as JAX's SPMD
+step computes them: each is its local sum divided by the ``global_sum``
+(``parallel/mesh.py``) of its count (labelled anchors for ``rpn_loss_cls``,
+images for ``rpn_loss_box``, sampled rois for the RCNN terms), so the
+ranks' losses, and their gradients summed over the ranks, are the global
+batch's. Outside a process group the counts are this batch's.
 """
 
 from __future__ import annotations
@@ -51,16 +58,18 @@ from i2vsgg_tpu_torch.ops.anchors import generate_anchors, shifted_anchors
 from i2vsgg_tpu_torch.ops.boxes import smooth_l1_loss
 from i2vsgg_tpu_torch.ops.roi_align import roi_align_avg
 from i2vsgg_tpu_torch.ops.roi_pool import roi_pool
+from i2vsgg_tpu_torch.parallel.mesh import global_sum
 
 
-def masked_softmax_ce(logits, labels, mask):
-    """Cross entropy averaged over ``mask`` (labels clipped to the classes),
-    as JAX's ``_masked_softmax_ce``."""
+def masked_softmax_ce(logits, labels, mask, count):
+    """Cross entropy over ``mask`` (labels clipped to the classes), as JAX's
+    ``_masked_softmax_ce``: its sum divided by ``count`` (floored at 1), the
+    mask's sum over the global batch, so that the ranks' losses add up to
+    the loss of the global batch (one process: this batch's sum)."""
     labels = labels.clamp(0, logits.shape[-1] - 1)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    m = mask.to(logits.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return (nll * mask.to(logits.dtype)).sum() / count.clamp_min(1.0)
 
 
 def _is_resnet(backbone: str) -> bool:
@@ -266,16 +275,9 @@ class FasterRCNN_DA(nn.Module):
                 fg_fraction=t.RPN_FG_FRACTION, batch_size=t.RPN_BATCHSIZE)
                 for i in range(b)]
         labels = torch.stack([a.labels for a in at])
-        a = cfg.num_anchors
-        rpn_logits = torch.stack([rpn_cls[..., :a], rpn_cls[..., a:]],
-                                 dim=-1).reshape(b, -1, 2)
-        rpn_loss_cls = masked_softmax_ce(rpn_logits, labels, labels >= 0)
-        rpn_loss_box = smooth_l1_loss(
-            rpn_bbox.reshape(b, -1, 4),
-            torch.stack([a.bbox_targets for a in at]),
-            torch.stack([a.inside_weights for a in at])[..., None],
-            torch.stack([a.outside_weights for a in at])[..., None],
-            sigma=3.0, reduce_dims=(-1, -2))
+        rpn_targets = [torch.stack([getattr(a, k) for a in at])
+                       for k in ("bbox_targets", "inside_weights",
+                                 "outside_weights")]
 
         # proposal sampling, pooling, RCNN losses
         with torch.no_grad():
@@ -289,6 +291,21 @@ class FasterRCNN_DA(nn.Module):
                 bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS) for i in range(b)]
         rois = torch.stack([r.rois for r in rt])                # (B, S, 5)
         s = t.BATCH_SIZE
+        # the global batch's counts: labelled anchors, images, sampled rois
+        n_lab, n_img, n_roi = global_sum(torch.stack([
+            (labels >= 0).sum().float(),
+            torch.tensor(float(b), device=labels.device),
+            torch.tensor(float(b * s), device=labels.device)]))
+
+        a = cfg.num_anchors
+        rpn_logits = torch.stack([rpn_cls[..., :a], rpn_cls[..., a:]],
+                                 dim=-1).reshape(b, -1, 2)
+        rpn_loss_cls = masked_softmax_ce(rpn_logits, labels, labels >= 0,
+                                         n_lab)
+        rpn_loss_box = smooth_l1_loss(
+            rpn_bbox.reshape(b, -1, 4), rpn_targets[0],
+            rpn_targets[1][..., None], rpn_targets[2][..., None],
+            sigma=3.0, reduce_dims=(-1, -2), count=n_img)
         pooled = self.pool(base_feat, rois.reshape(b * s, 5).contiguous())
         d_instance = self.netD_pixel(pooled, eta)[0]
         feat_instance = (self.netD_pixel(pooled.detach(), eta)[1]
@@ -302,12 +319,13 @@ class FasterRCNN_DA(nn.Module):
                 bp, 1, labels_flat[:, None, None].expand(-1, 1, 4))[:, 0]
         rcnn_loss_cls = masked_softmax_ce(cls_score, labels_flat,
                                           torch.ones_like(labels_flat,
-                                                          dtype=torch.bool))
+                                                          dtype=torch.bool),
+                                          n_roi)
         rcnn_loss_bbox = smooth_l1_loss(
             bbox_pred, torch.cat([r.bbox_targets for r in rt]),
             torch.cat([r.inside_weights for r in rt]),
             torch.cat([r.outside_weights for r in rt]), sigma=1.0,
-            reduce_dims=(-1,))
+            reduce_dims=(-1,), count=n_roi)
         return {
             "rois": rois, "rois_label": labels_flat.reshape(b, s),
             "rpn_loss_cls": rpn_loss_cls, "rpn_loss_box": rpn_loss_box,

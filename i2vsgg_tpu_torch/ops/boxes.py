@@ -69,17 +69,19 @@ def encode_boxes(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
 
 
 def smooth_l1_loss(pred, targets, inside_w, outside_w, sigma: float = 1.0,
-                   reduce_dims=(-1,)) -> torch.Tensor:
+                   reduce_dims=(-1,), count=None) -> torch.Tensor:
     """Weighted smooth-L1 with the reference's sigma semantics
     [lib/model/utils/net_utils.py:122-136]: summed over ``reduce_dims``,
-    then averaged over the rest."""
+    then averaged over the rest; with ``count``, summed over the rest and
+    divided by it (a global batch's count of rows in a process group)."""
     sigma2 = sigma ** 2
     diff = inside_w * (pred - targets)
     adiff = diff.abs()
     quad = (adiff < 1.0 / sigma2).to(pred.dtype)
     loss = ((diff ** 2) * (sigma2 / 2.0) * quad
             + (adiff - 0.5 / sigma2) * (1.0 - quad))
-    return (outside_w * loss).sum(dim=tuple(reduce_dims)).mean()
+    per_row = (outside_w * loss).sum(dim=tuple(reduce_dims))
+    return per_row.mean() if count is None else per_row.sum() / count
 
 
 def decode_boxes(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

@@ -131,6 +131,13 @@ class Conv1Planes:
     def shape(self):
         return (self.planes.shape[0], self.h, self.w, 3)
 
+    def select_rows(self, rows) -> "Conv1Planes":
+        """The planes of frames ``rows`` (a mesh's row chunk, or a batch
+        padded with copies of a frame)."""
+        idx = torch.as_tensor(list(rows), dtype=torch.long,
+                              device=self.planes.device)
+        return Conv1Planes(self.planes[idx], self.h, self.w)
+
     def to(self, device) -> "Conv1Planes":
         """The planes on ``device``, still bf16 (no f32 detour)."""
         return Conv1Planes(self.planes.to(device=device,

@@ -10,14 +10,17 @@ features and predicate scoring — all on the device, with static shapes:
 ``make_frame_program`` is the port's entry point, and
 ``make_bucketed_program`` its detection-count-bucketed form. Both take an
 NHWC image batch or host-packed ``Conv1Planes``, and run on the card unless
-the caller passes ``device="cpu"``. ``frame_relation_tuples`` turns one
-frame of their output into the tuples that Stage C
-(``video/association.py``) links over time.
+the caller passes ``device="cpu"``. ``make_sharded_program`` serves a batch
+over a mesh of devices (``parallel/mesh.py``), one replica of the program a
+device, as the JAX program runs sharded over its mesh.
+``frame_relation_tuples`` turns one frame of their output into the tuples
+that Stage C (``video/association.py``) links over time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from i2vsgg_tpu_torch.config import Config
 from i2vsgg_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
 from i2vsgg_tpu_torch.ops.nms import nms_indices_unsorted
+from i2vsgg_tpu_torch.parallel.mesh import shard_batch, take_rows
 from i2vsgg_tpu_torch.utils.device import resolve_device
 from i2vsgg_tpu_torch.video.metrics import detection_output
 
@@ -269,11 +273,18 @@ def make_bucketed_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
     prd = torch.as_tensor(np.asarray(prd_vecs, np.float32), device=dev)
 
     @torch.no_grad()
-    def frame_program(images, im_info):
+    def detect(images, im_info):
+        """The detector and decode; the batch's largest count of valid
+        detections read back (the one host sync)."""
         images, im_info = _to_device(images, im_info, dev)
         out = det_model.inference(images, im_info)
         dets = _decode(out, im_info, cfg, max_det, max_per_class)
-        n = int(dets.valid.sum(dim=1).max())          # the one host sync
+        return (out, im_info, dets), int(dets.valid.sum(dim=1).max())
+
+    @torch.no_grad()
+    def relate(staged, n: int):
+        """The SGG head on the smallest bucket that holds ``n``."""
+        out, im_info, dets = staged
         b = next(x for x in buckets if x >= n)
         if b not in layouts:
             layouts[b] = pair_layout(b, dev)
@@ -287,7 +298,85 @@ def make_bucketed_program(det_model, sgg_model, prd_vecs, cfg: Config, *,
             "ix1": layouts[b][0], "ix2": layouts[b][1], "bucket": b,
         }
 
+    def frame_program(images, im_info):
+        return relate(*detect(images, im_info))
+
+    # a sharded program picks one bucket for the whole batch
+    # (``make_sharded_program``)
+    frame_program.detect, frame_program.relate = detect, relate
     return frame_program
+
+
+def with_input(program, prepare):
+    """``program`` (and its stages, where it has them) with its inputs
+    passed through ``prepare(images, im_info) -> (images, im_info)`` first
+    (e.g. the uint8 upload's dequantization on the program's device)."""
+    def prepared(images, im_info):
+        return program(*prepare(images, im_info))
+    if hasattr(program, "detect"):
+        prepared.detect = lambda images, im_info: program.detect(
+            *prepare(images, im_info))
+        prepared.relate = program.relate
+    return prepared
+
+
+# outputs of a program that are not per frame: the pair layout and the bucket
+_UNBATCHED = ("ix1", "ix2", "bucket")
+
+
+def make_sharded_program(programs: Sequence, mesh: Sequence):
+    """Serve each batch over ``mesh`` (``parallel/mesh.py::make_mesh``), one
+    program of ``programs`` a device (built on ``replicate``'d models), as
+    the JAX program runs with its batch sharded over the data axis.
+
+    The batch's rows are split into ``len(mesh)`` chunks
+    (``shard_batch``); a ragged batch is first padded with copies of its
+    last row, and the padded rows' outputs are dropped. Each chunk's program
+    runs on its device from a thread of its own, so that one device's host
+    syncs do not hold the others back. The outputs are concatenated in row
+    order on ``mesh[0]``. Bucketed programs (``make_bucketed_program``)
+    first detect on every chunk, then take the one bucket that holds the
+    largest count of any chunk, as the JAX program does over its global
+    batch. Returns ``fn(images, im_info) -> dict``, the programs' output."""
+    if len(programs) != len(mesh):
+        raise ValueError(f"{len(programs)} programs for a mesh of "
+                         f"{len(mesh)} devices")
+    devs = [torch.device(d) for d in mesh]
+    pool = ThreadPoolExecutor(len(devs), thread_name_prefix="mesh")
+    staged = all(hasattr(p, "detect") for p in programs)
+
+    def on_device(dev, fn, args):
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                return fn(*args)
+        return fn(*args)
+
+    def each(calls):
+        """``fn(*args)`` of each device's ``(fn, args)`` on that device,
+        each from its own thread."""
+        return list(pool.map(lambda i: on_device(devs[i], *calls[i]),
+                             range(len(devs))))
+
+    def sharded(images, im_info):
+        rows = images.shape[0]
+        n = len(devs)
+        pad = -rows % n
+        if pad:
+            keep = list(range(rows)) + [rows - 1] * pad
+            images, im_info = (take_rows(x, keep) for x in (images, im_info))
+        chunks = [(c["image"], c["im_info"]) for c in shard_batch(
+            {"image": images, "im_info": im_info}, devs)]
+        if staged:
+            det = each([(p.detect, c) for p, c in zip(programs, chunks)])
+            most = max(m for _, m in det)
+            outs = each([(p.relate, (st, most))
+                         for p, (st, _) in zip(programs, det)])
+        else:
+            outs = each(list(zip(programs, chunks)))
+        return {k: outs[0][k] if k in _UNBATCHED else torch.cat(
+            [o[k].to(devs[0]) for o in outs])[:rows] for k in outs[0]}
+
+    return sharded
 
 
 def frame_relation_tuples(out: Dict, frame: int, top_k: int = 100) -> list:

@@ -1,6 +1,6 @@
 """What the port's drivers share: the config from the command line, the
-``--load_name`` convention (``<ckpt_dir>/<step>``) and the metadata the
-checkpoints carry."""
+``--load_name`` convention (``<ckpt_dir>/<step>``), the metadata the
+checkpoints carry and the training drivers' process group."""
 
 from __future__ import annotations
 
@@ -21,6 +21,30 @@ def config_from_args(args, verbose: bool = False) -> Config:
             print(f"loaded config {args.cfg_file}")
     return cfg_from_list(args.set_cfgs + args.extra_cfgs, cfg).replace(
         COMPUTE_DTYPE=args.compute_dtype)
+
+
+def init_data_parallel(args) -> int:
+    """The training drivers' process group, joined before any device use
+    (``parallel/mesh.py::maybe_init_distributed``: torchrun's variables, or
+    the JAX package's). ``--mesh`` must be 0 or the world size: the port
+    runs one process a card, so N cards take ``torchrun --nproc_per_node
+    N``. Prints the world size, the backend and the global batch (``--bs``
+    is per process, as JAX's is per host). Returns the world size."""
+    from i2vsgg_tpu_torch.parallel.mesh import (backend,
+                                                maybe_init_distributed,
+                                                process_count)
+    maybe_init_distributed(args.device)
+    world = process_count()
+    if args.mesh not in (0, world):
+        raise ValueError(
+            f"--mesh {args.mesh} in a run of {world} process(es): the port "
+            "trains one process a card; launch N of them with torchrun "
+            f"--nproc_per_node {args.mesh} -m i2vsgg_tpu_torch.tools.<driver>"
+            " ... (--mesh 0 takes the world size)")
+    print(f"data parallel: world size {world}, backend {backend()}, global "
+          f"batch {args.batch_size * world} ({args.batch_size} a process)",
+          flush=True)
+    return world
 
 
 def ckpt_of(load_name: str):

@@ -17,14 +17,17 @@ The levers of the JAX driver: ``--bf16_weights`` (bf16 weight storage),
 (uint8 frames, dequantized on the device), ``--int8_fc6`` (the SGG head's
 fc6/fc7 in int8, quantized at load) and ``--int8_trunk mxu:<scope>
 --act_scales <file>`` (the scoped int8 trunk with static activation
-scales). ``--mesh`` (multi-GPU) and ``--int8_trunk sim:`` (the JAX CPU
-fake-quant gate) are refused.
+scales). ``--mesh N`` serves over N local devices in one process, as the
+JAX driver does: the models replicated once onto ``make_mesh(N)``, each
+batch's frames split over them (``serve.make_sharded_program``; ``--bs`` a
+multiple of N, a ragged tail padded and its padded rows dropped).
+``--int8_trunk sim:`` (the JAX CPU fake-quant gate) is refused.
 
 Usage:
   python -m i2vsgg_tpu_torch.tools.serve_video --dataset MVidVRD \\
       --net res101 --ic --gc --load_name <det ckpt_dir>/<step> \\
       --sgg_load_name <sgg ckpt_dir>/<step> [--bs 8] [--buckets 4,8,16] \\
-      [--device cpu]
+      [--mesh 8] [--device cpu]
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ def extra_parser() -> argparse.ArgumentParser:
                             "detector's goes in --load_name")
     extra.add_argument("--max_det", default=16, type=int)
     extra.add_argument("--mesh", default=0, type=int,
-                       help="multi-GPU serving: not ported, refused")
+                       help="serve over this many local devices (0: one): "
+                            "the models replicated onto each, every batch's "
+                            "frames split over them; --bs must be a "
+                            "multiple")
     extra.add_argument("--buckets", default="",
                        help="comma-separated detection-count buckets "
                             "(e.g. '4,8,16', increasing, the last "
@@ -134,6 +140,7 @@ def main(argv=None):
     from i2vsgg_tpu_torch.data.roidb import combined_roidb
     from i2vsgg_tpu_torch.models.glove import load_predicate_vectors
     from i2vsgg_tpu_torch.ops.conv1 import Conv1Planes
+    from i2vsgg_tpu_torch.parallel.mesh import make_mesh, replicate
     from i2vsgg_tpu_torch.tools.common import config_from_args
     from i2vsgg_tpu_torch.tools.test_sgg import frame_key
     from i2vsgg_tpu_torch.utils.device import resolve_device
@@ -141,9 +148,9 @@ def main(argv=None):
 
     ns, rest = extra_parser().parse_known_args(argv)
     args = set_dataset_args(parse_args(rest), test=True)
-    if ns.mesh:
-        raise ValueError("--mesh: multi-GPU serving (torch.distributed data "
-                         "parallel) is not ported yet; serve on one device")
+    if ns.mesh and args.batch_size % ns.mesh:
+        raise ValueError(f"--bs {args.batch_size} must be a multiple of "
+                         f"--mesh {ns.mesh}")
     if ns.host_planes and args.uint8_upload:
         raise ValueError("--host_planes and --uint8_upload are exclusive "
                          "(the planes ship bf16)")
@@ -160,23 +167,35 @@ def main(argv=None):
     md = ns.max_det
     det, sgg = build_serving_models(args, ns, cfg, imdb)
 
-    if ns.buckets:
-        program = serve.make_bucketed_program(
-            det, sgg, prd_np, cfg, max_det=md, device=dev,
-            buckets=tuple(int(b) for b in ns.buckets.split(",")))
-    else:
-        program = serve.make_frame_program(det, sgg, prd_np, cfg, max_det=md,
-                                           device=dev)
-    if args.uint8_upload:
+    def program_on(det, sgg, dev):
+        if ns.buckets:
+            program = serve.make_bucketed_program(
+                det, sgg, prd_np, cfg, max_det=md, device=dev,
+                buckets=tuple(int(b) for b in ns.buckets.split(",")))
+        else:
+            program = serve.make_frame_program(det, sgg, prd_np, cfg,
+                                               max_det=md, device=dev)
+        if not args.uint8_upload:
+            return program
+
         # frames ship as resized uint8 BGR; the mean subtraction and the
         # re-zeroed padding run on the device
-        base_program = program
-
-        def program(image_u8, im_info):
+        def dequantized(image_u8, im_info):
             info = torch.as_tensor(im_info, device=dev)
-            return base_program(dequantize_image_u8(
-                torch.as_tensor(image_u8, device=dev), info,
-                cfg.PIXEL_MEANS), info)
+            return dequantize_image_u8(torch.as_tensor(image_u8, device=dev),
+                                       info, cfg.PIXEL_MEANS), info
+        return serve.with_input(program, dequantized)
+
+    if ns.mesh:
+        mesh = make_mesh(ns.mesh, dev)
+        program = serve.make_sharded_program(
+            [program_on(d, s, m) for (d, s), m in
+             zip(replicate((det, sgg), mesh), mesh)], mesh)
+        print(f"serving over a {ns.mesh}-device mesh "
+              f"({', '.join(str(m) for m in mesh)}): data-parallel frame "
+              f"batches of {args.batch_size}", flush=True)
+    else:
+        program = program_on(det, sgg, dev)
     img_key = "image_u8" if args.uint8_upload else "image"
 
     frame_detections = {}

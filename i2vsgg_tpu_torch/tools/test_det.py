@@ -4,7 +4,8 @@
 the top-100 cap on the device (``serve.decode_detections``), then the
 per-class VOC result files and mAP (``imdb.evaluate_detections``,
 ``eval/voc_eval.py``). Writes ``<save_dir>/eval/<imdbval_name>/
-detections.pkl`` and the result files under ``.../adapt/``.
+detections.pkl`` and the result files under ``.../adapt/``. It runs on one
+device; ``--mesh`` is read and ignored, as by the JAX driver.
 
 Usage:
   python -m i2vsgg_tpu_torch.tools.test_det --dataset MVidVRD --net res101 \\
@@ -72,8 +73,9 @@ def main(argv=None):
 
     args = set_dataset_args(parse_args(argv), test=True)
     if args.mesh:
-        raise ValueError("--mesh: multi-GPU evaluation is not ported yet; "
-                         "run on one device")
+        # the JAX driver parses --mesh and evaluates on one device too
+        print(f"--mesh {args.mesh}: evaluation runs on one device",
+              flush=True)
     dev = resolve_device(args.device)
     cfg = config_from_args(args, verbose=True)
     # pooling_mode travels in the checkpoint and overrides cfg

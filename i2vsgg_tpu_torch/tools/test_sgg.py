@@ -8,6 +8,8 @@ head), ``detection_output`` packs the top-100 (pair, predicate) tuples,
 frames are grouped per video, associated into relation trajectories and
 scored with vIoU mAP / R@50/100 / tagging P@K — or, with ``--vrd_task
 pre_det``, predicate recognition with the so-prior.
+It runs on one device; ``--mesh`` is read and ignored, as by the JAX
+driver.
 
 Usage:
   python -m i2vsgg_tpu_torch.tools.test_sgg --dataset MVidVRD --net res101 \\
@@ -83,8 +85,9 @@ def main(argv=None):
 
     args = set_dataset_args(parse_args(argv), test=True)
     if args.mesh:
-        raise ValueError("--mesh: multi-GPU serving and evaluation are not "
-                         "ported yet; run on one device")
+        # the JAX driver parses --mesh and evaluates on one device too
+        print(f"--mesh {args.mesh}: evaluation runs on one device",
+              flush=True)
     dev = resolve_device(args.device)
     cfg = config_from_args(args, verbose=True)
 

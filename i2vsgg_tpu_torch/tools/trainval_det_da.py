@@ -14,6 +14,12 @@ or jwyang state dict. The port's loader decodes PNG and baseline JPEG
 (``data/image_io.py``), so the paper's pairing runs as it is: the MVRD
 stills (JPEG) as the source, the MVidVRD frames (PNG) as the target.
 
+Data parallel on N cards: ``torchrun --nproc_per_node N -m
+i2vsgg_tpu_torch.tools.trainval_det_da ... --bs <per card>``, one process a
+card (``parallel/mesh.py``): each rank loads its slice of both roidbs, the
+step is the global batch's (``train/det_da.py``), rank 0 writes the
+checkpoints and the metrics.
+
 Usage (as scripts/port_instance_styleD_resnet101.sh runs it):
   python -m i2vsgg_tpu_torch.tools.trainval_det_da --dataset MVRD \\
       --dataset_t MVidVRD --net res101 --lr 5e-4 --lr_decay_step 10 \\
@@ -64,11 +70,13 @@ def main(argv=None):
     from i2vsgg_tpu_torch.data.roidb import combined_roidb
     from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
     from i2vsgg_tpu_torch.models.inits import init_module, zero_init_residual
-    from i2vsgg_tpu_torch.tools.common import ckpt_of, config_from_args
+    from i2vsgg_tpu_torch.parallel.mesh import replicate
+    from i2vsgg_tpu_torch.tools.common import (ckpt_of, config_from_args,
+                                               init_data_parallel)
     from i2vsgg_tpu_torch.train.checkpoint import (latest_step,
                                                    restore_detector_init,
                                                    restore_full,
-                                                   save_checkpoint)
+                                                   save_on_rank0)
     from i2vsgg_tpu_torch.train.det_da import TrainState, train_step
     from i2vsgg_tpu_torch.train.optim import (ReferenceSGD,
                                               step_decay_schedule)
@@ -77,9 +85,7 @@ def main(argv=None):
                                                 start_profiler)
 
     args = set_dataset_args(parse_args(argv))
-    if args.mesh > 1:
-        raise ValueError("--mesh: multi-GPU training is not ported yet; "
-                         "train on one device")
+    init_data_parallel(args)
     dev = resolve_device(args.device)
     cfg = config_from_args(args, verbose=True)
 
@@ -127,6 +133,8 @@ def main(argv=None):
     elif args.pretrained_backbone:
         _pretrained(model, args.pretrained_backbone, args.net,
                     args.pretrained_full)
+    # every rank starts from rank 0's weights, whatever it drew or read
+    replicate(model)
 
     logger = MetricsLogger(args.tfb_path or os.path.join(ckpt_dir, "logs"),
                            args.use_tfboard)
@@ -162,7 +170,7 @@ def main(argv=None):
                       f"({m['imgs_per_sec']:.1f} img/s)", flush=True)
             if args.max_steps and state.step >= args.max_steps:
                 break
-        save_checkpoint(ckpt_dir, model.state_dict(), state.step, metadata={
+        save_on_rank0(ckpt_dir, model.state_dict(), state.step, metadata={
             "session": args.session, "epoch": epoch,
             "pooling_mode": cfg.POOLING_MODE,
             "class_agnostic": args.class_agnostic, "net": args.net,

@@ -16,6 +16,12 @@ every epoch, in the port's format with the JAX driver's metadata
 (``vrd_pooling`` among it, which ``test_sgg`` reads back). The port's
 loader decodes PNG and baseline JPEG, so it trains on the MVRD stills.
 
+Data parallel on N cards: ``torchrun --nproc_per_node N -m
+i2vsgg_tpu_torch.tools.trainval_sgg ... --bs <per card>``: each rank loads
+its slice of the roidb, the loss is the global batch's (``train/sgg.py``), a
+batch is skipped only when no rank's images have a valid pair (the JAX
+driver tests its global batch), and rank 0 writes the checkpoints.
+
 Usage (as scripts/port_SGG_emb_resnet.sh runs it):
   python -m i2vsgg_tpu_torch.tools.trainval_sgg --dataset MVRD \\
       --net res101 --vrd_lr 1e-4 --num_relations 62 \\
@@ -59,19 +65,19 @@ def main(argv=None):
     from i2vsgg_tpu_torch.models.inits import init_module
     from i2vsgg_tpu_torch.models.layers import torch_dtype
     from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
+    from i2vsgg_tpu_torch.parallel.mesh import global_sum, replicate
     from i2vsgg_tpu_torch.tools.common import (build_trunk, ckpt_of,
-                                               config_from_args)
+                                               config_from_args,
+                                               init_data_parallel)
     from i2vsgg_tpu_torch.train.checkpoint import (restore_sgg_init,
-                                                   save_checkpoint)
+                                                   save_on_rank0)
     from i2vsgg_tpu_torch.train.det_da import TrainState
     from i2vsgg_tpu_torch.train.sgg import sgg_optimizer, train_step
     from i2vsgg_tpu_torch.utils.device import resolve_device
     from i2vsgg_tpu_torch.utils.logging import MetricsLogger, StepTimer
 
     args = set_dataset_args(parse_args(argv))
-    if args.mesh > 1:
-        raise ValueError("--mesh: multi-GPU training is not ported yet; "
-                         "train on one device")
+    init_data_parallel(args)
     dev = resolve_device(args.device)
     cfg = config_from_args(args, verbose=True)
 
@@ -110,6 +116,8 @@ def main(argv=None):
         print(f"trunk restored from Stage-A checkpoint {args.load_name} "
               f"({stats['copied']} of {stats['total']} tensors)")
     model.to(dev)
+    # every rank starts from rank 0's weights
+    replicate(model)
 
     # the reference decays vrd_lr by 0.9 every epoch; the step count only
     # advances on pair-bearing updates, so the decay is anchored on that
@@ -131,8 +139,9 @@ def main(argv=None):
         for batch in loader:
             ix1, ix2, labels, valid = _pair_batch(batch, roidb, gt_rels,
                                                   max_pairs, n_rel)
-            if not valid.any():
-                # no relation in the batch: nothing to learn, no step taken
+            if not int(global_sum(torch.tensor(int(valid.any())))):
+                # no relation in the (global) batch: nothing to learn, no
+                # step taken, on every rank alike
                 continue
             b = batch["image"].shape[0]
             sgg_batch = {
@@ -156,7 +165,7 @@ def main(argv=None):
                       f"({m['imgs_per_sec']:.1f} img/s)", flush=True)
             if args.max_steps and state.step >= args.max_steps:
                 break
-        save_checkpoint(ckpt_dir, model.state_dict(), state.step, metadata={
+        save_on_rank0(ckpt_dir, model.state_dict(), state.step, metadata={
             "session": args.session, "epoch": epoch, "stage": "sgg",
             "net": args.net, "num_relations": int(n_rel),
             "emb_dim": args.emb_dim, "spatial_type": args.spatial_type,

@@ -17,7 +17,9 @@ checkpoints only. A JAX checkpoint becomes one with
 (SURVEY.md §5): ``restore_detector_init`` (a detector without its
 discriminator and classification/regression heads), ``restore_full`` (the
 resume of a run) and ``restore_intersection`` (test time); and Stage B's
-``restore_sgg_init`` (the trunk of a Stage A checkpoint).
+``restore_sgg_init`` (the trunk of a Stage A checkpoint). In a process
+group the training drivers write through ``save_on_rank0``: rank 0 writes and
+garbage-collects, then every rank meets at a barrier before it goes on.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+
+from i2vsgg_tpu_torch.parallel.mesh import process_index, sync_global_devices
 
 MODEL_FILE = "model.pt"
 TRAIN_STATE_FILE = "train_state.pt"
@@ -87,6 +91,20 @@ def save_checkpoint(ckpt_dir: str, state_dict: Mapping[str, torch.Tensor],
                            "higher_better": higher_better}, f)
     if keep_last is not None:
         gc_checkpoints(ckpt_dir, keep_last)
+    return path
+
+
+def save_on_rank0(ckpt_dir: str, state_dict: Mapping[str, torch.Tensor],
+                  step: int, **kw) -> Optional[str]:
+    """``save_checkpoint`` on rank 0 only (the directory is shared), then a
+    barrier of every rank (``sync_global_devices(f"ckpt_{step}")``, as the
+    JAX driver does), so that no rank reads the directory before it is
+    written. Returns the step directory on rank 0, None elsewhere; outside a
+    process group it is ``save_checkpoint``."""
+    path = None
+    if process_index() == 0:
+        path = save_checkpoint(ckpt_dir, state_dict, step, **kw)
+    sync_global_devices(f"ckpt_{step}")
     return path
 
 

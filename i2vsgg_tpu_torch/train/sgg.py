@@ -16,7 +16,14 @@ biases at twice the lr (DOUBLE_BIAS) without decay, no clip.
 The dropout masks come from one ``torch.Generator`` seeded from (seed,
 step) (``det_da.step_generator``), and every image of a batch draws the
 same masks: JAX applies one key to the whole ``vmap`` over images
-(``i2vsgg_tpu/train/sgg.py:92-98``), a quirk kept here.
+(``i2vsgg_tpu/train/sgg.py:92-98``), a quirk kept here. In a process group
+every rank keeps that unfolded generator (Stage A's folds the rank in), so
+that every image of the global batch draws JAX's one set of masks.
+
+In a process group (``parallel/mesh.py``) the loss is the global batch's:
+each image weighted by its valid pairs over the ``global_sum`` of the
+batch's valid pairs, and the head's gradients summed over the ranks before
+the update.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import numpy as np
 import torch
 
 from i2vsgg_tpu_torch.models.sgg import bce_multilabel_loss
-from i2vsgg_tpu_torch.train.det_da import TrainState, step_generator
+from i2vsgg_tpu_torch.parallel.mesh import all_reduce_grads, global_sum
+from i2vsgg_tpu_torch.train.det_da import (TrainState, global_metrics,
+                                           step_generator)
 from i2vsgg_tpu_torch.train.optim import ReferenceSGD
 
 SGG_FROZEN_PREFIXES = ("trunk",)
@@ -45,7 +54,8 @@ def sgg_loss(model, batch: Dict[str, torch.Tensor], prd_vecs: torch.Tensor,
              generator_fn: Callable[[], torch.Generator]):
     """The batch's multi-label BCE over its valid GT pairs: each image's
     mean weighted by its count of valid pairs (an image without one adds 0
-    to both sums). Returns (loss, {"loss", "n_pairs"}).
+    to both sums), the weights' sum that of the global batch in a process
+    group. Returns (loss, {"loss", "n_pairs"}), this rank's parts.
 
     batch: ``image`` (B, H, W, 3), ``im_info`` (B, 3), ``obj_boxes`` (B, G,
     4) input-scale GT boxes (zero-padded), ``ix1``/``ix2`` (B, P) pair
@@ -64,15 +74,16 @@ def sgg_loss(model, batch: Dict[str, torch.Tensor], prd_vecs: torch.Tensor,
         npairs.append(pv.sum())
     losses, npairs = torch.stack(losses), torch.stack(npairs)
     w = npairs.to(losses.dtype)
-    loss = (losses * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    loss = (losses * w).sum() / torch.clamp_min(global_sum(w.sum()), 1.0)
     return loss, {"loss": loss, "n_pairs": npairs.sum()}
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                prd_vecs: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One step in place on ``state``: the loss with dropout, backward, SGD
-    at the lr of ``state.step``; the step count then advances. Returns the
-    metrics, detached."""
+    """One step in place on ``state``: the loss with dropout, backward, the
+    head's gradients summed over the ranks (in a process group), SGD at the
+    lr of ``state.step``; the step count then advances. Returns the global
+    batch's metrics, detached."""
     model = state.model
     dev = prd_vecs.device
     state.optimizer.zero_grad()
@@ -80,9 +91,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         model, batch, prd_vecs,
         lambda: step_generator(dev, state.seed, state.step))
     loss.backward()
+    all_reduce_grads(state.optimizer.params())
     state.optimizer.step(state.step)
     state.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
+    return global_metrics(metrics)
 
 
 def build_pair_batch(gt_rels: Sequence[Sequence[int]], n_boxes: int,

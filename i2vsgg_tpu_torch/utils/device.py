@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -10,9 +13,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     ``cuda`` (the default) must find a card: with none, this raises rather
     than carrying on quietly on the CPU. ``cpu`` is taken only when the
-    caller asks for it, as the tests do.
+    caller asks for it, as the tests do. Under torchrun (a process group
+    and ``LOCAL_RANK``), ``cuda`` is the rank's card ``cuda:LOCAL_RANK``.
     """
     dev = torch.device(device)
+    if (dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in
+            os.environ and dist.is_available() and dist.is_initialized()):
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "

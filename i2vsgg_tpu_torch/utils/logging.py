@@ -6,7 +6,9 @@ file always and to TensorBoard where ``torch.utils.tensorboard`` imports
 (the card's machine has no ``tensorboard`` package). ``StepTimer`` gives
 images per second over a display interval. ``start_profiler`` traces a
 window of steps with ``torch.profiler`` (the JAX package's is
-``jax.profiler``) and writes a Chrome trace.
+``jax.profiler``) and writes a Chrome trace. In a process group
+(``parallel/mesh.py``) only rank 0 writes the metrics (every rank holds the
+global batch's), and each rank writes its own trace.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import json
 import os
 import time
 from typing import Callable, Dict, Optional
+
+from i2vsgg_tpu_torch.parallel.mesh import backend, process_index
 
 
 def _summary_writer(log_dir: str):
@@ -26,12 +30,20 @@ def _summary_writer(log_dir: str):
 
 
 class MetricsLogger:
+    """Appends to ``<log_dir>/metrics.jsonl`` on rank 0; on another rank it
+    writes nothing."""
+
     def __init__(self, log_dir: str, use_tensorboard: bool = True):
+        self._jsonl = self._tb = None
+        if process_index() != 0:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._tb = _summary_writer(log_dir) if use_tensorboard else None
 
     def log_scalars(self, tag: str, scalars: Dict[str, float], step: int):
+        if self._jsonl is None:
+            return
         rec = {"tag": tag, "step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -41,7 +53,8 @@ class MetricsLogger:
                                        scalars.items()}, step)
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 
@@ -68,7 +81,9 @@ class StepTimer:
 def start_profiler(log_dir: Optional[str]) -> Callable[[], None]:
     """Start a ``torch.profiler`` trace (CPU and, with a card, CUDA
     activity) when ``log_dir`` is given; the returned function stops it and
-    writes ``<log_dir>/trace.json``. Without ``log_dir`` both do nothing."""
+    writes ``<log_dir>/trace.json`` (in a process group,
+    ``trace_rank<r>.json``, one a rank). Without ``log_dir`` both do
+    nothing."""
     if not log_dir:
         return lambda: None
     import torch
@@ -84,5 +99,7 @@ def start_profiler(log_dir: Optional[str]) -> Callable[[], None]:
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         os.makedirs(log_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        name = ("trace.json" if backend() == "none"
+                else f"trace_rank{process_index()}.json")
+        prof.export_chrome_trace(os.path.join(log_dir, name))
     return stop

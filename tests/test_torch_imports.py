@@ -84,7 +84,8 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "models.targets", "models.inits", "train.optim",
                      "train.det_da", "utils.logging",
                      "tools.trainval_det_da", "train.sgg",
-                     "tools.trainval_sgg", "data.jpeg", "utils.cuda_build"):
+                     "tools.trainval_sgg", "data.jpeg", "utils.cuda_build",
+                     "parallel", "parallel.mesh"):
             assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
@@ -105,6 +106,40 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         print("modules", len(names))
     """)
     assert "modules" in out
+
+
+def test_mesh_without_a_launcher_or_a_card():
+    """``parallel/mesh.py`` in a fresh interpreter: without a launcher's
+    variables (or with the JAX package's for one process) it joins no
+    group and every collective is the identity; a CUDA mesh or a CUDA
+    process group without a card raises."""
+    run_isolated("""
+        import os
+        import torch
+
+        torch.cuda.is_available = lambda: False   # no card, whatever the host
+        for k in ("WORLD_SIZE", "RANK", "I2VSGG_COORD",
+                  "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES"):
+            os.environ.pop(k, None)
+        from i2vsgg_tpu_torch.parallel import mesh
+        assert not mesh.maybe_init_distributed("cpu")
+        os.environ.update(I2VSGG_COORD="127.0.0.1:1", JAX_NUM_PROCESSES="1")
+        assert not mesh.maybe_init_distributed("cpu")
+        assert mesh.process_count() == 1 and mesh.process_index() == 0
+        t = torch.arange(3.0)
+        assert torch.equal(mesh.global_sum(t), t)
+        mesh.sync_global_devices("x")
+        assert mesh.host_shard([1, 2, 3], 2) == [1, 2, 3]
+        for call in (lambda: mesh.make_mesh(2, "cuda"),
+                     lambda: mesh.maybe_init_distributed("cuda")):
+            os.environ.update(WORLD_SIZE="1", RANK="0")
+            try:
+                call()
+            except RuntimeError as e:
+                assert "cuda" in str(e), e
+            else:
+                raise SystemExit("no card, and no error")
+    """)
 
 
 def test_roi_pool_cpu_path_and_missing_card():
