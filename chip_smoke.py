@@ -102,9 +102,9 @@ class, with seeded random weights, along five paths:
   Stage B step (res10, f32, no dropout) on the card to the CPU's
   (``SGG_TINY_TOL``);
 * phase 16, the thirteenth slice's path, JPEG decode (``csrc/jpeg.cc``
-  through ``data/jpeg.py``, built with the host compiler, no kernel): 16a,
-  run before phase 14 (whose driver reads JPEG stills), builds the decoder
-  cold, holds every committed fixture of ``tests/data/jpeg`` bit-equal to
+  through ``data/jpeg.py``, in the host library that phase 2 builds with
+  the host compiler, no kernel): 16a, run before phase 14 (whose driver
+  reads JPEG stills), holds every committed fixture of ``tests/data/jpeg`` bit-equal to
   its golden (cv2's decode, written as PNG), shows that the progressive
   and CMYK fixtures raise ``UnsupportedImageError`` naming their mode, and
   times the decode of the VRD-sized stills and a 360x640 frame beside the
@@ -130,7 +130,30 @@ class, with seeded random weights, along five paths:
   replica's RoI and conv1 calls held to their plain versions, then
   ``serve_video --mesh 1`` against 13b's ``--mesh 0`` run and a ragged
   tail at ``--bs 4 --mesh 2`` against ``--bs 2 --mesh 0`` (tiny, f32),
-  the files equal.
+  the files equal;
+* phase 18, the fifteenth slice's path, the native batch loader
+  (``i2vsgg_tpu_torch/runtime``: ``csrc/io_runtime.cc`` linked with
+  ``csrc/jpeg.cc``, host C++ built with the host compiler in phase 2
+  beside the nvcc builds; no kernel), which ``DetectionLoader`` and the
+  ``--host_planes`` packer use by default: 18a holds ``decode_image`` on
+  every committed JPEG fixture and PNG golden to ``imread_bgr`` (EXIF
+  orientations left unapplied, as the JAX runtime leaves them) and the
+  refused fixtures refused; 18b runs ``load_batch`` on 13a's PNG frames and
+  14c's JPEG stills at scale 600 at 1 and 8 threads, each image's decode
+  equal to ``imread_bgr``'s (the Python path's own inflate for PNG), each
+  image bit-equal to ``runtime.preprocess_plain`` (the JAX runtime's
+  arithmetic in numpy), its scale and size equal to the Python path's,
+  host ms a frame beside the Python path's decode and resize; 18c holds
+  ``pack_planes`` at (4, 600, 960) and (4, 608, 1216) byte-equal to the
+  torch packer, host ms of both in alternating blocks; 18d runs
+  ``serve_video`` (default, and ``--host_planes`` where the packer feeds
+  B3) on a 48-frame devkit, 12 requests a run, with the native loader and
+  with ``I2VSGG_NATIVE_IO=0`` (under ``--host_planes`` the native loader's
+  runs pack alternate requests with the native and the torch packer), the
+  runs of each variant in alternating order and the first request of each
+  run left out of the steady state,
+  and ``test_det`` on the stills with each loader; launches counted,
+  detection gaps reported.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -146,10 +169,10 @@ each accumulation depth (``kDepth`` 16, 32, 64 in ``csrc/bottleneck.cu``)
 and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
-The lines before the last are the training, data-parallel, JPEG and
-serving record (phase 14's and 15's steps; phase 17's; phase 16's decode
-times, host ms of the card's machine; ms per 4-frame request of each path
-served) and the
+The lines before the last are the training, data-parallel, native-loader,
+JPEG and serving record (phase 14's and 15's steps; phase 17's; phase 18's
+and phase 16's host ms of the card's machine; ms per 4-frame request of
+each path served) and the
 kernels' JSON record (launches on the main path,
 error against the plain version; per request: the kernel's time, its plain
 version's, the library call's and the bound), then the card's name and
@@ -979,9 +1002,12 @@ def slice_times(run, match: str, slices=(8, 16, 32)) -> dict:
     return out
 
 
-def build_kernels():
-    """Build every kernel source with one nvcc each, all started together;
-    print each build's time and what ptxas reports."""
+def build_kernels() -> dict:
+    """Build every kernel source with one nvcc each and the native batch
+    loader (``runtime``: io_runtime.cc + jpeg.cc) with the host compiler,
+    all started together; print each build's time and what ptxas reports.
+    Returns the loader's build record (cold or not, seconds)."""
+    from i2vsgg_tpu_torch import runtime
     from i2vsgg_tpu_torch.utils import cuda_build
 
     def one(src):
@@ -989,13 +1015,27 @@ def build_kernels():
         lib = cuda_build.build(src)
         return src, lib, time.time() - t
 
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    lib_rt = cuda_build.library_path(runtime.SOURCES, cuda_build.HOST_FLAGS,
+                                     cuda_build.find_cxx())
+    rt = {"cold": not lib_rt.exists(), "library": lib_rt.name}
+
+    def host():
+        t = time.time()
+        runtime.library()
+        return time.time() - t
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        rt_future = pool.submit(host)
         built = list(pool.map(one, KERNEL_SOURCES))
+        rt["build_s"] = rt_future.result()
     for src, lib, sec in built:
         log(f"built {lib.name} in {sec:.2f} s")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas ({src}): {line.strip()}")
+    log(f"built {lib_rt.name} (the native batch loader, host compiler) in "
+        f"{rt['build_s']:.2f} s (cold: {rt['cold']})")
+    return rt
 
 
 def ptxas_report(source: str) -> dict:
@@ -1778,7 +1818,9 @@ def drivers_on_card(dev, counters, card: str, work: str) -> dict:
     saved_det = torch.backends.cudnn.deterministic
     try:
         phase("13a the dataset: an MVidVRD devkit of 2 videos x 6 PNG "
-              "frames, 360x640, written with image_io.write_png")
+              "frames, 360x640, written with image_io.write_png; the Python "
+              "path's decode and resize timed (phase 18 times the native "
+              "loader)")
         t = time.time()
         os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
         paths = write_devkit(os.environ["I2VSGG_DATA_ROOT"])
@@ -2938,23 +2980,16 @@ def host_ms(fn, reps: int = DECODE_REPS) -> dict:
 
 
 def jpeg_fixtures_on_host(card: str) -> dict:
-    """16a: build the JPEG decoder (cold in a fresh checkout), hold every
-    committed fixture of ``tests/data/jpeg`` bit-equal to its golden (the
+    """16a: with the JPEG decoder (in the port's host library, built in
+    phase 2 with the batch loader), hold every committed fixture of ``tests/data/jpeg`` bit-equal to its golden (the
     PNG of cv2.imread's output, read with the port's PNG decoder), show
     that each refused fixture raises ``UnsupportedImageError`` naming its
     mode, and time the decode of ``TIMED_JPEGS`` beside the PNG decode of
     the same pixels (their goldens), each the median of ``DECODE_REPS``
     calls. Host times of the machine of ``card``."""
-    from i2vsgg_tpu_torch.data import jpeg
     from i2vsgg_tpu_torch.data.image_io import (UnsupportedImageError,
                                                 imread_bgr)
-    from i2vsgg_tpu_torch.utils import cuda_build
-    lib = cuda_build.library_path(jpeg.SOURCE, cuda_build.HOST_FLAGS,
-                                  cuda_build.find_cxx())
-    rec = {"cold": not lib.exists()}
-    t = time.time()
-    cuda_build.build_host(jpeg.SOURCE)
-    rec["build_s"] = time.time() - t
+    rec = {}
     manifest = jpeg_manifest()
     held, refused = [], []
     for name, entry in sorted(manifest.items()):
@@ -2987,8 +3022,7 @@ def jpeg_fixtures_on_host(card: str) -> dict:
             "jpeg_bytes": os.path.getsize(jpg),
             "jpeg_decode_ms": host_ms(lambda: imread_bgr(jpg)),
             "png_decode_ms": host_ms(lambda: imread_bgr(png))}
-    log(f"16a: decoder built in {rec['build_s']:.2f} s (cold: "
-        f"{rec['cold']}); {len(held)} fixtures bit-equal to their goldens, "
+    log(f"16a: {len(held)} fixtures bit-equal to their goldens, "
         f"{len(refused)} refused ({', '.join(refused)}); host decode ms "
         "(median of 7) JPEG / PNG of the same pixels: " + "; ".join(
             f"{n} {r['jpeg_decode_ms']['median']:.2f} / "
@@ -3070,6 +3104,486 @@ def mvrd_eval_on_card(counters, card: str, work: str, stage_a: str) -> dict:
             os.environ.pop("I2VSGG_DATA_ROOT", None)
         else:
             os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
+
+
+# ----------------------------------------------------------------------------
+# phase 18: the native batch loader (``i2vsgg_tpu_torch/runtime``:
+# ``csrc/io_runtime.cc`` with ``csrc/jpeg.cc``, built with the host compiler
+# in phase 2): decode, batch loading, the conv1 plane packer, and the drivers
+# with it and with the Python path (``I2VSGG_NATIVE_IO=0``)
+
+LOADER_REPS = 3
+PACK_SHAPES = ((4, 600, 960), (4, 608, 1216))
+PACK_REPS = 5
+# 18c and 18d run their arms in these orders, so that neither is always
+# first or always after the other
+PACK_ORDER = ("native", "torch", "torch", "native")
+MEANS = (102.9801, 115.9465, 122.7717)
+# 18d's devkit: 13a's frames and layout, 2 videos x 24 frames, 12 requests
+# of 4 a run, of which the first (start-up, cold caches) is left out of the
+# steady-state numbers
+DEVKIT_18D = dict(DEVKIT, frames=24)
+
+
+def native_decode_on_host(build: dict) -> dict:
+    """18a: the runtime's ``decode_image`` on every committed JPEG fixture
+    and its PNG golden: equal to ``imread_bgr``, the EXIF orientations 2-8
+    left unapplied (``jpeg.orient`` of the decode equals ``imread_bgr``);
+    the refused fixtures raise ``UnsupportedImageError`` naming their
+    mode."""
+    from i2vsgg_tpu_torch import runtime
+    from i2vsgg_tpu_torch.data import jpeg
+    from i2vsgg_tpu_torch.data.image_io import (UnsupportedImageError,
+                                                imread_bgr)
+    rec = dict(build, held=0, unoriented=[], refused=[])
+    for name, entry in sorted(jpeg_manifest().items()):
+        path = os.path.join(JPEG_DIR, name + ".jpg")
+        if entry["set"] == "refused":
+            try:
+                runtime.decode_image(path)
+            except UnsupportedImageError as e:
+                if entry["mode"] not in str(e):
+                    raise AssertionError(f"18a {name}: refused as {e}")
+                rec["refused"].append(name)
+                continue
+            raise AssertionError(f"18a {name} decoded: a {entry['mode']} "
+                                 "JPEG must raise UnsupportedImageError")
+        got = runtime.decode_image(path)
+        with open(path, "rb") as fh:
+            orientation = jpeg.exif_orientation(fh.read())
+        if not np.array_equal(jpeg.orient(got, orientation),
+                              imread_bgr(path)):
+            raise AssertionError(f"18a {name}: decode_image (orientation "
+                                 f"{orientation} applied) != imread_bgr")
+        if orientation != 1:
+            rec["unoriented"].append(name)
+        golden = os.path.join(JPEG_DIR, entry["golden"])
+        if not np.array_equal(runtime.decode_image(golden),
+                              imread_bgr(golden)):
+            raise AssertionError(f"18a {entry['golden']}: decode_image != "
+                                 "imread_bgr")
+        rec["held"] += 1
+    log(f"18a: the runtime built in {build['build_s']:.2f} s in phase 2 "
+        f"(cold: {build['cold']}); decode_image equal to imread_bgr on "
+        f"{rec['held']} fixtures and their PNG goldens, "
+        f"{len(rec['unoriented'])} with their EXIF orientation left "
+        f"unapplied ({', '.join(rec['unoriented'])}), refused: "
+        f"{', '.join(rec['refused'])}")
+    return rec
+
+
+def native_batches_on_host(card: str, what: str, paths: list) -> dict:
+    """18b: ``runtime.load_batch`` on ``paths`` at the drivers' scale (600)
+    into their bucket, at 1 and 8 threads (the same batch), each image's
+    decode equal to ``imread_bgr``'s (the Python path's own PNG inflate;
+    a JPEG's EXIF orientation applied to it), each image bit-equal to
+    ``runtime.preprocess_plain`` of its decode (the JAX runtime's
+    arithmetic in numpy), its scale and size equal to the Python
+    path's (``imread_bgr`` + ``prep_image``); the pixels' distance from the
+    Python path is reported (a fraction of a pixel where a side does not
+    scale to a whole number: not held). Host ms a frame, median of
+    ``LOADER_REPS`` batches, beside the Python path's decode and resize ms
+    a frame (median over the frames)."""
+    from i2vsgg_tpu_torch import runtime
+    from i2vsgg_tpu_torch.data import jpeg
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import bucket_hw, prep_image
+    decode, resize, refs, ims = [], [], [], []
+    for p in paths:
+        t = time.perf_counter()
+        im = imread_bgr(p)
+        t_r = time.perf_counter()
+        refs.append(prep_image(im, 600, MEANS))
+        decode.append(1e3 * (t_r - t))
+        resize.append(1e3 * (time.perf_counter() - t_r))
+        ims.append(im)
+    pads = [bucket_hw(*ref.shape[:2]) for ref, _ in refs]
+    ph, pw = max(h for h, _ in pads), max(w for _, w in pads)
+    n = len(paths)
+    rec = {"images": n, "pad": [ph, pw], "python_ms_per_frame": {
+        "decode_median": float(np.median(decode)),
+        "resize_median": float(np.median(resize)),
+        "total_median": float(np.median(np.add(decode, resize)))}}
+    out = {}
+    for threads in (1, 8):
+        times = []
+        for _ in range(LOADER_REPS):
+            t = time.perf_counter()
+            out[threads] = runtime.load_batch(paths, [False] * n, MEANS, 600,
+                                              ph, pw, n_threads=threads)
+            times.append(1e3 * (time.perf_counter() - t) / n)
+        rec[f"native_ms_per_frame_{threads}_threads"] = {
+            "median": float(np.median(times)), "min": min(times),
+            "max": max(times)}
+    for a, b in zip(out[1], out[8]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"18b {what}: 1 and 8 threads differ")
+    images, scales, hw = out[8]
+    gaps = []
+    for i, (p, (ref, scale), im) in enumerate(zip(paths, refs, ims)):
+        decoded = runtime.decode_image(p)
+        with open(p, "rb") as fh:
+            data = fh.read()
+        orientation = (jpeg.exif_orientation(data)
+                       if data[:2] == b"\xff\xd8" else 1)
+        if not np.array_equal(jpeg.orient(decoded, orientation), im):
+            raise AssertionError(f"18b {p}: decode_image (orientation "
+                                 f"{orientation} applied) != imread_bgr")
+        plain, s_plain, hw_plain = runtime.preprocess_plain(
+            decoded, False, MEANS, 600, ph, pw)
+        if not (np.array_equal(images[i], plain) and scales[i] == s_plain
+                and np.array_equal(hw[i], hw_plain)):
+            raise AssertionError(f"18b {p}: load_batch != preprocess_plain")
+        rh, rw = ref.shape[:2]
+        if scales[i] != np.float32(scale) or tuple(hw[i]) != (rh, rw):
+            raise AssertionError(f"18b {p}: scale {scales[i]} / size "
+                                 f"{hw[i]} vs the Python path's {scale} / "
+                                 f"{(rh, rw)}")
+        gaps.append(np.abs(images[i, :rh, :rw] - ref))
+    rec["gap_to_python"] = {"max": max(float(g.max()) for g in gaps),
+                            "mean": float(np.mean([g.mean() for g in gaps]))}
+    r = rec
+    log(f"18b {what}: {n} images into {ph}x{pw}, decoded as imread_bgr "
+        f"decodes them, bit-equal to the plain version, scales and sizes "
+        f"equal to the Python path; host ms a "
+        f"frame, native "
+        f"{r['native_ms_per_frame_1_threads']['median']:.2f} (1 thread) / "
+        f"{r['native_ms_per_frame_8_threads']['median']:.2f} (8 threads); "
+        f"Python path decode {r['python_ms_per_frame']['decode_median']:.2f}"
+        f" + resize {r['python_ms_per_frame']['resize_median']:.2f}; pixel "
+        f"gap to the Python path max {r['gap_to_python']['max']:.4g}, mean "
+        f"{r['gap_to_python']['mean']:.4g} (reported, not held) "
+        f"[{card}, {os.cpu_count()} CPUs]")
+    return rec
+
+
+def native_packer_on_host(card: str) -> dict:
+    """18c: ``runtime.pack_planes`` (``pack_conv1_planes_np``'s default)
+    at ``PACK_SHAPES``, byte-equal to the torch packer (``native=False``);
+    host ms of each over blocks of ``PACK_REPS`` calls in ``PACK_ORDER``
+    (median, least and most over all of a packer's calls)."""
+    from i2vsgg_tpu_torch.ops.conv1 import pack_conv1_planes_np
+    rec = {}
+    rs = np.random.RandomState(18)
+    for shape in PACK_SHAPES:
+        x = (rs.randn(*shape, 3) * 40).astype(np.float32)
+        got = pack_conv1_planes_np(x)
+        plain = pack_conv1_planes_np(x, native=False)
+        if not torch.equal(got.view(torch.int16), plain.view(torch.int16)):
+            raise AssertionError(f"18c {shape}: native planes != torch "
+                                 "packer's")
+        times = {"native": [], "torch": []}
+        for arm in PACK_ORDER:
+            native = arm == "native"
+            for _ in range(PACK_REPS):
+                t = time.perf_counter()
+                pack_conv1_planes_np(x, native=native)
+                times[arm].append(1e3 * (time.perf_counter() - t))
+        rec["x".join(map(str, shape))] = {
+            "planes": list(got.shape), "order": list(PACK_ORDER),
+            **{f"{arm}_ms": {"median": float(np.median(v)), "min": min(v),
+                             "max": max(v), "all": v}
+               for arm, v in times.items()}}
+    log(f"18c pack_planes byte-equal to the torch packer; host ms (median, "
+        f"least-most of {len(PACK_ORDER) // 2 * PACK_REPS} calls each, "
+        f"blocks {', '.join(PACK_ORDER)}) native / torch: " + "; ".join(
+            f"{k} {v['native_ms']['median']:.2f} ({v['native_ms']['min']:.2f}"
+            f"-{v['native_ms']['max']:.2f}) / {v['torch_ms']['median']:.2f} "
+            f"({v['torch_ms']['min']:.2f}-{v['torch_ms']['max']:.2f})"
+            for k, v in rec.items())
+        + f" [{card}, {os.cpu_count()} CPUs]")
+    return rec
+
+
+@contextlib.contextmanager
+def timed_loaders():
+    """Within the block, every ``DetectionLoader`` iteration records its
+    path, the frames of each batch, the host ms its consumer waited for
+    each batch, the ms of each request (from asking for its batch to
+    asking for the next: the driver's loop, loader included), the wall
+    seconds from the first batch asked for to the end, and frames/s over
+    all of it and over the requests after the first. Yields the list of
+    records."""
+    from i2vsgg_tpu_torch.data import pipeline
+    runs, orig = [], pipeline.DetectionLoader.__iter__
+
+    def timed(self):
+        rec = {"path": self.path, "batch_frames": [], "wait_ms": []}
+        runs.append(rec)
+        it = orig(self)
+        asked = []
+        while True:
+            asked.append(time.perf_counter())
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            rec["wait_ms"].append(1e3 * (time.perf_counter() - asked[-1]))
+            rec["batch_frames"].append(len(batch["indices"]))
+            yield batch
+        frames = rec["batch_frames"]
+        rec["frames"] = sum(frames)
+        rec["request_ms"] = [1e3 * float(d) for d in np.diff(asked)]
+        rec["wall_s"] = asked[-1] - asked[0]
+        rec["fps"] = rec["frames"] / rec["wall_s"]
+        if len(frames) > 1:
+            rec["steady_fps"] = sum(frames[1:]) / (asked[-1] - asked[1])
+
+    pipeline.DetectionLoader.__iter__ = timed
+    try:
+        yield runs
+    finally:
+        pipeline.DetectionLoader.__iter__ = orig
+
+
+@contextlib.contextmanager
+def timed_packer(pattern: tuple):
+    """Within the block, call k of ``Conv1Planes.pack`` on numpy images
+    packs with the packer ``pattern[k % len(pattern)]`` names ("native" or
+    "torch"), whatever ``I2VSGG_NATIVE_IO`` says, and records each call's
+    packer and host ms. Yields the list of (packer, ms)."""
+    from i2vsgg_tpu_torch.ops import conv1
+    calls, orig = [], conv1.pack_conv1_planes_np
+
+    def timed(x, **_):
+        packer = pattern[len(calls) % len(pattern)]
+        t = time.perf_counter()
+        out = orig(x, native=packer == "native")
+        calls.append((packer, 1e3 * (time.perf_counter() - t)))
+        return out
+
+    conv1.pack_conv1_planes_np = timed
+    try:
+        yield calls
+    finally:
+        conv1.pack_conv1_planes_np = orig
+
+
+def output_gap(a: list, b: list) -> dict:
+    """How far two runs' program outputs (one per request) lie apart, slot
+    by slot: detection slots whose validity or class differ, and the
+    largest box, score and relation-probability gaps where both are
+    valid."""
+    slots = boxes = scores = rel = 0.0
+    for x, y in zip(a, b):
+        same = ((x["det_valid"] == y["det_valid"])
+                & (x["classes"] == y["classes"]))
+        slots += float((~same).sum())
+        both = same & x["det_valid"].bool()
+        if both.any():
+            boxes = max(boxes, float((x["boxes"] - y["boxes"]).abs()[both]
+                                     .max()))
+            scores = max(scores, float((x["scores"] - y["scores"]).abs()
+                                       [both].max()))
+        pairs = x["pair_valid"].bool() & y["pair_valid"].bool()
+        if pairs.any():
+            rel = max(rel, float((x["rel_prob"].float()
+                                  - y["rel_prob"].float()).abs()[pairs]
+                                 .max()))
+    return {"slots_differ": int(slots), "boxes_max": boxes,
+            "scores_max": scores, "rel_prob_max": rel}
+
+
+def arm_summary(runs: list) -> dict:
+    """One arm's steady state over its runs: frames/s of each run over the
+    requests after the first, and the median ms of those requests, of the
+    loader's waits and of the packer's calls (where it packed)."""
+    steady = [m for r in runs for m in r["request_ms"][1:]]
+    waits = [m for r in runs for m in r["wait_ms"][1:]]
+    packs = [m for r in runs for _, m in r["packs"][1:]]
+    return {"steady_fps": [r["steady_fps"] for r in runs],
+            "request_ms_median": float(np.median(steady)),
+            "wait_ms_median": float(np.median(waits)),
+            "pack_ms_median": float(np.median(packs)) if packs else None,
+            "wall_fps": [r["fps"] for r in runs]}
+
+
+def packer_pairs(runs: list) -> dict:
+    """The two packers within the native loader's ``--host_planes`` runs,
+    whose requests alternate between them in blocks of two (one request
+    each, in ``PACK_ORDER``'s order, or in the second run that order
+    rotated by two): for each block after the first (which holds the
+    run's first request), the ms of the request packed natively and of
+    the one packed by the torch packer.
+    Returns the pairs, each packer's median request and pack ms over the
+    pairs' requests, and in how many pairs the native packer's request,
+    and its pack, took less time."""
+    pairs = []
+    for r in runs:
+        for k in range(2, len(r["request_ms"]) - 1, 2):
+            by = {r["packs"][j][0]: (r["request_ms"][j], r["packs"][j][1])
+                  for j in (k, k + 1)}
+            pairs.append({"native_ms": by["native"][0],
+                          "torch_ms": by["torch"][0],
+                          "native_pack_ms": by["native"][1],
+                          "torch_pack_ms": by["torch"][1]})
+    med = {k: float(np.median([p[k] for p in pairs])) for k in pairs[0]}
+    return {"pairs": pairs, "medians": med, "native_wins": sum(
+        p["native_ms"] < p["torch_ms"] for p in pairs),
+        "native_pack_wins": sum(p["native_pack_ms"] < p["torch_pack_ms"]
+                                for p in pairs)}
+
+
+def native_drivers_on_card(counters, card: str, files: dict,
+                           devkit: str, mvrd_root: str, out: str) -> dict:
+    """18d: ``serve_video`` with 13b's checkpoints on ``devkit``
+    (``DEVKIT_18D``), default and ``--host_planes``, each with the native
+    loader and with the Python path (``I2VSGG_NATIVE_IO=0``) in the order
+    native, python, python, native. Under ``--host_planes`` the native
+    loader's runs pack each request with the native packer or the torch
+    packer in turn (``packer_pairs``), so the two packers meet in one run
+    on the same requests; the Python path packs with the torch packer.
+    Then ``test_det`` on the MVRD stills with each loader (two batches: a
+    smoke reading). The launches counted as 13b and 16b count them; of
+    each arm the steady state (``arm_summary``: the first request of a
+    run left out) and the two loaders' detection gaps (reported, not
+    held: random-weight near-ties move)."""
+    from i2vsgg_tpu_torch.tools import serve_video, test_det
+    b = FULL["frames"]
+    n_req = DEVKIT_18D["videos"] * DEVKIT_18D["frames"] // b
+    python = {"I2VSGG_NATIVE_IO": "0"}
+    expect = dict(NO_LAUNCHES, roi_align=2, roi_pool=b)
+    rec = {}
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    order = ("native", "python", "python", "native")
+    try:
+        os.environ["I2VSGG_DATA_ROOT"] = devkit
+        for name, extra in (("default", []),
+                            ("host_planes", ["--host_planes"])):
+            runs = {arm: [] for arm in order}
+            want = dict(expect, conv1=1) if extra else expect
+            outputs = {}
+            for k, arm in enumerate(order):
+                argv = DRIVER_FULL + [
+                    "--load_name", files["det"], "--sgg_load_name",
+                    files["sgg"], "--max_det", str(FULL["max_det"]),
+                    "--save_dir", os.path.join(out, f"{name}_{arm}_{k}")
+                ] + extra
+                pattern = (("torch",) if arm == "python" else
+                           PACK_ORDER if k == 0 else
+                           PACK_ORDER[2:] + PACK_ORDER[:2])
+                with env_set(python if arm == "python" else {}), \
+                        timed_packer(pattern) as packs, \
+                        timed_loaders() as loops, \
+                        recorded_programs() as calls:
+                    driver_launches(counters, f"18d serve_video {name} "
+                                    f"({arm}, run {k + 1} of {len(order)})",
+                                    lambda: serve_video.main(argv), want,
+                                    n_req)
+                (loop,) = loops
+                if loop["path"].startswith("native") != (arm == "native"):
+                    raise AssertionError(f"18d {name} {arm}: {loop['path']}")
+                if len(packs) != (n_req if extra else 0):
+                    raise AssertionError(f"18d {name} {arm}: {len(packs)} "
+                                         f"packs for {n_req} requests")
+                runs[arm].append(dict(loop, packs=packs,
+                                      program_ms=[m for _, m in calls]))
+                outputs.setdefault(arm, [o for o, _ in calls])
+            summary = {arm: arm_summary(r) for arm, r in runs.items()}
+            gap = output_gap(outputs["native"], outputs["python"])
+            rec[f"serve_video {name}"] = {
+                "order": list(order), "requests_a_run": n_req,
+                "runs": runs, "steady": summary, "detection_gap": gap}
+            log(f"18d serve_video {name}: {n_req} requests of {b} frames a "
+                f"run, runs in the order {', '.join(order)}; steady state "
+                "(the first request of each run left out): " + "; ".join(
+                    f"{arm} loader frames/s "
+                    f"{' / '.join(f'{v:.2f}' for v in m['steady_fps'])}, ms a "
+                    f"request (median) {m['request_ms_median']:.2f}, loader "
+                    f"wait {m['wait_ms_median']:.2f}"
+                    + (f", pack {m['pack_ms_median']:.2f}"
+                       if m["pack_ms_median"] is not None else "")
+                    for arm, m in summary.items())
+                + f"; detections native vs python loader: {gap} (reported, "
+                f"not held) [{card}, {os.cpu_count()} CPUs]")
+            if extra:
+                pp = packer_pairs(runs["native"])
+                rec[f"serve_video {name}"]["packer_pairs"] = pp
+                m = pp["medians"]
+                log(f"18d serve_video {name}, the packers on alternate "
+                    f"requests of the native loader's runs: the native "
+                    f"packer's request faster in {pp['native_wins']} of "
+                    f"{len(pp['pairs'])} pairs, its pack in "
+                    f"{pp['native_pack_wins']}; medians, request ms "
+                    f"{m['native_ms']:.2f} native / {m['torch_ms']:.2f} "
+                    f"torch, pack ms {m['native_pack_ms']:.2f} / "
+                    f"{m['torch_pack_ms']:.2f} [{card}, {os.cpu_count()} "
+                    "CPUs]")
+        os.environ["I2VSGG_DATA_ROOT"] = mvrd_root
+        runs = {}
+        n_batches = -(-MVRD_IMAGES // MVRD_EVAL_BS)
+        for loader in ("native", "python"):
+            save = os.path.join(out, f"det_{loader}")
+            with env_set(python if loader == "python" else {}), \
+                    timed_loaders() as loops:
+                aps, _ = driver_launches(
+                    counters, f"18d test_det ({loader} loader)",
+                    lambda: test_det.main(MVRD_EVAL_ARGS + [
+                        "--load_name", files["det"], "--save_dir", save]),
+                    dict(NO_LAUNCHES, roi_align=2), n_batches)
+            with open(os.path.join(save, "eval", "MVRD_test",
+                                   "detections.pkl"), "rb") as fh:
+                dets = pickle.load(fh)
+            runs[loader] = dict(loops[0], mAP=float(aps["mAP"]), dets=dets)
+        cells = [(a, c) for ca, cc in zip(runs["native"]["dets"],
+                                          runs["python"]["dets"])
+                 for a, c in zip(ca, cc)]
+        differ = sum(a.shape != c.shape or not np.array_equal(a, c)
+                     for a, c in cells)
+        rec["test_det stills"] = {
+            k: {key: v for key, v in r.items() if key != "dets"}
+            for k, r in runs.items()}
+        rec["test_det stills"]["cells_differ"] = differ
+        log(f"18d test_det on {MVRD_IMAGES} MVRD stills ({n_batches} "
+            f"batches, start-up included: a smoke reading, not a rate): "
+            f"{runs['native']['fps']:.2f} images/s native, "
+            f"{runs['python']['fps']:.2f} Python path; mAP "
+            f"{runs['native']['mAP']:.4f} / {runs['python']['mAP']:.4f}; "
+            f"{differ} of {len(cells)} (class, image) detection cells differ "
+            f"(reported, not held) [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    return rec
+
+
+def native_loader_on_card(counters, card: str, work: str, drivers: dict,
+                          build: dict) -> dict:
+    """Phase 18 (see the module docstring) on 13a's devkit and 13b's
+    checkpoints under ``work``, with an MVRD devkit of the committed stills
+    (14c's) and 18d's longer devkit (``DEVKIT_18D``) written beside
+    them."""
+    phase("18a the native loader's decode: every committed JPEG fixture and "
+          "its PNG golden through runtime.decode_image")
+    rec = {"18a decode": native_decode_on_host(build)}
+    phase("18b runtime.load_batch at the drivers' scale: 13a's PNG frames "
+          "and 14c's JPEG stills, 1 and 8 threads, held to the plain "
+          "version, timed beside the Python path")
+    files = drivers["files"]
+    mvrd = os.path.join(work, "data18")
+    write_mvrd_devkit(mvrd)
+    frames = sorted(os.path.join(files["data"], "MVidVRD", "JPEGImages", f)
+                    for f in os.listdir(os.path.join(
+                        files["data"], "MVidVRD", "JPEGImages")))
+    stills = sorted(os.path.join(mvrd, "MVRD", "JPEGImages", f)
+                    for f in os.listdir(os.path.join(mvrd, "MVRD",
+                                                     "JPEGImages")))
+    rec["18b frames"] = native_batches_on_host(card, "PNG frames", frames)
+    rec["18b stills"] = native_batches_on_host(card, "JPEG stills", stills)
+    phase("18c runtime.pack_planes at (4, 600, 960) and (4, 608, 1216) "
+          "against the torch packer")
+    rec["18c packer"] = native_packer_on_host(card)
+    phase("18d the drivers with the native loader and with "
+          "I2VSGG_NATIVE_IO=0: serve_video (default, --host_planes with "
+          "the two packers on alternate requests) on a 48-frame devkit, "
+          "runs in alternating order, test_det on the stills")
+    devkit = os.path.join(work, "data18d")
+    write_devkit(devkit, seed=18, shape=DEVKIT_18D)
+    rec["18d drivers"] = native_drivers_on_card(
+        counters, card, files, devkit, mvrd, os.path.join(work, "out18"))
     return rec
 
 
@@ -3821,8 +4335,9 @@ def main() -> int:
         f"{kind} x{count}; nvidia-smi: {name_power or 'not available'}")
     card = name_power or kind
 
-    phase("2 build (one nvcc per source, in parallel)")
-    build_kernels()
+    phase("2 build (one nvcc per source and the native batch loader's "
+          "host compiler, in parallel)")
+    runtime_build = build_kernels()
 
     phase("3 roi_pool kernel vs plain at (1, 38, 60, 1024)")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -4819,7 +5334,7 @@ def main() -> int:
     work13 = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
     try:
         drivers = drivers_on_card(dev, counters, card, work13)
-        phase("16a JPEG decode: the decoder built with the host compiler, "
+        phase("16a JPEG decode: "
               "every committed fixture held to its golden, the refused ones "
               "refused, decode times beside PNG (16b runs after phase 15)")
         jpeg_rec = {"16a fixtures": jpeg_fixtures_on_host(card)}
@@ -4833,12 +5348,14 @@ def main() -> int:
               "at --bs 4 --mesh 2 against --bs 2 --mesh 0")
         dp["17c mesh"] = serving_over_mesh(dev, counters, card, det, sgg,
                                            sgg_align, prd, cfg, drivers)
+        native_io = native_loader_on_card(counters, card, work13, drivers,
+                                          runtime_build)
     finally:
         shutil.rmtree(work13, ignore_errors=True)
 
-    phase("18 results")
+    phase("19 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
-                      "data_parallel": dp,
+                      "data_parallel": dp, "native_io": native_io,
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,

@@ -1,8 +1,8 @@
 """JPEG decode for the port's loader: the baseline decoder of
-``csrc/jpeg.cc``, built with ``g++`` at first use
-(``utils/cuda_build.py::build_host``) and called through ``ctypes.CDLL``,
-which releases the GIL for the whole call, so the loader's prefetch thread
-decodes while the main thread launches kernels.
+``csrc/jpeg.cc``, built with ``g++`` at first use into the port's host
+library with the batch loader (``runtime.library``) and called through
+``ctypes.CDLL``, which releases the GIL for the whole call, so the loader's
+prefetch thread decodes while the main thread launches kernels.
 
 ``decode_jpeg`` returns what ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns
 for the files it reads, byte for byte: BGR uint8 (H, W, 3), grey replicated,
@@ -20,16 +20,10 @@ from __future__ import annotations
 
 import ctypes
 import struct
-import threading
 
 import numpy as np
 
-from i2vsgg_tpu_torch.utils import cuda_build
-
-SOURCE = "jpeg.cc"
 _UNSUPPORTED = 1                # the decoder's code for a mode it refuses
-_lock = threading.Lock()
-_lib = None
 
 
 class UnsupportedImageError(ValueError):
@@ -38,22 +32,10 @@ class UnsupportedImageError(ValueError):
 
 
 def library() -> ctypes.CDLL:
-    """The decoder's library, built on first use and typed once."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = cuda_build.load(SOURCE)
-            size_t, c_int_p = ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)
-            lib.i2v_jpeg_info.argtypes = [
-                ctypes.c_char_p, size_t, c_int_p, c_int_p, c_int_p,
-                ctypes.c_char_p, ctypes.c_int]
-            lib.i2v_jpeg_decode.argtypes = [
-                ctypes.c_char_p, size_t, ctypes.c_void_p, size_t,
-                ctypes.c_char_p, ctypes.c_int]
-            lib.i2v_jpeg_info.restype = ctypes.c_int
-            lib.i2v_jpeg_decode.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    """The host library that holds the decoder (``runtime.library``: built
+    on first use, its functions typed once)."""
+    from i2vsgg_tpu_torch import runtime       # runtime imports this module
+    return runtime.library()
 
 
 def _raise(rc: int, err, path: str):

@@ -23,10 +23,18 @@ cv2 is not on the card's machine, so the port decodes with
   test_torch_drivers.py), off by one on under 0.1 % of values at upscales
   near 10x.
 
-The native C++ batch runtime of the JAX package (``i2v_load_batch``:
-decode, resize and pack on a thread pool) is not ported; the port's JPEG
-decoder releases the GIL, so the prefetch thread decodes beside the main
-thread. The loader's training branch (``training=True``: the ratio-sorted roidb without
+``DetectionLoader`` loads through the native runtime by default
+(``i2vsgg_tpu_torch/runtime``: ``csrc/io_runtime.cc``, decode, resize and
+pad a whole batch on a thread pool with the GIL released, bit-equal to the
+JAX package's default batches), as the JAX package's loader does;
+``native=False`` or ``I2VSGG_NATIVE_IO=0`` takes the Python path above (its
+JPEG decoder releases the GIL too, so the prefetch thread decodes beside
+the main thread). Unlike the JAX package, a runtime that does not build
+raises with the compiler's output instead of falling back. The two paths
+differ by a fraction of a pixel where a side does not scale to a whole
+number of pixels (``runtime.preprocess_plain``), and the native path leaves
+a JPEG's EXIF orientation unapplied, as the JAX runtime's libjpeg does; the
+uint8 transport always takes the Python path. The loader's training branch (``training=True``: the ratio-sorted roidb without
 its ``need_crop`` entries, flipped entries mirrored, aspect-grouped batches
 in a seeded random order, GT rows beyond ``MAX_NUM_GT_BOXES`` shuffled and
 truncated) feeds ``tools/trainval_det_da.py``; JAX's multi-host
@@ -37,11 +45,12 @@ from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from i2vsgg_tpu_torch import runtime
 from i2vsgg_tpu_torch.config import Config
 from i2vsgg_tpu_torch.data.image_io import imread_bgr
 from i2vsgg_tpu_torch.parallel.mesh import host_shard
@@ -144,8 +153,13 @@ def prep_image_u8(im_bgr: np.ndarray, target_size: int
 
 
 class DetectionLoader:
-    """Batched detection data iterator with a prefetch thread (the JAX
-    ``DetectionLoader`` without its native C++ decode path).
+    """Batched detection data iterator with a prefetch thread.
+
+    Each batch is decoded, resized and padded by the native runtime
+    (``runtime.load_batch``, threaded, GIL-free) unless ``native`` is False
+    (default: ``I2VSGG_NATIVE_IO``, on unless "0") or ``uint8_transport``
+    is set; the Python path (``imread_bgr`` + ``prep_image`` an image) is
+    the other. A runtime that does not build raises here.
 
     Training: aspect-grouped batches of the ratio-sorted roidb in a seeded
     random order; in a process group each rank takes its slice of it
@@ -164,13 +178,18 @@ class DetectionLoader:
     def __init__(self, roidb: List[Dict], ratio_index: np.ndarray,
                  cfg: Config, batch_size: int = 1, training: bool = True,
                  seed: int = 0, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 prefetch: int = 2, gt_truncate: str = "shuffle",
+                 prefetch: int = 2, native: Optional[bool] = None,
+                 gt_truncate: str = "shuffle",
                  uint8_transport: bool = False):
         if gt_truncate not in ("shuffle", "first"):
             raise ValueError(f"gt_truncate {gt_truncate!r}: 'shuffle' or "
                              "'first'")
         self.gt_truncate = gt_truncate
         self.uint8_transport = uint8_transport
+        # the runtime packs mean-subtracted f32; the uint8 transport is not
+        self.native = runtime.wanted(native) and not uint8_transport
+        if self.native:
+            runtime.library()           # a failed build raises here
         self.cfg = cfg
         self.training = training
         self.batch_size = batch_size
@@ -185,6 +204,14 @@ class DetectionLoader:
         else:
             self.entries = list(roidb)
         self.prefetch = prefetch
+
+    @property
+    def path(self) -> str:
+        """Which path loads the batches, as the drivers print it."""
+        if self.native:
+            return "native runtime (csrc/io_runtime.cc, 8 threads)"
+        return ("Python (imread_bgr + prep_image_u8, uint8 transport)"
+                if self.uint8_transport else "Python (imread_bgr + prep_image)")
 
     def __len__(self):
         return len(self.entries) // self.batch_size if self.training \
@@ -231,6 +258,45 @@ class DetectionLoader:
         return {key: images, "im_info": im_info, "gt_boxes": gt,
                 "num_boxes": num_boxes}
 
+    def _pack_batch_native(self, group: List[int]) -> Dict:
+        """The whole batch decoded, resized and padded by the runtime into
+        the bucket that the roidb's recorded sizes give."""
+        cfg = self.cfg
+        target = (cfg.TRAIN.SCALES if self.training else cfg.TEST.SCALES)[0]
+        entries = [self.entries[i] for i in group]
+        hw_pred = []
+        for e in entries:
+            s = float(target) / min(e["height"], e["width"])
+            hw_pred.append(bucket_hw(int(round(e["height"] * s)),
+                                     int(round(e["width"] * s)),
+                                     self.buckets))
+        ph = max(h for h, w in hw_pred)
+        pw = max(w for h, w in hw_pred)
+        images, scales, hw = runtime.load_batch(
+            [e["image"] for e in entries],
+            [bool(e.get("flipped")) for e in entries],
+            cfg.PIXEL_MEANS, target, ph, pw)
+        b = len(entries)
+        g = cfg.TRAIN.MAX_NUM_GT_BOXES
+        im_info = np.zeros((b, 3), np.float32)
+        gt = np.zeros((b, g, 5), np.float32)
+        num_boxes = np.zeros((b,), np.int32)
+        for i, e in enumerate(entries):
+            h, w = int(hw[i, 0]), int(hw[i, 1])
+            im_info[i] = [h, w, scales[i]]
+            boxes = e["boxes"] * scales[i]
+            classes = e["gt_classes"]
+            n = len(boxes)
+            if n > g:
+                boxes, classes, n = self._truncate_gt(boxes, classes, g)
+            if n:
+                gt[i, :n, :4] = np.clip(boxes[:, :4], 0,
+                                        [w - 1, h - 1, w - 1, h - 1])
+                gt[i, :n, 4] = classes
+            num_boxes[i] = n
+        return {"image": images, "im_info": im_info, "gt_boxes": gt,
+                "num_boxes": num_boxes}
+
     def _truncate_gt(self, boxes, classes, g):
         if self.gt_truncate == "first":
             return boxes[:g], classes[:g], g
@@ -251,8 +317,11 @@ class DetectionLoader:
             for group in order:
                 if stop.is_set():
                     return
-                batch = self._pack_batch([self._load_one(self.entries[i])
-                                          for i in group])
+                if self.native:
+                    batch = self._pack_batch_native(group)
+                else:
+                    batch = self._pack_batch([self._load_one(self.entries[i])
+                                              for i in group])
                 batch["indices"] = np.asarray(group, np.int64)
                 out_q.put(batch)
         except Exception as e:                  # re-raised by the consumer

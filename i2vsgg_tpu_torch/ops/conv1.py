@@ -6,9 +6,10 @@ kernels ``i2vsgg_tpu/ops/pallas/conv1_kernel.py`` (the four B3 entries) and
 The host contract is copied as it is: ``conv1_plane_geometry`` (with the
 TPU-derived ``rt``, ``hq`` and ``wq``), the parity-plane layout
 ``(B, 2, 2, 3, Hq, Wq)`` in bf16 with the pad-3 halo baked in, and
-``Conv1Planes``. Host planes packed by the port are byte-identical to those
-of the JAX packer (and of ``runtime/io_runtime.cc``). The tap for kernel
-offset ``(dr, dc)`` of output ``(y, x)`` is
+``Conv1Planes``. Host planes packed by the port (the native runtime's
+``pack_planes`` by default, the torch packer with ``native=False`` or
+``I2VSGG_NATIVE_IO=0``) are byte-identical to those of the JAX packers. The
+tap for kernel offset ``(dr, dc)`` of output ``(y, x)`` is
 ``plane[dr % 2][dc % 2][c][y + dr // 2][x + dc // 2]``.
 
 Every entry takes the port's own parameters: ``weight`` is ``conv1.weight``
@@ -29,12 +30,13 @@ per call, ``ResNetTrunk`` once per set of weights (``conv1_apply``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from i2vsgg_tpu_torch import runtime
 from i2vsgg_tpu_torch.utils import cuda_build
 
 launches = 0
@@ -100,10 +102,20 @@ def pack_conv1_planes(x: torch.Tensor) -> torch.Tensor:
     return _pack(torch.as_tensor(x))
 
 
-def pack_conv1_planes_np(x: np.ndarray) -> torch.Tensor:
+def pack_conv1_planes_np(x: np.ndarray, native: Optional[bool] = None
+                         ) -> torch.Tensor:
     """The host packer: (B, H, W, 3) numpy images -> bf16 parity planes as
     a CPU tensor, byte-identical to the JAX package's
-    ``pack_conv1_planes_np`` (f32 -> bf16 rounds half to even in both)."""
+    ``pack_conv1_planes_np`` (f32 -> bf16 rounds half to even in both).
+
+    By default the native runtime packs them on its thread pool
+    (``runtime.pack_planes``, as the JAX package routes it); ``native=False``
+    or ``I2VSGG_NATIVE_IO=0`` runs the torch packer, the plain version it is
+    held to. A failed build of the runtime raises."""
+    if runtime.wanted(native):
+        b, h, w, _ = x.shape
+        g = conv1_plane_geometry(h, w)
+        return runtime.pack_planes(x, g.hq, g.wq)
     return _pack(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
 
 

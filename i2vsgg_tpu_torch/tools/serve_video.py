@@ -162,6 +162,7 @@ def main(argv=None):
     print(f"{len(roidb)} frames ({args.imdbval_name})")
     loader = DetectionLoader(roidb, idx, cfg, args.batch_size, training=False,
                              uint8_transport=args.uint8_upload)
+    print(f"loader: {loader.path}")
     prd_np = load_predicate_vectors(args)
     n_rel = prd_np.shape[0]
     md = ns.max_det

@@ -91,6 +91,7 @@ def main(argv=None):
     print(f"{len(roidb)} eval images ({args.imdbval_name})")
     loader = DetectionLoader(roidb, idx, cfg, args.batch_size, training=False,
                              uint8_transport=args.uint8_upload)
+    print(f"loader: {loader.path}")
 
     model = FasterRCNN_DA(num_classes=len(imdb.classes), cfg=cfg,
                           backbone=args.net,

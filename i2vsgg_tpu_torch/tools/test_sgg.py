@@ -98,6 +98,7 @@ def main(argv=None):
     # annotation order; only applies when n > g
     loader = DetectionLoader(roidb, idx, cfg, batch_size=args.batch_size,
                              training=False, gt_truncate="first")
+    print(f"loader: {loader.path}")
 
     prd_np = load_predicate_vectors(args)
     n_rel = prd_np.shape[0]

@@ -99,6 +99,7 @@ def main(argv=None):
                                seed=cfg.RNG_SEED)
     loader_t = DetectionLoader(roidb_t, idx_t, cfg, bs, training=True,
                                seed=cfg.RNG_SEED + 1)
+    print(f"loader: {loader_s.path}")
     steps_per_epoch = min(len(loader_s), len(loader_t))
 
     model = FasterRCNN_DA(num_classes=len(imdb_s.classes), cfg=cfg,

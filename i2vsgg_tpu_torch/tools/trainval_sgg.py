@@ -101,6 +101,7 @@ def main(argv=None):
     # crowded image keeps its first MAX_NUM_GT_BOXES boxes in order
     loader = DetectionLoader(roidb, idx, cfg, bs, training=True,
                              seed=cfg.RNG_SEED, gt_truncate="first")
+    print(f"loader: {loader.path}")
     steps_per_epoch = len(loader)
 
     model = SGGModel(

@@ -3,14 +3,17 @@
 Each ``csrc/*.cu`` file exposes an ``extern "C"`` launcher that takes raw
 pointers, ints and a stream and returns ``cudaGetLastError()``; ``build``
 compiles it with plain ``nvcc``, on the machine with the card. Each
-``csrc/*.cc`` file is host-only C++ with a plain C API (the JPEG decoder);
-``build_host`` compiles it with ``g++`` (or ``$CXX``), here and on the
-card's machine alike. Either is built at first use into a shared library
-under ``i2vsgg_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the source, the flags and the compiler, so that an edited source is
-rebuilt. Nothing includes PyTorch's headers and nothing needs ninja,
-setuptools or Python headers, so a build takes seconds. A failed build
-raises with the compiler's output.
+``csrc/*.cc`` file is host-only C++ with a plain C API; ``build_host``
+compiles it with ``g++`` (or ``$CXX``), here and on the card's machine
+alike, alone or linked with other host sources into one library (the
+batch loader ``io_runtime.cc`` with the JPEG decoder ``jpeg.cc``, the
+port's one host library). Either is built at first
+use into a shared library under ``i2vsgg_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of every source compiled into it, the flags
+and the compiler, so that an edit to any of them rebuilds it. Nothing
+includes PyTorch's headers and nothing needs ninja, setuptools or Python
+headers, so a build takes seconds. A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -29,10 +32,14 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+# no -ffast-math, no -march=native, no contraction into FMAs: the batch
+# loader's f32 resize must round as the JAX package's runtime does on any
+# host
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
+              "-pthread")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -58,16 +65,24 @@ def find_cxx() -> str:
     return cxx
 
 
-def library_path(source: str, flags=NVCC_FLAGS, compiler: str = "") -> Path:
+def _sources(source) -> tuple:
+    """``source``: one name under ``csrc/`` or a tuple of them."""
+    return (source,) if isinstance(source, str) else tuple(source)
+
+
+def library_path(source, flags=NVCC_FLAGS, compiler: str = "") -> Path:
     """Where ``csrc/<source>`` builds to (the name hashes the source, the
-    flags and the compiler)."""
-    src = CSRC_DIR / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                         + compiler.encode())
-    return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
+    flags and the compiler). ``source`` may be a tuple of sources linked
+    into one library, named after the first: the name then hashes every
+    one of them."""
+    first, *rest = [CSRC_DIR / s for s in _sources(source)]
+    data = first.read_bytes() + b"".join(
+        b"\0" + s.name.encode() + b"\0" + s.read_bytes() for s in rest)
+    key = hashlib.sha256(data + " ".join(flags).encode() + compiler.encode())
+    return BUILD_DIR / f"{first.stem}_{key.hexdigest()[:16]}.so"
 
 
-def _compile(source: str, out: Path, cmd_of) -> Path:
+def _compile(source, out: Path, cmd_of) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,7 +92,8 @@ def _compile(source: str, out: Path, cmd_of) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}) building "
-                           f"{source}:\n{proc.stdout}\n{proc.stderr}")
+                           f"{' + '.join(_sources(source))}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)       # atomic: a concurrent build loses nothing
     return out
@@ -93,23 +109,27 @@ def build(source: str) -> Path:
         find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / source)])
 
 
-def build_host(source: str) -> Path:
-    """Compile ``csrc/<source>`` (host C++) with ``g++ -O2 -shared -fPIC
-    -std=c++17`` unless its library already exists."""
+def build_host(source) -> Path:
+    """Compile ``csrc/<source>`` (host C++; a tuple of sources is linked
+    into one library) with ``g++ HOST_FLAGS`` unless its library already
+    exists."""
     cxx = find_cxx()
     return _compile(source, library_path(source, HOST_FLAGS, cxx),
                     lambda tmp: [cxx, *HOST_FLAGS, "-o", tmp,
-                                 str(CSRC_DIR / source)])
+                                 *(str(CSRC_DIR / s)
+                                   for s in _sources(source))])
 
 
-def load(source: str) -> ctypes.CDLL:
+def load(source) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>`` once per process: a
-    ``.cu`` with nvcc, a ``.cc`` with the host compiler."""
+    ``.cu`` with nvcc, a ``.cc`` (or a tuple of them) with the host
+    compiler."""
+    key = _sources(source)
     with _lock:
-        lib = _loaded.get(source)
+        lib = _loaded.get(key)
         if lib is None:
-            path = (build_host(source) if source.endswith(".cc")
+            path = (build_host(source) if key[0].endswith(".cc")
                     else build(source))
             lib = ctypes.CDLL(str(path))
-            _loaded[source] = lib
+            _loaded[key] = lib
         return lib

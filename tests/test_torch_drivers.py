@@ -358,58 +358,93 @@ def test_prep_image_u8_residue_at_a_large_upscale():
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
 
 
-@pytest.mark.parametrize("uint8", [False, True])
-def test_detection_loader_matches_jax(data_root, uint8):
-    """Batches of 5 over the 12 video frames (a ragged last batch),
-    resized to 120 rows (scale 1.25)."""
-    cfg = config.cfg_from_list(["TEST.SCALES", "[120]"])
-    cfg_j = jax_config.cfg_from_list(["TEST.SCALES", "[120]"])
-    _, rdb, _, idx = roidb.combined_roidb("MVidVRD_test", training=False,
-                                          use_flipped=False)
-    got = list(pipeline.DetectionLoader(rdb, idx, cfg, 5, training=False,
-                                        uint8_transport=uint8))
-    exp = list(jax_pipeline.DetectionLoader(rdb, idx, cfg_j, 5,
-                                            training=False, native=False,
-                                            uint8_transport=uint8))
-    assert len(got) == len(exp) == 3
-    key = "image_u8" if uint8 else "image"
+def _same_batches(got, exp, key, exact):
     for a, b in zip(got, exp):
         assert set(a) == set(b)
         for k in ("im_info", "gt_boxes", "num_boxes", "indices"):
             np.testing.assert_array_equal(a[k], b[k])
         assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape
-        if uint8:
+        if exact:
             assert np.array_equal(a[key], b[key])
         else:
             close(a[key], b[key], 0.0, 1e-4 / float(np.abs(b[key]).max()))
 
 
+@pytest.mark.parametrize("native", [False, True])
 @pytest.mark.parametrize("uint8", [False, True])
-def test_detection_loader_matches_jax_on_jpeg_stills(data_root, uint8):
+def test_detection_loader_matches_jax(data_root, uint8, native):
+    """Batches of 5 over the 12 video frames (a ragged last batch),
+    resized to 120 rows (scale 1.25). Both packages' Python paths, or both
+    native runtimes (bit-equal; the uint8 transport turns them off in both
+    packages)."""
+    cfg = config.cfg_from_list(["TEST.SCALES", "[120]"])
+    cfg_j = jax_config.cfg_from_list(["TEST.SCALES", "[120]"])
+    _, rdb, _, idx = roidb.combined_roidb("MVidVRD_test", training=False,
+                                          use_flipped=False)
+    loader = pipeline.DetectionLoader(rdb, idx, cfg, 5, training=False,
+                                      native=native, uint8_transport=uint8)
+    loader_j = jax_pipeline.DetectionLoader(rdb, idx, cfg_j, 5,
+                                            training=False, native=native,
+                                            uint8_transport=uint8)
+    assert loader.native == loader_j.native == (native and not uint8)
+    got, exp = list(loader), list(loader_j)
+    assert len(got) == len(exp) == 3
+    _same_batches(got, exp, "image_u8" if uint8 else "image",
+                  exact=uint8 or native)
+
+
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("uint8", [False, True])
+def test_detection_loader_matches_jax_on_jpeg_stills(data_root, uint8,
+                                                     native):
     """The source domain: batches of 3 over the 8 MVRD stills (JPEG, 4:2:0,
-    written by PIL; a ragged last batch), resized to 120 rows. JAX's loader
-    decodes with cv2, the port's with its own decoder."""
+    written by PIL; a ragged last batch), resized to 120 rows. JAX's Python
+    path decodes with cv2, the port's with its own decoder; JAX's runtime
+    with libjpeg, the port's with the same decoder (bit-equal)."""
     cfg = config.cfg_from_list(["TEST.SCALES", "[120]"])
     cfg_j = jax_config.cfg_from_list(["TEST.SCALES", "[120]"])
     _, rdb, _, idx = roidb.combined_roidb("MVRD_test", training=False,
                                           use_flipped=False)
     assert all(e["image"].endswith(".jpg") for e in rdb)
-    got = list(pipeline.DetectionLoader(rdb, idx, cfg, 3, training=False,
-                                        uint8_transport=uint8))
-    exp = list(jax_pipeline.DetectionLoader(rdb, idx, cfg_j, 3,
-                                            training=False, native=False,
-                                            uint8_transport=uint8))
+    loader = pipeline.DetectionLoader(rdb, idx, cfg, 3, training=False,
+                                      native=native, uint8_transport=uint8)
+    loader_j = jax_pipeline.DetectionLoader(rdb, idx, cfg_j, 3,
+                                            training=False, native=native,
+                                            uint8_transport=uint8)
+    assert loader.native == loader_j.native == (native and not uint8)
+    got, exp = list(loader), list(loader_j)
     assert len(got) == len(exp) == 3
-    key = "image_u8" if uint8 else "image"
-    for a, b in zip(got, exp):
-        assert set(a) == set(b)
-        for k in ("im_info", "gt_boxes", "num_boxes", "indices"):
-            np.testing.assert_array_equal(a[k], b[k])
-        assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape
-        if uint8:
-            assert np.array_equal(a[key], b[key])
-        else:
-            close(a[key], b[key], 0.0, 1e-4 / float(np.abs(b[key]).max()))
+    _same_batches(got, exp, "image_u8" if uint8 else "image",
+                  exact=uint8 or native)
+
+
+@pytest.mark.parametrize("gt_truncate", ["shuffle", "first"])
+def test_training_loader_native_matches_jax_on_jpeg_stills(data_root,
+                                                           gt_truncate):
+    """The training branch on the native runtime against JAX's, bit for
+    bit: the MVRD stills with their flipped copies, aspect-grouped batches
+    of 2 in the order of seed 5, at TRAIN scale 96, GT rows truncated to 2
+    (shuffled or kept in order)."""
+    opts = ["TRAIN.SCALES", "[96]", "TRAIN.MAX_NUM_GT_BOXES", "2"]
+    cfg = config.cfg_from_list(opts)
+    cfg_j = jax_config.cfg_from_list(opts)
+    _, rdb, _, idx = roidb.combined_roidb("MVRD_trainval", use_flipped=True)
+    _, rdb_j, _, idx_j = jax_roidb.combined_roidb("MVRD_trainval",
+                                                  use_flipped=True)
+    np.testing.assert_array_equal(idx, idx_j)
+    assert any(e["flipped"] for e in rdb)
+    assert any(len(e["boxes"]) > 2 for e in rdb)
+    loader = pipeline.DetectionLoader(rdb, idx, cfg, 2, training=True,
+                                      seed=5, native=True,
+                                      gt_truncate=gt_truncate)
+    loader_j = jax_pipeline.DetectionLoader(rdb_j, idx_j, cfg_j, 2,
+                                            training=True, seed=5,
+                                            native=True,
+                                            gt_truncate=gt_truncate)
+    assert loader.native and loader_j.native
+    got, exp = list(loader), list(loader_j)
+    assert len(got) == len(exp) == len(rdb) // 2
+    _same_batches(got, exp, "image", exact=True)
 
 
 def test_loader_raises_on_an_undecodable_image(tmp_path, monkeypatch):

@@ -85,7 +85,7 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "train.det_da", "utils.logging",
                      "tools.trainval_det_da", "train.sgg",
                      "tools.trainval_sgg", "data.jpeg", "utils.cuda_build",
-                     "parallel", "parallel.mesh"):
+                     "parallel", "parallel.mesh", "runtime"):
             assert "i2vsgg_tpu_torch." + name in names, name
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
@@ -559,10 +559,11 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
 
         import numpy as np
 
-        from i2vsgg_tpu_torch.data import image_io, jpeg
+        from i2vsgg_tpu_torch import runtime
+        from i2vsgg_tpu_torch.data import image_io
         from i2vsgg_tpu_torch.utils import cuda_build
 
-        assert cuda_build.build_host(jpeg.SOURCE).exists()
+        assert cuda_build.build_host(runtime.SOURCES).exists()
         d = os.path.join("tests", "data", "jpeg")
         manifest = json.load(open(os.path.join(d, "MANIFEST.json")))
         held = 0
@@ -583,3 +584,48 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
         print("held", held)
     """)
     assert "held 27" in out
+
+
+def test_native_runtime_builds_and_loads_without_the_blocked_names(tmp_path):
+    """``i2vsgg_tpu_torch.runtime`` with cv2, PIL, jax, yaml and ml_dtypes
+    refused: the library builds with the host compiler from
+    ``io_runtime.cc`` and ``jpeg.cc``, decodes a committed JPEG fixture as
+    the port's decoder does and a PNG that ``write_png`` wrote, loads them
+    as one batch equal to the plain version and packs planes equal to the
+    torch packer, as ``chip_smoke.py`` runs it on the card's machine (the
+    drivers above load through it by default)."""
+    out = run_isolated(f"""
+        import os
+
+        import numpy as np
+        import torch
+
+        from i2vsgg_tpu_torch import runtime
+        from i2vsgg_tpu_torch.data import image_io
+        from i2vsgg_tpu_torch.ops import conv1
+
+        runtime.library()
+        jpg = os.path.join("tests", "data", "jpeg", "s420_q90_37x53.jpg")
+        png = os.path.join({str(tmp_path)!r}, "frame.png")
+        frame = np.random.RandomState(0).randint(0, 256, (21, 34, 3))
+        image_io.write_png(png, frame.astype(np.uint8), 4)
+        assert np.array_equal(runtime.decode_image(jpg),
+                              image_io.imread_bgr(jpg))
+        assert np.array_equal(runtime.decode_image(png), frame)
+        means = (102.9801, 115.9465, 122.7717)
+        images, scales, hw = runtime.load_batch([jpg, png], [False, True],
+                                                means, 24, 32, 48)
+        for i, path in enumerate((jpg, png)):
+            im, scale, size = runtime.preprocess_plain(
+                runtime.decode_image(path), i == 1, means, 24, 32, 48)
+            assert np.array_equal(images[i], im) and scales[i] == scale
+            assert np.array_equal(hw[i], size)
+        g = conv1.conv1_plane_geometry(32, 48)
+        planes = runtime.pack_planes(images, g.hq, g.wq)
+        assert torch.equal(planes.view(torch.int16), conv1.pack_conv1_planes_np(
+            images, native=False).view(torch.int16))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("runtime ok")
+    """)
+    assert "runtime ok" in out
