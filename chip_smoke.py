@@ -104,9 +104,10 @@ class, with seeded random weights, along five paths:
 * phase 16, the thirteenth slice's path, JPEG decode (``csrc/jpeg.cc``
   through ``data/jpeg.py``, in the host library that phase 2 builds with
   the host compiler, no kernel): 16a, run before phase 14 (whose driver
-  reads JPEG stills), holds every committed fixture of ``tests/data/jpeg`` bit-equal to
-  its golden (cv2's decode, written as PNG), shows that the progressive
-  and CMYK fixtures raise ``UnsupportedImageError`` naming their mode, and
+  reads JPEG stills), holds every committed fixture of
+  ``tests/data/jpeg`` bit-equal to its golden (cv2's decode, written as
+  PNG; the progressive one too, read since the sixteenth slice), shows the
+  CMYK fixture raises ``UnsupportedImageError`` naming its mode, and
   times the decode of the VRD-sized stills and a 360x640 frame beside the
   PNG decode of the same pixels; 16b, after phase 15, times the loader on
   14c's MVRD stills (decode + resize) and runs ``test_det`` on
@@ -153,7 +154,21 @@ class, with seeded random weights, along five paths:
   runs of each variant in alternating order and the first request of each
   run left out of the steady state,
   and ``test_det`` on the stills with each loader; launches counted,
-  detection gaps reported.
+  detection gaps reported;
+* phase 19, the sixteenth slice's path, the decode formats added to both
+  decoders (``csrc/jpeg.cc``: progressive and separate-scan JPEG through
+  a coefficient buffer, block smoothing where a scan script stops short;
+  ``csrc/io_runtime.cc`` and ``data/image_io.py``: PNG at every bit depth
+  and Adam7): 19a holds every fixture of ``tests/data/decode`` on both
+  paths to its golden (cv2's decode) and each progressive 360x640 frame to
+  its baseline twin, and times host ms a frame of the progressive frames
+  against their baseline twins and of 16-bit and Adam7 copies of 13a's
+  frames (``png_frame``) against the 8-bit frames, the decode alone and
+  ``load_batch`` at 1 and 8 threads; 19b runs ``serve_video`` (default:
+  B1 at the detector, B2 at the SGG site) and ``test_det`` with 13b's
+  checkpoints over two devkits of the same pictures, one in the new
+  formats, one as baseline JPEG and 8-bit PNG (``twin_devkits``): the
+  detections and ``rel_prob`` bit-equal.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -3588,6 +3603,298 @@ def native_loader_on_card(counters, card: str, work: str, drivers: dict,
 
 
 # ----------------------------------------------------------------------------
+# phase 19: the decode formats of the sixteenth slice (progressive and
+# separate-scan JPEG, PNG at every bit depth and Adam7-interlaced) in both of
+# the port's decoders: the committed fixtures of tests/data/decode, host ms
+# beside their baseline and 8-bit twins, and the drivers on twin devkits
+
+DECODE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data", "decode")
+# Adam7's seven passes: first column, first row, column step, row step
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# 19a's timed kinds, in the order of each rep (reversed every other rep)
+FORMAT_KINDS = ("baseline", "progressive", "png8", "png16", "adam7")
+
+
+def decode_manifest() -> dict:
+    with open(os.path.join(DECODE_DIR, "MANIFEST.json")) as fh:
+        return json.load(fh)
+
+
+def png_frame(path: str, bgr: np.ndarray, depth: int = 8,
+              interlace: int = 0):
+    """``bgr`` (H, W, 3) uint8 as an RGB PNG of ``depth`` 8 or 16 bits (a
+    sample v stored as v * 257, whose high byte is v), Adam7-interlaced
+    where ``interlace``, every row of every pass unfiltered, as
+    ``write_png`` writes 13a's frames; zlib level 6."""
+    import struct
+    import zlib
+    rgb = bgr[..., ::-1]
+    if depth == 16:
+        rgb = (rgb.astype(np.uint16) * 257).astype(">u2")
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(b"\0" + row.tobytes() for x0, y0, dx, dy in passes
+                   for row in rgb[y0::dy, x0::dx] if row.size)
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+
+    h, w = bgr.shape[:2]
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0,
+                                              0, interlace))
+                 + chunk(b"IDAT", zlib.compress(raw, 6))
+                 + chunk(b"IEND", b""))
+
+
+def decode_formats_on_host(card: str, frames: list, work: str) -> dict:
+    """19a: every fixture of ``tests/data/decode`` through both decoders
+    (``image_io.imread_bgr``, the Python path; ``runtime.decode_image``,
+    the native runtime): each held to its golden (cv2's decode, an 8-bit
+    PNG), each progressive 360x640 frame to its baseline twin's decode.
+    Then host ms a frame for five kinds of four 360x640 frames each: the
+    committed baseline JPEG frames and their progressive twins, four of
+    13a's 8-bit PNG frames (``frames``) and the same pictures written here
+    at 16 bits and Adam7-interlaced (``png_frame``); the decode alone
+    (``decode_image``, median of ``DECODE_REPS``; ``imread_bgr``, median
+    of 3) and ``runtime.load_batch`` at the drivers' scale at 1 and 8
+    threads (median of ``LOADER_REPS`` batches), the kinds in alternating
+    order. Returns the record and the paths of each kind."""
+    from i2vsgg_tpu_torch import runtime
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import bucket_hw
+    manifest = decode_manifest()
+    held, twins = {}, 0
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(DECODE_DIR, entry["file"])
+        py, native = imread_bgr(path), runtime.decode_image(path)
+        if "golden" in entry:
+            want = imread_bgr(os.path.join(DECODE_DIR, entry["golden"]))
+        elif "twin" in entry:
+            want = imread_bgr(os.path.join(DECODE_DIR, entry["twin"]))
+            twins += 1
+        else:
+            want = py                 # a baseline twin: held by its twin
+        for what, got in (("imread_bgr", py), ("decode_image", native)):
+            if list(got.shape) != entry["shape"] or \
+                    not np.array_equal(got, want):
+                raise AssertionError(f"19a {name}: {what} != its golden or "
+                                     "twin")
+        held[entry["set"]] = held.get(entry["set"], 0) + 1
+    if twins != 4:
+        raise AssertionError(f"19a: {twins} progressive frames, not 4")
+    log(f"19a: {sum(held.values())} fixtures held on both paths "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(held.items()))}): each "
+        "to its golden, the progressive frames to their baseline twins")
+
+    kinds = {"baseline": [], "progressive": [], "png8": [], "png16": [],
+             "adam7": []}
+    for name in sorted(k for k, v in manifest.items() if "twin" in v):
+        kinds["progressive"].append(os.path.join(
+            DECODE_DIR, manifest[name]["file"]))
+        kinds["baseline"].append(os.path.join(DECODE_DIR,
+                                              manifest[name]["twin"]))
+    for k, src in enumerate(frames[:4]):
+        bgr = imread_bgr(src)
+        kinds["png8"].append(src)
+        for kind, kw in (("png16", dict(depth=16)),
+                         ("adam7", dict(interlace=1))):
+            path = os.path.join(work, f"{kind}_{k}.png")
+            png_frame(path, bgr, **kw)
+            if not (np.array_equal(runtime.decode_image(path), bgr)
+                    and np.array_equal(imread_bgr(path), bgr)):
+                raise AssertionError(f"19a {kind} frame {k}: decoded != "
+                                     "the picture written")
+            kinds[kind].append(path)
+    h, w = imread_bgr(kinds["baseline"][0]).shape[:2]
+    scale = 600 / min(h, w)
+    pad = bucket_hw(int(round(h * scale)), int(round(w * scale)))
+    decode = {k: [] for k in kinds}
+    python = {k: [] for k in kinds}
+    batch = {(k, t): [] for k in kinds for t in (1, 8)}
+    for rep in range(max(DECODE_REPS, LOADER_REPS)):
+        order = FORMAT_KINDS if rep % 2 == 0 else FORMAT_KINDS[::-1]
+        for kind in order:
+            paths = kinds[kind]
+            if rep < DECODE_REPS:
+                for p in paths:
+                    t = time.perf_counter()
+                    runtime.decode_image(p)
+                    decode[kind].append(1e3 * (time.perf_counter() - t))
+            if rep < 3:
+                for p in paths:
+                    t = time.perf_counter()
+                    imread_bgr(p)
+                    python[kind].append(1e3 * (time.perf_counter() - t))
+            if rep < LOADER_REPS:
+                for n_threads in (1, 8):
+                    t = time.perf_counter()
+                    runtime.load_batch(paths, [False] * len(paths), MEANS,
+                                       600, *pad, n_threads=n_threads)
+                    batch[(kind, n_threads)].append(
+                        1e3 * (time.perf_counter() - t) / len(paths))
+    rec = {"held": held, "frames_hw": [h, w], "pad": list(pad),
+           "bytes": {k: [os.path.getsize(p) for p in v]
+                     for k, v in kinds.items()}}
+    for kind in kinds:
+        rec[kind] = {
+            "decode_ms": {"median": float(np.median(decode[kind])),
+                          "min": min(decode[kind]), "max": max(decode[kind])},
+            "python_decode_ms": float(np.median(python[kind])),
+            "load_batch_ms_1": float(np.median(batch[(kind, 1)])),
+            "load_batch_ms_8": float(np.median(batch[(kind, 8)]))}
+    rel = {k: rec[k]["decode_ms"]["median"] / rec[base]["decode_ms"]["median"]
+           for k, base in (("progressive", "baseline"), ("png16", "png8"),
+                           ("adam7", "png8"))}
+    rec["decode_ratio"] = rel
+    log("19a host ms a 360x640 frame (native decode median of "
+        f"{DECODE_REPS} / Python path median of 3 / load_batch at scale "
+        f"600 into {pad[0]}x{pad[1]} on 1 and 8 threads): " + "; ".join(
+            f"{k} {rec[k]['decode_ms']['median']:.2f} / "
+            f"{rec[k]['python_decode_ms']:.2f} / "
+            f"{rec[k]['load_batch_ms_1']:.2f}, "
+            f"{rec[k]['load_batch_ms_8']:.2f}" for k in kinds)
+        + "; decode ratios " + ", ".join(f"{k} {v:.2f}x"
+                                         for k, v in rel.items())
+        + f" [host CPU of the machine of {card}, {os.cpu_count()} CPUs]")
+    return rec, kinds
+
+
+def twin_devkits(src: str, kinds: dict, work: str) -> dict:
+    """19b's two MVidVRD devkits, copies of 13a's (``src``, its 12 PNG
+    frames and annotations, without its roidb cache): in "new formats" the
+    first four frames are the committed progressive frames, the next four
+    16-bit and the last four Adam7 copies of the frames they replace; in
+    "twins" the same pictures as the baseline twins and 13a's 8-bit PNGs.
+    The loaders dispatch on a file's first bytes, not its name, so a JPEG
+    frame keeps its devkit name ``vid<v>_<fno>.png``."""
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    roots = {}
+    for name in ("new formats", "twins"):
+        root = os.path.join(work, "data19_" + name.replace(" ", "_"))
+        shutil.copytree(os.path.join(src, "MVidVRD"),
+                        os.path.join(root, "MVidVRD"),
+                        ignore=shutil.ignore_patterns("cache"))
+        roots[name] = root
+    images = os.path.join("MVidVRD", "JPEGImages")
+    names = sorted(os.listdir(os.path.join(src, images)))
+    if len(names) != 12:
+        raise AssertionError(f"19b: 13a's devkit has {len(names)} frames")
+    for k, name in enumerate(names):
+        new = os.path.join(roots["new formats"], images, name)
+        twin = os.path.join(roots["twins"], images, name)
+        if k < 4:
+            shutil.copyfile(kinds["progressive"][k], new)
+            shutil.copyfile(kinds["baseline"][k], twin)
+        else:
+            png_frame(new, imread_bgr(twin), **(
+                dict(depth=16) if k < 8 else dict(interlace=1)))
+    return roots
+
+
+def decode_formats_through_drivers(counters, card: str, files: dict,
+                                   kinds: dict, work: str) -> dict:
+    """19b: ``serve_video`` (default: RoIAlignAvg at the detector, RoIPool
+    at the SGG site) and ``test_det`` with 13b's checkpoints over the two
+    ``twin_devkits``, launches counted as 13b counts them, with
+    ``cudnn.deterministic`` set: each request's detections and
+    ``rel_prob`` bit-equal between the devkits, and so the files the
+    drivers write; the loaders' host ms beside."""
+    from i2vsgg_tpu_torch.tools import serve_video, test_det
+    roots = twin_devkits(files["data"], kinds, work)
+    b = FULL["frames"]
+    n_req = 12 // b
+    rec = {}
+    saved_env = os.environ.get("I2VSGG_DATA_ROOT")
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    outs, dets = {}, {}
+    try:
+        for name, root in roots.items():
+            os.environ["I2VSGG_DATA_ROOT"] = root
+            out = os.path.join(work, "out19_" + name.replace(" ", "_"))
+            with timed_loaders() as loops, recorded_programs() as calls:
+                driver_launches(
+                    counters, f"19b serve_video ({name})",
+                    lambda: serve_video.main(DRIVER_FULL + [
+                        "--load_name", files["det"], "--sgg_load_name",
+                        files["sgg"], "--max_det", str(FULL["max_det"]),
+                        "--save_dir", out]),
+                    dict(NO_LAUNCHES, roi_align=2, roi_pool=b), n_req)
+            outs[name] = [o for o, _ in calls]
+            with open(os.path.join(out, "serve", "MVidVRD_test",
+                                   "frame_detections.json")) as fh:
+                outs[name + " json"] = json.load(fh)
+            with timed_loaders() as det_loops:
+                aps, _ = driver_launches(
+                    counters, f"19b test_det ({name})",
+                    lambda: test_det.main(DRIVER_FULL + [
+                        "--load_name", files["det"], "--save_dir", out]),
+                    dict(NO_LAUNCHES, roi_align=2), n_req)
+            with open(os.path.join(out, "eval", "MVidVRD_test",
+                                   "detections.pkl"), "rb") as fh:
+                dets[name] = pickle.load(fh)
+            rec[name] = {"serve_wait_ms": loops[0]["wait_ms"],
+                         "serve_request_ms": [m for _, m in calls],
+                         "test_det_wait_ms": det_loops[0]["wait_ms"],
+                         "test_det_mAP": float(aps["mAP"])}
+        new, twin = outs["new formats"], outs["twins"]
+        if len(new) != n_req or len(twin) != n_req:
+            raise AssertionError(f"19b: {len(new)} and {len(twin)} requests")
+        for k, (a, c) in enumerate(zip(new, twin)):
+            same_outputs(a, c, f"19b serve_video request {k + 1}: new "
+                         "formats against their twins")
+        if outs["new formats json"] != outs["twins json"]:
+            raise AssertionError("19b: frame_detections.json differ")
+        cells = [(a, c) for ca, cc in zip(dets["new formats"], dets["twins"])
+                 for a, c in zip(ca, cc)]
+        if not all(a.shape == c.shape and np.array_equal(a, c)
+                   for a, c in cells):
+            raise AssertionError("19b test_det: detections differ")
+        rec["bit_equal"] = {"requests": n_req, "detection_cells": len(cells)}
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        if saved_env is None:
+            os.environ.pop("I2VSGG_DATA_ROOT", None)
+        else:
+            os.environ["I2VSGG_DATA_ROOT"] = saved_env
+    log(f"19b serve_video and test_det over the twin devkits: {n_req} "
+        "requests' detections and rel_prob bit-equal, frame_detections.json "
+        f"equal, {len(cells)} test_det detection cells equal; loader waits "
+        "ms a request " + "; ".join(
+            f"{k} {', '.join(f'{w:.2f}' for w in r['serve_wait_ms'])}"
+            for k, r in rec.items() if k != "bit_equal")
+        + f" [{card}]")
+    return rec
+
+
+def decode_formats_on_card(counters, card: str, work: str,
+                           drivers: dict) -> dict:
+    """Phase 19 (see the module docstring) on 13a's devkit and 13b's
+    checkpoints under ``work``."""
+    phase("19a decode formats: every fixture of tests/data/decode through "
+          "both decoders, held to its golden or baseline twin; host ms a "
+          "frame of progressive against baseline JPEG, 16-bit and Adam7 "
+          "against 8-bit PNG, on 1 and 8 threads")
+    files = drivers["files"]
+    images = os.path.join(files["data"], "MVidVRD", "JPEGImages")
+    frames = sorted(os.path.join(images, f) for f in os.listdir(images))
+    d = os.path.join(work, "frames19")
+    os.makedirs(d, exist_ok=True)
+    rec, kinds = decode_formats_on_host(card, frames, d)
+    rec = {"19a host": rec}
+    phase("19b serve_video (default: B1, B2) and test_det over twin "
+          "devkits, the new formats against baseline JPEG and 8-bit PNG: "
+          "detections and rel_prob bit-equal")
+    rec["19b drivers"] = decode_formats_through_drivers(counters, card, files,
+                                                        kinds, work)
+    return rec
+
+
+# ----------------------------------------------------------------------------
 # ``--chain-depths``: how deep the chain kernel may let the tensor cores
 # accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
 
@@ -5350,12 +5657,14 @@ def main() -> int:
                                            sgg_align, prd, cfg, drivers)
         native_io = native_loader_on_card(counters, card, work13, drivers,
                                           runtime_build)
+        formats = decode_formats_on_card(counters, card, work13, drivers)
     finally:
         shutil.rmtree(work13, ignore_errors=True)
 
-    phase("19 results")
+    phase("20 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
                       "data_parallel": dp, "native_io": native_io,
+                      "decode_formats": formats,
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,

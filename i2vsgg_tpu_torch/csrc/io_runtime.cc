@@ -18,12 +18,19 @@
 //   int i2v_pack_planes(in, b, h, w, hq, wq, out, n_threads)
 //   int i2v_decode(path, &out, out_hw, err, err_len), i2v_free(out)
 //
+// PNG is read at every colour type and bit depth the specification defines,
+// non-interlaced or Adam7, as the JAX runtime's libpng transforms leave it
+// (16 bits cut to the high byte, grey below 8 bits scaled to 0-255, alpha
+// and tRNS dropped); JPEG as jpeg.cc reads it (sequential and progressive
+// Huffman, 8-bit, grey or three components).
+//
 // Error codes (per image in out_codes, or returned): 1 the file does not
-// exist, 2 an image this port has no decoder for (16-bit or interlaced PNG,
-// progressive or other JPEG modes jpeg.cc refuses, other formats), 3 a
-// corrupt or truncated file, 4 a bad argument, 5 another error opening or
-// reading the file. Each comes with a message. Corrupt data never decodes to
-// an image: every chunk's CRC and the zlib stream's Adler-32 are checked.
+// exist, 2 an image this port has no decoder for (the JPEG modes jpeg.cc
+// refuses: lossless, hierarchical, arithmetic coding, 12-bit samples, four
+// components; formats other than PNG and JPEG), 3 a corrupt or truncated
+// file, 4 a bad argument, 5 another error opening or reading the file. Each
+// comes with a message. Corrupt data never decodes to an image: every
+// chunk's CRC and the zlib stream's Adler-32 are checked.
 
 #include <algorithm>
 #include <atomic>
@@ -467,9 +474,10 @@ void paeth_row(uint8_t* x, const uint8_t* prev, size_t row) {
     }
 }
 
-// Undoes the row filters of 8-bit samples in place: raw holds h rows of
-// 1 + row bytes, each led by its filter type; the pixels of row r end up
-// at raw + r * (1 + row) + 1. The row above the first is zeros.
+// Undoes the row filters in place: raw holds h rows of 1 + row bytes, each
+// led by its filter type; the bytes of row r end up at raw + r * (1 + row)
+// + 1. bpp is the filters' pixel: the bytes of a pixel (1, 2, 3, 4, 6 or
+// 8), 1 below 8 bits a pixel. The row above the first is zeros.
 void unfilter(uint8_t* raw, int h, size_t row, int bpp) {
   const std::vector<uint8_t> zeros(row, 0);
   const uint8_t* prev = zeros.data();
@@ -496,7 +504,9 @@ void unfilter(uint8_t* raw, int h, size_t row, int bpp) {
         if (bpp == 1) paeth_row<1>(x, prev, row);
         else if (bpp == 2) paeth_row<2>(x, prev, row);
         else if (bpp == 3) paeth_row<3>(x, prev, row);
-        else paeth_row<4>(x, prev, row);
+        else if (bpp == 4) paeth_row<4>(x, prev, row);
+        else if (bpp == 6) paeth_row<6>(x, prev, row);
+        else paeth_row<8>(x, prev, row);
         break;
       default:
         corrupt("PNG row filter " + std::to_string(line[0]) +
@@ -506,9 +516,75 @@ void unfilter(uint8_t* raw, int h, size_t row, int bpp) {
   }
 }
 
+// Adam7's seven passes: first column, first row, column step, row step
+const uint32_t kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
+                               {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
+                               {0, 1, 1, 2}};
+
+// a sub-image of the filtered data: the whole image, or an Adam7 pass
+struct Pass {
+  uint32_t x0, y0, dx, dy;                    // where its pixels go
+  uint32_t w, h;
+  uint64_t row;                               // bytes of a row, filter byte not
+  uint64_t offset;                            // of its first row in the data
+};
+
+// whether the PNG specification defines `depth` for colour type `ctype`
+bool legal_depth(int ctype, int depth) {
+  if (depth == 8) return true;
+  if (depth == 16) return ctype != 3;
+  return (depth == 1 || depth == 2 || depth == 4) && (ctype == 0 || ctype == 3);
+}
+
+// the i-th sample of a row of DEPTH-bit samples, as libpng's transforms
+// leave it: 16 bits cut to their high byte (png_set_strip_16); below 8
+// bits the value itself (a palette index; grey is scaled by the caller)
+template <int DEPTH>
+inline int sample(const uint8_t* s, size_t i) {
+  if constexpr (DEPTH == 16) {
+    return s[2 * i];
+  } else if constexpr (DEPTH == 8) {
+    return s[i];
+  } else {
+    const size_t bit = i * DEPTH;
+    return (s[bit >> 3] >> (8 - DEPTH - (bit & 7))) & ((1 << DEPTH) - 1);
+  }
+}
+
+// one row of a pass, n pixels of `channels` samples, into BGR pixels `step`
+// bytes apart: grey replicated (below 8 bits scaled to 0-255, as
+// png_set_expand_gray_1_2_4_to_8), palettes looked up, alpha dropped
+template <int DEPTH>
+void emit_row(const uint8_t* s, uint32_t n, int ctype, int channels,
+              const std::vector<uint8_t>& palette, uint8_t* o, size_t step) {
+  const size_t npal = palette.size() / 3;
+  for (uint32_t x = 0; x < n; ++x, o += step) {
+    const size_t i = size_t(x) * channels;
+    if (ctype == 3) {
+      const int v = sample<DEPTH>(s, i);
+      if (size_t(v) >= npal) corrupt("palette index beyond PLTE");
+      const uint8_t* c = palette.data() + 3 * size_t(v);
+      o[0] = c[2];
+      o[1] = c[1];
+      o[2] = c[0];
+    } else if (ctype == 0 || ctype == 4) {
+      int v = sample<DEPTH>(s, i);
+      if constexpr (DEPTH < 8) v *= 255 / ((1 << DEPTH) - 1);
+      o[0] = o[1] = o[2] = uint8_t(v);
+    } else {
+      o[0] = uint8_t(sample<DEPTH>(s, i + 2));
+      o[1] = uint8_t(sample<DEPTH>(s, i + 1));
+      o[2] = uint8_t(sample<DEPTH>(s, i));
+    }
+  }
+}
+
 // PNG bytes -> BGR, as i2vsgg_tpu_torch/data/image_io.py::decode_png reads
-// them: 8-bit colour types 0, 2, 3, 4 and 6, non-interlaced; grey
-// replicated, palettes expanded, alpha dropped.
+// them and as the JAX package's libpng transforms leave them: every colour
+// type at every bit depth the specification defines (grey 1, 2, 4, 8, 16;
+// palette 1, 2, 4, 8; RGB, grey + alpha and RGBA 8, 16), non-interlaced or
+// Adam7; 16 bits cut to the high byte, grey below 8 bits scaled, grey
+// replicated, palettes expanded, alpha and tRNS dropped.
 Image decode_png(const uint8_t* d, size_t n) {
   static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
   bool header = false, palette_seen = false, end = false;
@@ -551,60 +627,77 @@ Image decode_png(const uint8_t* d, size_t n) {
   if (!header) corrupt("PNG without IHDR");
   if (ctype > 6 || !kChannels[ctype])
     corrupt("PNG colour type " + std::to_string(ctype) + " is not defined");
-  if (depth != 8)
-    fail(kUnsupported, std::to_string(depth) +
-                           "-bit PNG; the port's decoder reads 8-bit samples "
-                           "only (no decoder for other bit depths)");
-  if (interlace)
-    fail(kUnsupported, "Adam7-interlaced PNG; the port has no decoder for "
-                       "interlaced PNG");
+  if (!legal_depth(ctype, depth))
+    corrupt("PNG bit depth " + std::to_string(depth) +
+            " is not defined for colour type " + std::to_string(ctype));
+  if (interlace > 1)
+    corrupt("PNG interlace method " + std::to_string(interlace) +
+            " is not defined");
   if (comp || filt)
     corrupt("PNG compression " + std::to_string(comp) + " / filter method " +
             std::to_string(filt) + " is not defined");
   if (!w || !h || w > 0x7fffffffu || h > 0x7fffffffu)
     corrupt("PNG of " + std::to_string(h) + " x " + std::to_string(w) +
             " pixels");
-  const int bpp = kChannels[ctype];
-  const uint64_t row = uint64_t(w) * bpp;
-  const uint64_t raw_size = uint64_t(h) * (row + 1);
+  const int channels = kChannels[ctype];
+  const int bits = channels * depth;          // of a pixel
+  const int fbpp = bits < 8 ? 1 : bits / 8;   // the filters' pixel, bytes
+  std::vector<Pass> passes;
+  uint64_t raw_size = 0;
+  for (int p = 0; p < (interlace ? 7 : 1); ++p) {
+    Pass ps{0, 0, 1, 1, w, h, 0, raw_size};
+    if (interlace) {
+      ps.x0 = kAdam7[p][0];
+      ps.y0 = kAdam7[p][1];
+      ps.dx = kAdam7[p][2];
+      ps.dy = kAdam7[p][3];
+      ps.w = w > ps.x0 ? (w - ps.x0 + ps.dx - 1) / ps.dx : 0;
+      ps.h = h > ps.y0 ? (h - ps.y0 + ps.dy - 1) / ps.dy : 0;
+    }
+    if (!ps.w || !ps.h) continue;             // an empty pass has no rows
+    ps.row = (uint64_t(ps.w) * bits + 7) / 8;
+    raw_size += uint64_t(ps.h) * (ps.row + 1);
+    passes.push_back(ps);
+  }
   if (raw_size > (uint64_t(1) << 34) || uint64_t(h) * w * 3 > (uint64_t(1) << 34))
     corrupt("PNG of " + std::to_string(h) + " x " + std::to_string(w) +
             " pixels is too large");
+  // deflate expands its input at most 1032 times (a 258-byte match in two
+  // bits), so a header the stream cannot fill is refused before the
+  // buffers are allocated
+  if (raw_size > uint64_t(idat.size()) * 1032 + 64)
+    corrupt("PNG data of " + std::to_string(idat.size()) +
+            " compressed bytes cannot hold the " + std::to_string(raw_size) +
+            " expected");
   std::vector<uint8_t> raw(raw_size);
   const size_t got =
       Inflater(idat.data(), idat.size(), raw.data(), raw.size()).run();
   if (got != raw_size)
     corrupt("PNG data holds " + std::to_string(got) + " bytes, " +
             std::to_string(raw_size) + " expected");
-  unfilter(raw.data(), int(h), size_t(row), bpp);
+  for (const Pass& ps : passes)
+    unfilter(raw.data() + ps.offset, int(ps.h), size_t(ps.row), fbpp);
   Image im;
   im.h = int(h);
   im.w = int(w);
   im.bgr.resize(size_t(h) * w * 3);
-  const size_t npal = palette.size() / 3;
   if (ctype == 3 && !palette_seen) corrupt("palette PNG without PLTE");
-  for (uint32_t y = 0; y < h; ++y) {
-    const uint8_t* s = raw.data() + size_t(y) * (row + 1) + 1;
-    uint8_t* o = im.bgr.data() + size_t(y) * w * 3;
-    if (ctype == 0 || ctype == 4) {             // grey (+ alpha, dropped)
-      for (uint32_t x = 0; x < w; ++x, s += bpp, o += 3)
-        o[0] = o[1] = o[2] = s[0];
-    } else if (ctype == 3) {
-      for (uint32_t x = 0; x < w; ++x, ++s, o += 3) {
-        if (*s >= npal) corrupt("palette index beyond PLTE");
-        const uint8_t* c = palette.data() + 3 * size_t(*s);
-        o[0] = c[2];
-        o[1] = c[1];
-        o[2] = c[0];
-      }
-    } else {                                    // RGB(A) -> BGR
-      for (uint32_t x = 0; x < w; ++x, s += bpp, o += 3) {
-        o[0] = s[2];
-        o[1] = s[1];
-        o[2] = s[0];
+  // each pass's rows (where not interlaced, the image's) scattered to
+  // their pixels
+  for (const Pass& ps : passes)
+    for (uint32_t r = 0; r < ps.h; ++r) {
+      const uint8_t* s = raw.data() + ps.offset + r * (ps.row + 1) + 1;
+      uint8_t* o = im.bgr.data() +
+                   (size_t(ps.y0 + r * ps.dy) * w + ps.x0) * 3;
+      const size_t step = size_t(ps.dx) * 3;
+      switch (depth) {
+        case 1: emit_row<1>(s, ps.w, ctype, channels, palette, o, step); break;
+        case 2: emit_row<2>(s, ps.w, ctype, channels, palette, o, step); break;
+        case 4: emit_row<4>(s, ps.w, ctype, channels, palette, o, step); break;
+        case 8: emit_row<8>(s, ps.w, ctype, channels, palette, o, step); break;
+        default: emit_row<16>(s, ps.w, ctype, channels, palette, o, step);
       }
     }
-  }
   return im;
 }
 

@@ -1,5 +1,5 @@
 """Image decode for the port's loader: PNG with the standard library and
-numpy, JPEG with the port's own baseline decoder (``data/jpeg.py``).
+numpy, JPEG with the port's own decoder (``data/jpeg.py``).
 
 The card's machine has no cv2, PIL or libjpeg/libpng headers, so the port
 decodes both formats itself. PNG: ``zlib`` inflates the IDAT stream and numpy
@@ -9,17 +9,21 @@ use and called through ctypes. ``imread_bgr`` returns what
 for byte: BGR uint8 (H, W, 3), grey replicated, palettes expanded, alpha
 dropped, a JPEG's EXIF orientation applied.
 
-Read: 8-bit PNG of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey +
-alpha) and 6 (RGBA), non-interlaced, with any of the five row filters; and
-sequential Huffman JPEG, 8-bit, grey or three components, any integral
-chroma sampling, with or without restart intervals. Everything else —
-other PNG bit depths, Adam7 interlacing, progressive, lossless or
-arithmetic-coded JPEG, 12-bit or CMYK JPEG, and every other format — raises
-``UnsupportedImageError`` naming what is missing; it never falls through to
-a wrong image. ``image_size`` reads the size from the header of a PNG or a
-JPEG (as the loader's roidb needs: a JPEG's stored size, before any EXIF
-rotation, as PIL reports it to the JAX package's roidb), and ``write_png``
-writes an 8-bit RGB PNG with one row filter throughout.
+Read: PNG of every colour type at every bit depth the specification defines
+(grey 1, 2, 4, 8, 16; palette 1, 2, 4, 8; RGB, grey + alpha and RGBA 8,
+16), non-interlaced or Adam7-interlaced, with any of the five row filters,
+as the JAX runtime's libpng transforms leave it (16 bits cut to the high
+byte, grey below 8 bits scaled to 0-255, alpha and tRNS dropped); and
+Huffman-coded JPEG, sequential or progressive, 8-bit, grey or three
+components, any integral chroma sampling, with or without restart
+intervals, the components in one scan or in several. Lossless,
+hierarchical or arithmetic-coded JPEG, 12-bit or CMYK JPEG, and every
+other format raise ``UnsupportedImageError`` naming what is missing; it
+never falls through to a wrong image. ``image_size`` reads the size from
+the header of a PNG or a JPEG (as the loader's roidb needs: a JPEG's stored
+size, before any EXIF rotation, as PIL reports it to the JAX package's
+roidb), and ``write_png`` writes an 8-bit RGB PNG with one row filter
+throughout.
 """
 
 from __future__ import annotations
@@ -34,6 +38,12 @@ from i2vsgg_tpu_torch.data.jpeg import UnsupportedImageError, decode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # PNG colour type -> samples
+# the bit depths the PNG specification defines for each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's seven passes: first column, first row, column step, row step
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # JPEG start-of-frame markers (C4 DHT, C8 JPG and CC DAC are not frames)
 _JPEG_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 
@@ -92,9 +102,9 @@ def _paeth(a, b, c):
 
 
 def unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters (8-bit samples, ``bpp`` bytes a pixel):
-    ``raw`` (h, 1 + w * bpp) uint8, each row led by its filter type ->
-    (h, w, bpp) uint8.
+    """Undo the PNG row filters (``bpp`` bytes a pixel, 1 for pixels below
+    8 bits): ``raw`` (h, 1 + w * bpp) uint8, each row led by its filter
+    type -> (h, w, bpp) uint8.
 
     None, Sub and Up rows are one numpy expression each. Average and Paeth
     predict from the reconstructed pixel to the left, so they are solved on
@@ -133,9 +143,39 @@ def unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _passes(w: int, h: int, interlace: int):
+    """(x0, y0, dx, dy, width, height) of each sub-image of the filtered
+    data that holds rows: the whole image, or Adam7's passes that are not
+    empty."""
+    if not interlace:
+        return [(0, 0, 1, 1, w, h)]
+    out = []
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+def _samples(px: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, bytes) -> their first ``width`` samples as uint8:
+    16 bits cut to the high byte (libpng's ``png_set_strip_16``), below 8
+    bits unpacked (the values themselves)."""
+    if depth == 16:
+        return px[:, 0::2][:, :width]
+    if depth == 8:
+        return px[:, :width]
+    per = 8 // depth
+    shifts = (8 - depth - depth * np.arange(per)).astype(np.uint8)
+    out = (px[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return out.reshape(px.shape[0], -1)[:, :width]
+
+
 def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:
     """PNG bytes -> BGR uint8 (H, W, 3), as ``cv2.imread(...,
-    IMREAD_COLOR)`` gives it."""
+    IMREAD_COLOR)`` gives it and as the JAX runtime's libpng transforms
+    leave it: 16 bits cut to the high byte, grey below 8 bits scaled to
+    0-255, palettes expanded, alpha and tRNS dropped."""
     header = palette = None
     idat = []
     for ctype, body in _png_chunks(data, path):
@@ -150,25 +190,38 @@ def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:
     w, h, depth, ctype, comp, filt, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: PNG colour type {ctype} is not defined")
-    if depth != 8:
-        raise UnsupportedImageError(
-            f"{path}: {depth}-bit PNG; the port's decoder reads 8-bit "
-            "samples only (no decoder for other bit depths)")
-    if interlace:
-        raise UnsupportedImageError(
-            f"{path}: Adam7-interlaced PNG; the port has no decoder for "
-            "interlaced PNG")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG bit depth {depth} is not defined for "
+                         f"colour type {ctype}")
+    if interlace > 1:
+        raise ValueError(f"{path}: PNG interlace method {interlace} is not "
+                         "defined")
     if comp or filt:
         raise ValueError(f"{path}: PNG compression {comp} / filter method "
                          f"{filt} is not defined")
-    bpp = _CHANNELS[ctype]
+    channels = _CHANNELS[ctype]
+    bits = channels * depth                     # of a pixel
+    fbpp = max(1, bits // 8)                    # the filters' pixel, bytes
+    passes = _passes(w, h, interlace)
+    sizes = [ph * (1 + (pw * bits + 7) // 8) for *_, pw, ph in passes]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
+    if raw.size != sum(sizes):
         raise ValueError(f"{path}: PNG data holds {raw.size} bytes, "
-                         f"{h * (1 + w * bpp)} expected")
-    px = unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
+                         f"{sum(sizes)} expected")
+    px = np.empty((h, w, channels), np.uint8)
+    at = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        row = size // ph - 1
+        rows = unfilter(raw[at:at + size].reshape(ph, 1 + row), ph,
+                        row // fbpp, fbpp).reshape(ph, row)
+        px[y0::dy, x0::dx] = _samples(rows, pw * channels,
+                                      depth).reshape(ph, pw, channels)
+        at += size
     if ctype in (0, 4):                         # grey (+ alpha, dropped)
-        return np.repeat(px[..., :1], 3, axis=2)
+        grey = px[..., :1]
+        if depth < 8:
+            grey = grey * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(grey, 3, axis=2)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")

@@ -1,17 +1,20 @@
-"""JPEG decode for the port's loader: the baseline decoder of
-``csrc/jpeg.cc``, built with ``g++`` at first use into the port's host
-library with the batch loader (``runtime.library``) and called through
-``ctypes.CDLL``, which releases the GIL for the whole call, so the loader's
-prefetch thread decodes while the main thread launches kernels.
+"""JPEG decode for the port's loader: the decoder of ``csrc/jpeg.cc``,
+built with ``g++`` at first use into the port's host library with the batch
+loader (``runtime.library``) and called through ``ctypes.CDLL``, which
+releases the GIL for the whole call, so the loader's prefetch thread
+decodes while the main thread launches kernels.
 
 ``decode_jpeg`` returns what ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns
 for the files it reads, byte for byte: BGR uint8 (H, W, 3), grey replicated,
 and the APP1 EXIF orientation (2-8) applied with numpy flips and transposes,
-as cv2 applies it. It reads sequential Huffman JPEG with 8-bit samples, one
-or three components, any integral chroma sampling and restart intervals.
-Progressive, lossless and arithmetic-coded files, 12-bit samples, CMYK/YCCK
-and colour components in separate scans raise ``UnsupportedImageError``
-naming the mode; truncated or corrupt data raises ``ValueError`` (where
+as cv2 applies it. It reads Huffman-coded JPEG with 8-bit samples,
+sequential or progressive, one or three components, any integral chroma
+sampling, restart intervals, and colour components in one scan or in
+several; a progressive file whose scan script stops short is finished by
+libjpeg-turbo 3.1's block smoothing, as cv2 finishes it. Lossless,
+hierarchical and arithmetic-coded files, 12-bit samples and CMYK/YCCK raise
+``UnsupportedImageError`` naming the mode; truncated or corrupt data, and a
+scan script libjpeg would only warn of, raise ``ValueError`` (where
 libjpeg-turbo would warn and fill with grey). There is no fallback: a
 failed build raises with the compiler's output.
 """

@@ -4,8 +4,8 @@ resize, static padding into buckets, and the batched loader with its
 prefetch thread.
 
 cv2 is not on the card's machine, so the port decodes with
-``data/image_io.py`` (PNG, and baseline JPEG through its own decoder,
-``data/jpeg.py``) and resizes with its own copy of
+``data/image_io.py`` (PNG, and sequential and progressive JPEG through its
+own decoder, ``data/jpeg.py``) and resizes with its own copy of
 ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)``:
 
 * the output is ``round(w * fx)`` x ``round(h * fy)`` and output pixel

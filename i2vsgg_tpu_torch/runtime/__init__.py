@@ -12,11 +12,17 @@ arithmetic); ``pack_planes`` packs f32 images into conv1 parity planes;
 tests/test_torch_runtime.py:
 
 * PNG is decoded by the runtime's own inflate and row filters (the card's
-  machine has no libpng or zlib headers), so 16-bit and Adam7-interlaced
-  PNG raise ``UnsupportedImageError`` where libpng decodes them; JPEG by
-  ``csrc/jpeg.cc``, so progressive JPEG raises too. A JPEG's EXIF
-  orientation is not applied, as libjpeg does not apply it in the JAX
-  runtime (``data/image_io.py::imread_bgr`` applies it, as cv2 does).
+  machine has no libpng or zlib headers), at every bit depth and Adam7 as
+  libpng's transforms leave it; JPEG by ``csrc/jpeg.cc`` (sequential and
+  progressive Huffman). What that decoder refuses (lossless, hierarchical,
+  arithmetic-coded, 12-bit and CMYK JPEG) raises
+  ``UnsupportedImageError``, where the JAX runtime's libjpeg-turbo 2.1
+  decodes arithmetic-coded files. Where a progressive file's scan script
+  stops short, ``csrc/jpeg.cc`` smooths the blocks as cv2's libjpeg-turbo
+  3.1 does, which departs from the JAX runtime's 2.1 by a few grey levels
+  (ROADMAP C). A JPEG's EXIF orientation is not applied, as libjpeg does
+  not apply it in the JAX runtime (``data/image_io.py::imread_bgr``
+  applies it, as cv2 does).
 * A failed image raises with its path and the decoder's reason:
   ``FileNotFoundError``, ``UnsupportedImageError`` or ``ValueError`` (JAX
   raises a bare ``RuntimeError`` with a count).

@@ -10,7 +10,7 @@ Checkpoints go to ``<save_dir>/<net>/<dataset>/session_<s>/step_%08d``, in
 the port's format (``train/checkpoint.py``); ``--r`` resumes from the newest
 one there (weights, momentum, step), ``--load_name <dir>/<step>`` starts from
 a detector without its heads, ``--pretrained_backbone`` from a torchvision
-or jwyang state dict. The port's loader decodes PNG and baseline JPEG
+or jwyang state dict. The port's loader decodes PNG and JPEG
 (``data/image_io.py``), so the paper's pairing runs as it is: the MVRD
 stills (JPEG) as the source, the MVidVRD frames (PNG) as the target.
 

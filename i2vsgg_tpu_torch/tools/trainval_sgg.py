@@ -14,7 +14,7 @@ pair-bearing updates. Checkpoints go to
 ``<save_dir>/<net>/<dataset>_SGG/session_<s>/step_%08d`` at the end of
 every epoch, in the port's format with the JAX driver's metadata
 (``vrd_pooling`` among it, which ``test_sgg`` reads back). The port's
-loader decodes PNG and baseline JPEG, so it trains on the MVRD stills.
+loader decodes PNG and JPEG, so it trains on the MVRD stills.
 
 Data parallel on N cards: ``torchrun --nproc_per_node N -m
 i2vsgg_tpu_torch.tools.trainval_sgg ... --bs <per card>``: each rank loads

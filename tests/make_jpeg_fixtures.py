@@ -12,10 +12,11 @@ the port's ``write_png``. ``MANIFEST.json`` lists each file with its set:
 * ``coverage``: small files over every chroma sampling the decoder reads,
   grey, odd sizes down to 1x1, qualities 50-100, a restart interval,
   optimized Huffman tables, a file without DHT (the standard tables),
-  16-bit quantization tables (SOF1), a PIL-written file, an Adobe RGB file
-  and EXIF orientations 1-8;
-* ``refused``: a progressive and a CMYK file, with the mode the decoder
-  must name (no golden);
+  16-bit quantization tables (SOF1), a PIL-written file, an Adobe RGB file,
+  EXIF orientations 1-8, and a progressive file (its entry keeps the
+  ``mode`` the decoder refused it for before it read progressive JPEG);
+* ``refused``: a CMYK file, with the mode the decoder must name (no
+  golden);
 * ``realistic``: two VRD-sized stills (1024x768 and 768x1024, 4:2:0 at
   quality 90) and two 360x640 video frames.
 
@@ -127,6 +128,8 @@ def coverage() -> dict:
 
 
 def refused() -> dict:
+    """{name: (data, mode)}: the modes refused, and the progressive file,
+    refused once and now read (``PORTED``)."""
     im = scene(37, 53, 40)
     cmyk = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(im[..., ::-1])).convert(
@@ -134,6 +137,9 @@ def refused() -> dict:
     return {"progressive_37x53": (cv2_jpeg(
                 im, cv2.IMWRITE_JPEG_PROGRESSIVE, 1), "progressive"),
             "cmyk_37x53": (cmyk.getvalue(), "four components")}
+
+
+PORTED = {"progressive_37x53"}
 
 
 def realistic() -> dict:
@@ -163,9 +169,15 @@ def main() -> int:
             manifest[name] = {"set": kind, "golden": name + ".png",
                               "shape": list(golden.shape)}
     for name, (data, mode) in refused().items():
-        with open(os.path.join(OUT, name + ".jpg"), "wb") as fh:
+        path = os.path.join(OUT, name + ".jpg")
+        with open(path, "wb") as fh:
             fh.write(data)
         manifest[name] = {"set": "refused", "mode": mode}
+        if name in PORTED:
+            golden = cv2.imread(path, cv2.IMREAD_COLOR)
+            write_png(os.path.join(OUT, name + ".png"), golden, 2)
+            manifest[name].update(set="coverage", golden=name + ".png",
+                                  shape=list(golden.shape))
     with open(os.path.join(OUT, "MANIFEST.json"), "w") as fh:
         json.dump(manifest, fh, indent=1, sort_keys=True)
     total = sum(os.path.getsize(os.path.join(OUT, f))

@@ -47,6 +47,7 @@ import jax.numpy as jnp
 from PIL import Image
 
 from tests.fixtures import make_fixture_root
+from tests.make_decode_fixtures import png_image
 
 from i2vsgg_tpu import config as jax_config
 from i2vsgg_tpu.cli import args as jax_args
@@ -298,8 +299,10 @@ def test_png_decode_equals_cv2(tmp_path):
 
 def test_undecodable_images_raise(tmp_path, data_root):
     """A baseline JPEG (the fixture's MVRD stills) decodes as cv2 decodes
-    it; a progressive JPEG, 16-bit and interlaced PNG and other formats
-    raise ``UnsupportedImageError``."""
+    it, and so do a progressive JPEG and 16-bit and Adam7-interlaced PNG,
+    which the port refused before it read them; a non-interlaced stream
+    labelled Adam7 is corrupt (``ValueError``); an arithmetic-coded JPEG and
+    other formats raise ``UnsupportedImageError``."""
     jpg = os.path.join(data_root["root"], "MVRD", "JPEGImages",
                        "img000.jpg")
     with Image.open(jpg) as im:
@@ -310,20 +313,29 @@ def test_undecodable_images_raise(tmp_path, data_root):
     cv2.imwrite(prog, cv2.imread(jpg), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with Image.open(prog) as im:
         assert image_io.image_size(prog) == im.size
-    with pytest.raises(image_io.UnsupportedImageError, match="progressive"):
-        image_io.imread_bgr(prog)
+    assert np.array_equal(image_io.imread_bgr(prog),
+                          cv2.imread(prog, cv2.IMREAD_COLOR))
     p16 = str(tmp_path / "deep.png")
     cv2.imwrite(p16, np.full((4, 5, 3), 1000, np.uint16))
-    with pytest.raises(image_io.UnsupportedImageError, match="16-bit"):
-        image_io.imread_bgr(p16)
+    assert np.array_equal(image_io.imread_bgr(p16),
+                          cv2.imread(p16, cv2.IMREAD_COLOR))
     pint = str(tmp_path / "interlaced.png")
+    open(pint, "wb").write(png_image(
+        np.arange(9 * 11 * 3).reshape(9, 11, 3) % 256, 2, 8, interlace=1))
+    assert np.array_equal(image_io.imread_bgr(pint),
+                          cv2.imread(pint, cv2.IMREAD_COLOR))
     image_io.write_png(pint, np.zeros((8, 8, 3), np.uint8))
     data = bytearray(open(pint, "rb").read())
     data[28] = 1                                    # IHDR interlace: Adam7
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
     open(pint, "wb").write(bytes(data))
-    with pytest.raises(image_io.UnsupportedImageError, match="interlaced"):
+    with pytest.raises(ValueError, match="expected") as e:
         image_io.imread_bgr(pint)
+    assert not isinstance(e.value, image_io.UnsupportedImageError)
+    arith = str(tmp_path / "arithmetic.jpg")
+    open(arith, "wb").write(sof9(open(jpg, "rb").read()))
+    with pytest.raises(image_io.UnsupportedImageError, match="arithmetic"):
+        image_io.imread_bgr(arith)
     bmp = str(tmp_path / "x.bmp")
     cv2.imwrite(bmp, np.zeros((4, 4, 3), np.uint8))
     with pytest.raises(image_io.UnsupportedImageError):
@@ -447,18 +459,27 @@ def test_training_loader_native_matches_jax_on_jpeg_stills(data_root,
     _same_batches(got, exp, "image", exact=True)
 
 
+def sof9(data: bytes) -> bytes:
+    """A baseline JPEG with its SOF0 marker made SOF9 (arithmetic coding),
+    a mode the port still refuses."""
+    out = bytearray(data)
+    out[data.index(b"\xff\xc0") + 1] = 0xC9
+    return bytes(out)
+
+
 def test_loader_raises_on_an_undecodable_image(tmp_path, monkeypatch):
     """The loader's prefetch thread re-raises a decode error in the
-    consumer: here a progressive JPEG among the MVRD stills."""
+    consumer: here an arithmetic-coded JPEG among the MVRD stills."""
     root = make_fixture_root(str(tmp_path), n_rel=N_REL)["root"]
     jpg = os.path.join(root, "MVRD", "JPEGImages", "img001.jpg")
-    cv2.imwrite(jpg, cv2.imread(jpg), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = open(jpg, "rb").read()
+    open(jpg, "wb").write(sof9(data))
     monkeypatch.setenv("I2VSGG_DATA_ROOT", root)
     _, rdb, _, idx = roidb.combined_roidb("MVRD_test", training=False,
                                           use_flipped=False)
     loader = pipeline.DetectionLoader(rdb, idx, config.Config(), 2,
                                       training=False)
-    with pytest.raises(image_io.UnsupportedImageError, match="progressive"):
+    with pytest.raises(image_io.UnsupportedImageError, match="arithmetic"):
         next(iter(loader))
 
 

@@ -552,7 +552,7 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
     and yaml refused; the decoder builds with the host compiler and holds
     every committed fixture to its golden (read by the port's PNG decoder),
     refusing the refused ones, as ``chip_smoke.py`` does on the card's
-    machine."""
+    machine: 28 held since the progressive fixture is read."""
     out = run_isolated("""
         import json
         import os
@@ -583,7 +583,41 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
         assert not bad, bad
         print("held", held)
     """)
-    assert "held 27" in out
+    assert "held 28" in out
+
+
+def test_decode_formats_without_the_blocked_names():
+    """With cv2, PIL, jax and yaml refused, both decoders hold every
+    fixture of ``tests/data/decode`` (progressive, separate-scan and
+    cut-short JPEG; PNG at each depth and Adam7) to its golden and each
+    progressive 360x640 frame to its baseline twin, as ``chip_smoke.py``
+    phase 19 does on the card's machine."""
+    out = run_isolated("""
+        import json
+        import os
+
+        import numpy as np
+
+        from i2vsgg_tpu_torch import runtime
+        from i2vsgg_tpu_torch.data import image_io
+
+        d = os.path.join("tests", "data", "decode")
+        manifest = json.load(open(os.path.join(d, "MANIFEST.json")))
+        held = 0
+        for name, entry in sorted(manifest.items()):
+            want = entry.get("golden") or entry.get("twin")
+            if want is None:
+                continue
+            want = image_io.imread_bgr(os.path.join(d, want))
+            path = os.path.join(d, entry["file"])
+            assert np.array_equal(image_io.imread_bgr(path), want), name
+            assert np.array_equal(runtime.decode_image(path), want), name
+            held += 1
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("held", held)
+    """)
+    assert "held 35" in out
 
 
 def test_native_runtime_builds_and_loads_without_the_blocked_names(tmp_path):

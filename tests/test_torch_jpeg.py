@@ -9,9 +9,11 @@ against ``cv2.imread(path, cv2.IMREAD_COLOR)`` on the CPU, byte for byte.
 * The committed fixtures of ``tests/data/jpeg`` (``make_jpeg_fixtures.py``):
   each golden equals cv2 here, and the port equals each golden.
 * The refused modes raise ``UnsupportedImageError`` naming the mode:
-  progressive (written by cv2), arithmetic coding, lossless, 12-bit samples
-  (each made by patching a baseline file's header), CMYK (PIL), colour
-  components in separate scans.
+  arithmetic coding, lossless, 12-bit samples (each made by patching a
+  baseline file's header), CMYK (PIL). The two modes refused before the
+  port read them, progressive (written by cv2) and colour components in
+  separate scans (``make_decode_fixtures.jpeg_separate_scans``), decode as
+  cv2 decodes them (more in ``test_torch_decode_formats.py``).
 * Truncated files raise ``ValueError`` and seeded byte mutations decode or
   raise it, in a subprocess, so that a crash fails the test and not the
   worker.
@@ -33,6 +35,7 @@ from PIL import Image
 
 from i2vsgg_tpu_torch.data import image_io, jpeg
 from i2vsgg_tpu_torch.utils import cuda_build
+from tests.make_decode_fixtures import jpeg_separate_scans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
@@ -162,7 +165,9 @@ def test_exif_rotation_and_the_stored_size(tmp_path):
 
 
 DECODABLE = sorted(k for k, v in MANIFEST.items() if v["set"] != "refused")
-REFUSED = sorted(k for k, v in MANIFEST.items() if v["set"] == "refused")
+# the fixtures made for a mode the decoder refuses, or refused before it
+# read the mode
+REFUSED = sorted(k for k, v in MANIFEST.items() if "mode" in v)
 
 
 @pytest.mark.parametrize("name", DECODABLE)
@@ -190,9 +195,18 @@ def test_committed_fixtures_cover_the_sets():
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_committed_refused_fixture_raises(name):
+    """A mode still refused raises naming it; one read since (progressive)
+    decodes to its golden, as cv2 decodes it."""
+    path = os.path.join(FIXTURES, name + ".jpg")
+    if MANIFEST[name]["set"] != "refused":
+        golden = image_io.imread_bgr(os.path.join(FIXTURES,
+                                                  MANIFEST[name]["golden"]))
+        assert np.array_equal(golden, cv2.imread(path, cv2.IMREAD_COLOR))
+        assert np.array_equal(image_io.imread_bgr(path), golden)
+        return
     with pytest.raises(image_io.UnsupportedImageError,
                        match=MANIFEST[name]["mode"]):
-        image_io.imread_bgr(os.path.join(FIXTURES, name + ".jpg"))
+        image_io.imread_bgr(path)
 
 
 def _baseline(tmp_path, grey=False):
@@ -225,21 +239,19 @@ def _cmyk(tmp_path):
 
 
 def _separate_scans(tmp_path):
-    """A colour file whose scan header names one component only."""
-    data = _baseline(tmp_path)
-    sos = data.index(b"\xff\xda")
-    ns = data[sos + 4]
-    head = bytes([0xFF, 0xDA, 0, 8, 1]) + data[sos + 5:sos + 7] + b"\x00\x3f\x00"
-    return bytes(data[:sos] + head + data[sos + 2 + 6 + 2 * ns:])
+    """A colour file whose components come in three scans, one each."""
+    return jpeg_separate_scans(picture(24, 40, 6))
 
 
+# mode -> (file maker, what the refusal names; None: a mode the decoder
+# refused before it read it, which now decodes as cv2 decodes it)
 REFUSALS = {
-    "progressive": (_progressive, "progressive"),
+    "progressive": (_progressive, None),
     "arithmetic": (_patched_sof(marker=0xC9), "arithmetic"),
     "lossless": (_patched_sof(marker=0xC3), "lossless"),
     "12bit": (_patched_sof(precision=12), "12-bit"),
     "cmyk": (_cmyk, "four components"),
-    "separate_scans": (_separate_scans, "separate scans"),
+    "separate_scans": (_separate_scans, None),
 }
 
 
@@ -248,6 +260,11 @@ def test_refused_modes_raise_naming_the_mode(mode, tmp_path):
     make, what = REFUSALS[mode]
     path = str(tmp_path / (mode + ".jpg"))
     open(path, "wb").write(make(tmp_path))
+    if what is None:
+        exp = cv2.imread(path, cv2.IMREAD_COLOR)
+        assert exp is not None
+        assert np.array_equal(image_io.imread_bgr(path), exp)
+        return
     with pytest.raises(image_io.UnsupportedImageError, match=what):
         image_io.imread_bgr(path)
 

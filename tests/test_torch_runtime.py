@@ -4,14 +4,14 @@ package's runtime (``i2vsgg_tpu/runtime``, libjpeg and libpng) and against
 the port's Python path, on the CPU:
 
 * ``decode_image``: bit-equal to JAX's on every committed JPEG fixture that
-  both decode, EXIF orientations 2-8 included (neither runtime applies
-  them; applied afterwards, the port's ``imread_bgr``); progressive raises
-  where JAX decodes it, CMYK fails in both.
+  both decode, EXIF orientations 2-8 and a progressive file included
+  (neither runtime applies the orientation; applied afterwards, the port's
+  ``imread_bgr``); CMYK fails in both.
 * PNG: colour types 0, 2, 3, 4 and 6, written by cv2, by PIL and by
   ``write_png`` with each row filter, at zlib levels 0, 1, 6 and 9, at 1x1
   and odd widths: bit-equal to JAX's decode and to ``data/image_io.py``'s
-  ``decode_png``. 16-bit and interlaced PNG raise where JAX decodes them;
-  a bad CRC, a bad Adler-32 and a truncated IDAT raise; seeded mutations of
+  ``decode_png``; 16-bit and Adam7-interlaced PNG too (every depth and
+  colour type: ``test_torch_decode_formats.py``); a bad CRC, a bad Adler-32 and a truncated IDAT raise; seeded mutations of
   the zlib stream decode as ``decode_png`` decodes them or raise (in a
   subprocess, so that a crash fails the test and not the worker).
 * The inflate against ``zlib.decompress`` on seeded data under each of
@@ -175,8 +175,8 @@ def test_png_goldens_of_the_jpeg_fixtures():
 @pytest.mark.parametrize("name", sorted(MANIFEST))
 def test_jpeg_decode_equals_jax(name):
     """Bit-equal to JAX's runtime on what both decode, EXIF orientations
-    unapplied in both (applied afterwards: the port's ``imread_bgr``);
-    progressive JPEG raises where JAX decodes it; CMYK fails in both."""
+    unapplied in both (applied afterwards: the port's ``imread_bgr``), the
+    progressive fixture included; CMYK fails in both."""
     path = os.path.join(FIXTURES, name + ".jpg")
     if MANIFEST[name]["set"] == "refused":
         mode = MANIFEST[name]["mode"]
@@ -214,19 +214,26 @@ def adam7_png(path, bgr):
 
 
 def test_sixteen_bit_and_interlaced_png_raise_where_jax_decodes(tmp_path):
+    """16-bit and Adam7 PNG, refused before the port read them, decode as
+    JAX's runtime decodes them: 16 bits cut to the high byte, the passes
+    scattered; ``load_batch`` as on the 8-bit picture they hold."""
     bgr = picture(11, 13, 3)
     p16 = str(tmp_path / "deep.png")
-    cv2.imwrite(p16, bgr.astype(np.uint16) * 257)
-    assert jax_runtime.decode_image(p16).shape == (11, 13, 3)
-    with pytest.raises(UNSUPPORTED, match="16-bit"):
-        runtime.decode_image(p16)
+    cv2.imwrite(p16, bgr.astype(np.uint16) * 256 + 128)
+    assert open(p16, "rb").read()[24] == 16
+    np.testing.assert_array_equal(jax_runtime.decode_image(p16), bgr)
+    np.testing.assert_array_equal(runtime.decode_image(p16), bgr)
     pint = str(tmp_path / "adam7.png")
     adam7_png(pint, bgr)
     np.testing.assert_array_equal(jax_runtime.decode_image(pint), bgr)
-    with pytest.raises(UNSUPPORTED, match="interlaced"):
-        runtime.decode_image(pint)
-    with pytest.raises(UNSUPPORTED, match="interlaced"):
-        runtime.load_batch([pint], [False], MEANS, 16, 32, 32)
+    np.testing.assert_array_equal(runtime.decode_image(pint), bgr)
+    p8 = str(tmp_path / "plain.png")
+    image_io.write_png(p8, bgr)
+    want = runtime.load_batch([p8], [False], MEANS, 16, 32, 32)
+    for path in (p16, pint):
+        got = runtime.load_batch([path], [False], MEANS, 16, 32, 32)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_corrupt_png_raises(tmp_path):
