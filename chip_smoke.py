@@ -168,7 +168,20 @@ class, with seeded random weights, along five paths:
   B1 at the detector, B2 at the SGG site) and ``test_det`` with 13b's
   checkpoints over two devkits of the same pictures, one in the new
   formats, one as baseline JPEG and 8-bit PNG (``twin_devkits``): the
-  detections and ``rel_prob`` bit-equal.
+  detections and ``rel_prob`` bit-equal;
+* phase 20, the seventeenth slice's paths, the int8 trunk's calibration
+  and quality gate: 20a runs ``python -m
+  i2vsgg_tpu_torch.tools.calibrate_act_scales`` (as ``main([...])``) on
+  14c's checkpoint and 8 of its MVRD stills (bf16, scale 600, ``--bs 4``):
+  the committed res101 file's 103 keys, every scale finite, > 0 and equal
+  to the input abs-max that a forward hook on each ``BNConv`` witnessed,
+  / 127; 20b runs ``test_det`` on ``MVRD_test`` with that file under
+  ``--int8_trunk mxu:<scope>`` and ``sim:<scope>`` in the order mxu, sim,
+  sim, mxu (the int8 products in the mxu runs only), each sim run's
+  detections held to the first mxu run's (``SIM_TOL``), images/s of each
+  run; 20c runs ``quant_trunk_ab`` (the fp arm and an mxu arm), again with
+  ``--reuse_fp``, and on a rewritten copy of the checkpoint, which
+  ``--reuse_fp`` must refuse.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -185,7 +198,7 @@ and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
 The lines before the last are the training, data-parallel, native-loader,
-JPEG and serving record (phase 14's and 15's steps; phase 17's; phase 18's
+JPEG, int8-gate and serving record (phase 14's and 15's steps; phase 17's; phase 18's
 and phase 16's host ms of the card's machine; ms per 4-frame request of
 each path served) and the
 kernels' JSON record (launches on the main path,
@@ -855,41 +868,23 @@ def int8_modules(model) -> dict:
 
 class recorded_calls:
     """Record every call of the given modules (name -> module) as (name,
-    positional inputs, output) while inside."""
+    positional inputs, output) while inside; with ``keep``, as (name,
+    ``keep(inputs, output)``), so that no input stays alive."""
 
-    def __init__(self, modules: dict):
+    def __init__(self, modules: dict, keep=None):
         self.modules, self.calls, self.handles = modules, [], []
+        self.keep = keep or (lambda args, out: (args, out))
 
     def __enter__(self):
         for name, m in self.modules.items():
             self.handles.append(m.register_forward_hook(
                 lambda mod, args, out, name=name:
-                self.calls.append((name, args, out))))
+                self.calls.append((name, *self.keep(args, out)))))
         return self.calls
 
     def __exit__(self, *exc):
         for h in self.handles:
             h.remove()
-
-
-def calibrated_act_scales(det, scope: str, run) -> dict:
-    """Static activation scales for the convs of ``det`` (a float model)
-    that ``quantize_trunk_params(det, scope)`` selects, calibrated on the
-    inputs of ``run()`` as the JAX package's
-    ``tools/calibrate_act_scales.py`` calibrates them: each conv's input
-    abs-max over the run, / 127, by its flax path."""
-    from i2vsgg_tpu_torch.utils.params import quantize_trunk_params
-    names = set(int8_modules(quantize_trunk_params(copy.deepcopy(det),
-                                                   scope)))
-    convs = {n: m for n, m in det.named_modules() if n in names}
-    with recorded_calls(convs) as calls:
-        run()
-    absmax: dict = {}
-    for name, args, _ in calls:
-        path = name.replace(".", "/")
-        absmax[path] = max(absmax.get(path, 0.0),
-                           float(args[0].float().abs().max()))
-    return {k: v / 127.0 for k, v in absmax.items()}
 
 
 def saturated_share(det, run) -> tuple:
@@ -2875,9 +2870,9 @@ def stage_b_on_card(dev, counters, card: str, work: str,
 
 
 def training_phases(dev, counters, card: str) -> tuple:
-    """Phases 14, 15, 16b, 17a and 17b in one work directory (14c's devkits
-    and Stage A checkpoint are phase 15's, 16b's and 17a's start), removed
-    afterwards."""
+    """Phases 14, 15, 16b, 17a, 17b and 20a-20c in one work directory (14c's
+    devkits and Stage A checkpoint are phase 15's, 16b's, 17a's and 20's
+    start), removed afterwards."""
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         training = training_on_card(dev, counters, card, work)
@@ -2897,9 +2892,10 @@ def training_phases(dev, counters, card: str) -> tuple:
               "process at batch 2: 14d's tiny Stage A and 15d's tiny Stage "
               f"B, {DP_STEPS} steps")
         dp["17b gloo"] = gloo_ranks_on_card(dev, card)
+        gate = int8_gate_on_card(counters, card, work, d["stage_a"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return training, stage_b, mvrd, dp
+    return training, stage_b, mvrd, dp, gate
 
 
 # ----------------------------------------------------------------------------
@@ -3895,6 +3891,338 @@ def decode_formats_on_card(counters, card: str, work: str,
 
 
 # ----------------------------------------------------------------------------
+# phase 20: the int8 trunk's calibration and quality gate on the card
+# (``tools/calibrate_act_scales.py``, ``tools/test_det.py`` under ``mxu`` and
+# ``sim``, ``tools/quant_trunk_ab.py``) from 14c's checkpoint on its MVRD
+# stills, in phase 14's work directory
+
+# 20a: the calibration as a user runs it on 14c's checkpoint (bf16, TEST
+# scale 600): two batches of 4 stills
+CALIB_ARGS = ["--dataset", "MVRD", "--net", "res101", "--n_images", "8",
+              "--bs", "4"]
+CALIB_BATCHES = 2
+# the int8 convs a batch under INT8_SCOPE: the 3x3s of layer2 (4), layer3
+# (23) and layer4 (3, on the rois)
+INT8_CONVS = 30
+# 20b: the sim arm against the mxu arm of test_det on 14c's checkpoint,
+# detections matched per class and image (``detection_gaps``). Above
+# K = 1040 an f32 sum of integer taps rounds (layer3's 3x3 at K = 2304,
+# layer4's at 4608), so the arms may part by a bf16 ulp here and there,
+# which a static quantization may turn into an int8 step downstream. The
+# first H100 runs measured no gap at all (800 of 800 detections matched,
+# boxes, scores and APs equal; PERF.md section 6); the limits leave room
+# for such a step
+SIM_TOL = {"box_px": 0.5, "score": 1e-3, "ap": 1e-3, "unmatched": 0.01}
+
+
+def detection_gaps(a: list, b: list, box_px: float) -> dict:
+    """Two ``detections.pkl`` (per class, per image, (N, 5) rows: box,
+    score): each row of ``a``, in descending score, taken by the free row of
+    ``b`` of its class and image with the nearest box, matched where that
+    box lies within ``box_px``. Returns the rows on each side, the matched
+    pairs, their largest box and score gaps, and the unmatched rows' share
+    and highest score (near ties at the top-100 cut change places)."""
+    rows = matched = 0
+    box_gap = score_gap = top_unmatched = 0.0
+    n_b = 0
+    for per_a, per_b in zip(a, b):
+        for da, db in zip(per_a, per_b):
+            rows += len(da)
+            n_b += len(db)
+            free = list(range(len(db)))
+            for i in np.argsort(-da[:, 4], kind="stable"):
+                if not free:
+                    top_unmatched = max(top_unmatched, float(da[i, 4]))
+                    continue
+                gaps = [float(np.abs(db[j, :4] - da[i, :4]).max())
+                        for j in free]
+                k = int(np.argmin(gaps))
+                if gaps[k] > box_px:
+                    top_unmatched = max(top_unmatched, float(da[i, 4]))
+                    continue
+                j = free.pop(k)
+                matched += 1
+                box_gap = max(box_gap, gaps[k])
+                score_gap = max(score_gap, float(abs(db[j, 4] - da[i, 4])))
+            for j in free:
+                top_unmatched = max(top_unmatched, float(db[j, 4]))
+    unmatched = (rows - matched) + (n_b - matched)
+    return {"rows": rows, "rows_other": n_b, "matched": matched,
+            "box_px": box_gap, "score": score_gap,
+            "unmatched": unmatched / max(rows + n_b, 1),
+            "top_unmatched_score": top_unmatched}
+
+
+def calibration_on_card(counters, card: str, work: str,
+                        stage_a: str) -> tuple:
+    """20a: ``calibrate_act_scales.main`` on 14c's checkpoint and stills.
+    Its file must hold the committed res101 file's 103 keys, every scale
+    finite and > 0 and equal, bit for bit, to the witness: the input
+    abs-max of every ``BNConv`` call, taken by a forward hook
+    (``recorded_calls``) on the detector the tool builds, / 127. The RoI
+    launches (B1, 2 a batch) are counted from just before the call to just
+    after it. Returns (record, the file's path)."""
+    from i2vsgg_tpu_torch.models import faster_rcnn
+    from i2vsgg_tpu_torch.models.backbones import BNConv
+    from i2vsgg_tpu_torch.tools import calibrate_act_scales
+    path = os.path.join(work, "act_scales_res101.json")
+    hooks = []
+    real = faster_rcnn.FasterRCNN_DA
+
+    def hooked(*a, **k):
+        det = real(*a, **k)
+        hooks.append(recorded_calls(
+            {n: m for n, m in det.named_modules() if isinstance(m, BNConv)},
+            keep=lambda args, out: (args[0].float().abs().max(),)))
+        hooks[-1].__enter__()
+        return det
+
+    faster_rcnn.FasterRCNN_DA = hooked
+    counters.reset()
+    t = time.time()
+    try:
+        scales = calibrate_act_scales.main(
+            CALIB_ARGS + ["--ckpt", stage_a, "--json", path])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launched = counters.read()
+    finally:
+        faster_rcnn.FasterRCNN_DA = real
+        for h in hooks:
+            h.__exit__(None, None, None)
+    if len(hooks) != 1:
+        raise AssertionError(f"20a: {len(hooks)} detectors built")
+    witness: dict = {}
+    for name, m in hooks[0].calls:
+        key = name.replace(".", "/")
+        witness[key] = max(witness.get(key, 0.0), float(m))
+    with open(ACT_SCALES) as fh:
+        committed = json.load(fh)["scales"]
+    with open(path) as fh:
+        written = json.load(fh)
+    if set(scales) != set(committed) or len(scales) != 103:
+        raise AssertionError(f"20a: {len(scales)} keys; not the committed "
+                             f"file's {len(committed)}")
+    if sum(k.startswith("head/") for k in scales) != 10:
+        raise AssertionError("20a: not 10 head/ keys")
+    bad = [k for k, v in scales.items() if not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"20a: scales not finite and > 0: {bad}")
+    off = [k for k in scales if scales[k] != witness.get(k, -1.0) / 127.0]
+    if off or set(witness) != set(scales):
+        raise AssertionError(f"20a: scales != the hooks' abs-max / 127 at "
+                             f"{off[:5]}")
+    if (written["n_images"] != 8 or written["ckpt"] != stage_a
+            or written["scales"] != scales):
+        raise AssertionError(f"20a: the file holds {written['n_images']} "
+                             f"images, {written['ckpt']}")
+    if launched != dict(NO_LAUNCHES, roi_align=2 * CALIB_BATCHES):
+        raise AssertionError(f"20a: launches {launched}")
+    ratio = np.array([scales[k] / committed[k] for k in sorted(scales)])
+    rec = {"keys": len(scales), "n_images": written["n_images"],
+           "wall_s": wall, "host_ms_per_image": 1e3 * wall / 8,
+           "hook_calls": len(hooks[0].calls),
+           "roi_align_per_batch": launched["roi_align"] // CALIB_BATCHES,
+           "scale_min": min(scales.values()),
+           "scale_max": max(scales.values()),
+           "vs_committed_median": float(np.median(ratio))}
+    log(f"20a: calibrated {rec['keys']} convs on 8 stills in {wall:.2f} s "
+        f"({rec['host_ms_per_image']:.1f} host ms an image, the detector's "
+        f"build and restore included), {rec['hook_calls']} conv calls "
+        "witnessed, every scale equal to its hook's abs-max / 127; B1 "
+        f"{rec['roi_align_per_batch']} a batch; scales "
+        f"{rec['scale_min']:.4g}-{rec['scale_max']:.4g}, median "
+        f"{rec['vs_committed_median']:.3g}x the committed file's "
+        f"(another model) [{card}]")
+    return rec, path
+
+
+@contextlib.contextmanager
+def timed_detection(test_det):
+    """Within the block, the host seconds of each ``test_det`` run's
+    detection loop (``run_detection``, from its first batch to its last),
+    appended to the list yielded."""
+    real, spans = test_det.run_detection, []
+
+    def timed(*a, **k):
+        t = time.time()
+        yield from real(*a, **k)
+        torch.cuda.synchronize()
+        spans.append(time.time() - t)
+
+    test_det.run_detection = timed
+    try:
+        yield spans
+    finally:
+        test_det.run_detection = real
+
+
+def sim_vs_mxu_on_card(counters, card: str, work: str, stage_a: str,
+                       calib: str) -> dict:
+    """20b: ``test_det`` on the whole ``MVRD_test`` split from 14c's
+    checkpoint with 20a's file, ``--int8_trunk mxu:<scope>`` and
+    ``sim:<scope>`` in the order mxu, sim, sim, mxu, so that neither arm
+    always runs first: the int8 products run in the mxu runs only; each sim
+    run's detections and APs held to the first mxu run's within
+    ``SIM_TOL``; images/s of each run's detection loop, as records (8
+    stills a run: the host's spread is of the size of a gap between the
+    arms)."""
+    from i2vsgg_tpu_torch.tools import test_det
+    runs = {"mxu": [], "sim": []}
+    for i, kind in enumerate(("mxu", "sim", "sim", "mxu")):
+        out = os.path.join(work, f"out20_{i}_{kind}")
+        counters.reset()
+        with timed_detection(test_det) as spans:
+            aps = test_det.main(MVRD_EVAL_ARGS + [
+                "--load_name", stage_a, "--save_dir", out, "--int8_trunk",
+                f"{kind}:{INT8_SCOPE}", "--act_scales", calib])
+        launched = counters.read()
+        want = dict(NO_LAUNCHES, roi_align=2 * CALIB_BATCHES,
+                    int8_conv2d=INT8_CONVS * CALIB_BATCHES * (kind == "mxu"))
+        if launched != want:
+            raise AssertionError(f"20b {kind}: launches {launched}, "
+                                 f"expected {want}")
+        if os.environ.get("I2VSGG_INT8_PREQ_SIM") != (
+                "1" if kind == "sim" else None):
+            raise AssertionError(f"20b {kind}: I2VSGG_INT8_PREQ_SIM "
+                                 f"{os.environ.get('I2VSGG_INT8_PREQ_SIM')}")
+        with open(os.path.join(out, "eval", "MVRD_test", "detections.pkl"),
+                  "rb") as fh:
+            dets = pickle.load(fh)
+        runs[kind].append({"aps": {k: float(v) for k, v in aps.items()},
+                           "dets": dets, "loop_s": spans[0],
+                           "images_per_s": MVRD_IMAGES / spans[0]})
+    ref = runs["mxu"][0]
+    all_gaps = []
+    for run in runs["sim"]:
+        gaps = detection_gaps(ref["dets"], run["dets"], SIM_TOL["box_px"])
+        gaps["ap"] = max(abs(run["aps"][k] - v)
+                         for k, v in ref["aps"].items())
+        all_gaps.append(gaps)
+        bad = [k for k in ("box_px", "score", "ap", "unmatched")
+               if not gaps[k] <= SIM_TOL[k]]
+        if bad:
+            raise AssertionError(f"20b: sim vs mxu {bad} beyond {SIM_TOL}: "
+                                 f"{gaps}")
+    rates = {k: [r["images_per_s"] for r in rs] for k, rs in runs.items()}
+    for gaps in all_gaps:
+        log(f"20b: sim vs mxu, {gaps['matched']} of {gaps['rows']} / "
+            f"{gaps['rows_other']} detections matched; largest gaps: box "
+            f"{gaps['box_px']:.4g} px, score {gaps['score']:.3g}, AP "
+            f"{gaps['ap']:.3g}; unmatched share {gaps['unmatched']:.4f} "
+            f"(highest score {gaps['top_unmatched_score']:.3g})")
+    log(f"20b: mAP mxu {ref['aps']['mAP']:.4f}, sim "
+        f"{runs['sim'][0]['aps']['mAP']:.4f} (5 steps of training: printed, "
+        f"not held); detection loop images/s in run order mxu "
+        f"{rates['mxu'][0]}, sim {rates['sim'][0]}, sim {rates['sim'][1]}, "
+        f"mxu {rates['mxu'][1]} [{card}]")
+    return {"gaps": all_gaps, **{k: [{x: r[x] for x in ("aps", "loop_s",
+                                                       "images_per_s")}
+                                     for r in rs]
+                                 for k, rs in runs.items()}}
+
+
+def gate_on_card(counters, card: str, work: str, stage_a: str,
+                 calib: str) -> dict:
+    """20c: ``quant_trunk_ab.main`` on a copy of 14c's checkpoint: the fp
+    arm and an ``mxu:<scope>`` arm with 20a's file; again with
+    ``--reuse_fp``, which must copy the fp arm; then, one file of the copy
+    rewritten, ``--reuse_fp`` must refuse."""
+    from i2vsgg_tpu_torch.tools import quant_trunk_ab
+    step = int(os.path.basename(stage_a))
+    step_dir = f"step_{step:08d}"
+    copy_dir = os.path.join(work, "ab_ckpt")
+    shutil.copytree(os.path.join(os.path.dirname(stage_a), step_dir),
+                    os.path.join(copy_dir, step_dir))
+    ckpt = os.path.join(copy_dir, str(step))
+    base = ["--out", os.path.join(work, "ab"), "--ckpt", ckpt, "--data",
+            os.path.join(work, "data"), "--net", "res101", "--dataset",
+            "MVRD", "--mode", f"mxu:{INT8_SCOPE}", "--act_scales", calib]
+    first_json = os.path.join(work, "ab", "first.json")
+    counters.reset()
+    t = time.time()
+    first = quant_trunk_ab.main(base + ["--json", first_json])
+    first_s = time.time() - t
+    launched = counters.read()
+    # --bs 1: each arm one batch a still
+    want = dict(NO_LAUNCHES, roi_align=2 * 2 * MVRD_IMAGES,
+                int8_conv2d=INT8_CONVS * MVRD_IMAGES)
+    if launched != want:
+        raise AssertionError(f"20c: launches {launched}, expected {want}")
+    t = time.time()
+    again = quant_trunk_ab.main(base + [
+        "--json", os.path.join(work, "ab", "again.json"), "--reuse_fp",
+        first_json])
+    again_s = time.time() - t
+    if (again["fp"] != first["fp"] or again.get("fp_reused_from")
+            != first_json or set(again["delta"]) != {"MVRD"}):
+        raise AssertionError(f"20c --reuse_fp: {again} against {first}")
+    meta = os.path.join(copy_dir, step_dir, "metadata.json")
+    with open(meta, "a") as fh:
+        fh.write("\n")
+    try:
+        quant_trunk_ab.main(base + [
+            "--json", os.path.join(work, "ab", "refused.json"),
+            "--reuse_fp", first_json])
+    except ValueError as e:
+        if "rewritten" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("20c: --reuse_fp took the fp arm of a "
+                             "rewritten checkpoint")
+    rec = {"fp_mAP": first["fp"]["MVRD"]["mAP"],
+           "int8_mAP": first["int8"]["MVRD"]["mAP"],
+           "delta": first["delta"]["MVRD"],
+           "int8_mAP_again": again["int8"]["MVRD"]["mAP"], "first_s": first_s,
+           "reuse_s": again_s, "fingerprint": first["ckpt_fingerprint"],
+           "refused": refused}
+    log(f"20c: quant_trunk_ab fp mAP {rec['fp_mAP']:.4f}, int8 (mxu, "
+        f"static scales) {rec['int8_mAP']:.4f}, delta {rec['delta']:+.4f} "
+        "(a 5-step checkpoint: a record, not a claim about int8 quality); "
+        f"{first_s:.1f} s, with --reuse_fp {again_s:.1f} s; the rewritten "
+        f"copy refused [{card}]")
+    return rec
+
+
+def int8_gate_on_card(counters, card: str, work: str, stage_a: str) -> dict:
+    """Phase 20a-20c (see above) on 14c's devkit and checkpoint under
+    ``work``."""
+    saved_env = {k: os.environ.get(k) for k in (
+        "I2VSGG_DATA_ROOT", "I2VSGG_INT8_TRUNK", "I2VSGG_INT8_PREQ_SIM")}
+    rec = {}
+    try:
+        os.environ["I2VSGG_DATA_ROOT"] = os.path.join(work, "data")
+        phase("20a calibrate_act_scales on the card: 14c's res101 "
+              "checkpoint, 8 MVRD stills at scale 600, --bs 4, bf16; every "
+              "scale held to a forward hook's abs-max")
+        t = time.time()
+        rec["20a calibration"], calib = calibration_on_card(
+            counters, card, work, stage_a)
+        log(f"20a: {time.time() - t:.1f} s")
+        phase(f"20b test_det on MVRD_test with 20a's file, --int8_trunk "
+              f"mxu:{INT8_SCOPE} and sim:{INT8_SCOPE}, run mxu, sim, sim, "
+              "mxu")
+        t = time.time()
+        rec["20b sim vs mxu"] = sim_vs_mxu_on_card(counters, card, work,
+                                                   stage_a, calib)
+        log(f"20b: {time.time() - t:.1f} s")
+        phase("20c quant_trunk_ab: the fp arm and an mxu arm with 20a's "
+              "file, then --reuse_fp, then a rewritten copy refused")
+        t = time.time()
+        rec["20c quant_trunk_ab"] = gate_on_card(counters, card, work,
+                                                 stage_a, calib)
+        log(f"20c: {time.time() - t:.1f} s")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rec
+
+
+# ----------------------------------------------------------------------------
 # ``--chain-depths``: how deep the chain kernel may let the tensor cores
 # accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
 
@@ -4615,7 +4943,9 @@ def main() -> int:
         from i2vsgg_tpu_torch.config import Config, cfg_from_list
         from i2vsgg_tpu_torch.data.pipeline import dequantize_image_u8
         from i2vsgg_tpu_torch.models import sgg as sgg_mod
-        from i2vsgg_tpu_torch.models.backbones import nchw_to_nhwc
+        from i2vsgg_tpu_torch.models.backbones import (act_absmax,
+                                                       clear_absmax,
+                                                       nchw_to_nhwc)
         from i2vsgg_tpu_torch.ops import bottleneck as chain_mod
         from i2vsgg_tpu_torch.ops import conv1 as conv1_mod
         from i2vsgg_tpu_torch.ops import conv1_int8 as c8_mod
@@ -4966,16 +5296,19 @@ def main() -> int:
           "64x80, bf16-stored weights, int8 fc6/fc7, int8 3x3 convs of "
           "layer2-4 with static scales calibrated on this input)")
     # phase 4b's model with the int8 levers. Its static scales are
-    # calibrated on this program's own input, as the calibration tool
-    # calibrates them: the calibration file's scales belong to a trained
-    # res101 at 600x960, and on these random weights they make each int8
-    # step about one bf16 ulp of the activations, so that any ulp the card
-    # and the CPU part by (cuDNN's and oneDNN's bf16 sums) becomes a step
-    # (phase 11 serves the file's scales at full width)
+    # calibrated on this program's own input by the package's capture
+    # (``I2VSGG_INT8_CALIB``, as ``calibrate_act_scales`` runs it): the
+    # calibration file's scales belong to a trained res101 at 600x960, and
+    # on these random weights they make each int8 step about one bf16 ulp
+    # of the activations, so that any ulp the card and the CPU part by
+    # (cuDNN's and oneDNN's bf16 sums) becomes a step (phase 11 serves the
+    # file's scales at full width)
     det_c, sgg_c, prd_b = small_bf16_models(cfg_b, int8_fc=True)
-    scales = calibrated_act_scales(
-        det_c, INT8_SCOPE, lambda: serve.make_frame_program(
-            det_c, sgg_c, prd_b, cfg_b, device="cpu", **kw)(imgs_s, info_s))
+    with env_set({"I2VSGG_INT8_CALIB": "1"}):
+        serve.make_frame_program(det_c, sgg_c, prd_b, cfg_b, device="cpu",
+                                 **kw)(imgs_s, info_s)
+    scales = {k: v / 127.0 for k, v in act_absmax(det_c).items()}
+    clear_absmax(det_c)
     quantize_dense_params(sgg_c)
     quantize_trunk_params(det_c, INT8_SCOPE, scales)
     det_g, sgg_g = copy.deepcopy(det_c), copy.deepcopy(sgg_c)
@@ -5645,8 +5978,8 @@ def main() -> int:
               "every committed fixture held to its golden, the refused ones "
               "refused, decode times beside PNG (16b runs after phase 15)")
         jpeg_rec = {"16a fixtures": jpeg_fixtures_on_host(card)}
-        training, stage_b, jpeg_rec["16b mvrd"], dp = training_phases(
-            dev, counters, card)
+        training, stage_b, jpeg_rec["16b mvrd"], dp, int8_gate = (
+            training_phases(dev, counters, card))
         phase("17c serving over a mesh of two replicas on cuda:0 at full "
               "width (host planes under align: B1, B3; f32 images under "
               "pool: B2), 3 requests, each replica held to the unsharded "
@@ -5660,11 +5993,10 @@ def main() -> int:
         formats = decode_formats_on_card(counters, card, work13, drivers)
     finally:
         shutil.rmtree(work13, ignore_errors=True)
-
-    phase("20 results")
+    phase("21 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
                       "data_parallel": dp, "native_io": native_io,
-                      "decode_formats": formats,
+                      "decode_formats": formats, "int8_gate": int8_gate,
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,

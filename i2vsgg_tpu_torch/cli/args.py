@@ -5,9 +5,7 @@ flag names and defaults follow the reference's
 
 The port adds ``--device`` (default ``cuda``): the drivers run on the card
 and raise without one (``utils/device.resolve_device``); ``--device cpu``
-runs them on the CPU, as the tests do. ``--int8_trunk sim:<scope>`` (the JAX
-package's CPU fake-quant gate) is refused: the port serves the real int8
-path only.
+runs them on the CPU, as the tests do.
 """
 
 from __future__ import annotations
@@ -118,17 +116,19 @@ def parse_args(argv=None):
                         "products (DenseInt8, checkpoint-compatible names)")
     p.add_argument("--act_scales", default="",
                    help="eval/serve: calibration JSON — with --int8_trunk "
-                        "mxu:<scope>, pre-quantize the in-scope trunk "
-                        "kernels and use static per-tensor activation "
-                        "scales instead of the per-conv dynamic abs-max")
+                        "mxu:<scope> or sim:<scope>, pre-quantize the "
+                        "in-scope trunk kernels and use static per-tensor "
+                        "activation scales instead of the per-conv dynamic "
+                        "abs-max")
     p.add_argument("--int8_trunk", nargs="?", const="mxu", default="off",
                    help="eval/serve: run the ResNet bottleneck convs "
                         "int8-quantized (per-out-channel weights, "
                         "per-tensor activations; BNConv, "
                         "models/backbones.py): 'mxu' (the bare-flag "
-                        "default), with an optional layer scope, e.g. "
-                        "'mxu:layer3,@3x3'. The JAX package's 'sim' kind "
-                        "is refused")
+                        "default) or 'sim' (fake-quant: the same integer "
+                        "taps convolved in f32, the quality gate's mode), "
+                        "with an optional layer scope, e.g. "
+                        "'mxu:layer3,@3x3'")
     p.add_argument("--semi", action="store_true")
     p.add_argument("--mesh", default=0, type=int,
                    help="data parallelism. Training: the world size, one "
@@ -193,23 +193,20 @@ def set_dataset_args(args, test: bool = False):
     """Attach imdb names + cfg overrides. [parser_func.py:193-213]
 
     Sets ``I2VSGG_INT8_TRUNK`` from ``--int8_trunk`` (``1[:scope]`` for
-    ``mxu``) or removes it (``off``), so that a stale shell value cannot
-    leak into a run; the ``sim`` kind raises ``ValueError``."""
+    ``mxu``, ``sim[:scope]`` for ``sim``) or removes it (``off``), so that
+    a stale shell value cannot leak into a run."""
     mode = getattr(args, "int8_trunk", "off") or "off"
     kind, _, only = mode.partition(":")
     scope = f":{only}" if only else ""
     if kind == "mxu":
         os.environ["I2VSGG_INT8_TRUNK"] = "1" + scope
+    elif kind == "sim":
+        os.environ["I2VSGG_INT8_TRUNK"] = "sim" + scope
     elif kind == "off":
         os.environ.pop("I2VSGG_INT8_TRUNK", None)
-    elif kind == "sim":
-        raise ValueError(
-            "--int8_trunk sim: the JAX package's CPU fake-quant gate is not "
-            "ported; the port runs the int8 trunk as real int8 products only "
-            "(--int8_trunk mxu[:scope])")
     else:
         raise ValueError(f"--int8_trunk: unknown kind {kind!r} "
-                         "(off | mxu[:layers])")
+                         "(off | mxu[:layers] | sim[:layers])")
     if args.dataset not in _WIRING:
         raise KeyError(f"unknown --dataset {args.dataset}")
     # test drivers evaluate the target's test split [parser_func.py:205]

@@ -37,8 +37,9 @@ a JPEG's EXIF orientation unapplied, as the JAX runtime's libjpeg does; the
 uint8 transport always takes the Python path. The loader's training branch (``training=True``: the ratio-sorted roidb without
 its ``need_crop`` entries, flipped entries mirrored, aspect-grouped batches
 in a seeded random order, GT rows beyond ``MAX_NUM_GT_BOXES`` shuffled and
-truncated) feeds ``tools/trainval_det_da.py``; JAX's multi-host
-``host_shard`` is not ported.
+truncated) feeds ``tools/trainval_det_da.py``; in a process group each
+rank takes its slice of the batch order (``parallel/mesh.py::host_shard``,
+JAX's multi-host split).
 """
 
 from __future__ import annotations

@@ -97,6 +97,12 @@ class BNConv(Conv):
     spatial grids (per-roi head inputs, H*W <= 64) a 1x1 stride-1 conv runs
     as one (R*HW, C) @ (C, F) matmul, as in the JAX module.
 
+    Under ``I2VSGG_INT8_CALIB`` (read at forward time) every call first
+    records ``max|x|`` of its input in f32, the running maximum over calls
+    (``record_absmax``; ``act_absmax`` reads the records, ``clear_absmax``
+    drops them): the JAX module's ``sow`` of ``act_absmax``, which
+    ``calibrate_act_scales`` turns into static activation scales.
+
     The int8 branches of the JAX module, in its order:
 
     * an int8-stored ``weight`` (``utils/params.py::quantize_trunk_params``)
@@ -110,9 +116,10 @@ class BNConv(Conv):
       keeps 3x3 kernels only.
 
     The int32 product is rescaled as ``(y * (a_s * w_s)).to(dtype)``. The
-    JAX package's CPU quality-gate and calibration modes (``sim``,
-    ``I2VSGG_INT8_PREQ_SIM``, ``I2VSGG_INT8_CALIB``) are not ported: the
-    port raises on them.
+    fake-quant twins of both branches (``I2VSGG_INT8_TRUNK=sim[:scope]`` on
+    the fly, ``I2VSGG_INT8_PREQ_SIM`` on int8-stored weights, the modes the
+    quality gate ``quant_trunk_ab`` runs) take the same integer taps and
+    convolve them in f32 instead (``_product``).
     """
 
     path = ""
@@ -125,9 +132,7 @@ class BNConv(Conv):
     def forward(self, x, stride: int | None = None):
         stride = stride or self.stride
         if os.environ.get("I2VSGG_INT8_CALIB"):
-            raise NotImplementedError(
-                "I2VSGG_INT8_CALIB (activation-scale calibration) is not "
-                "ported")
+            self.record_absmax(x)
         r, c, h, w = x.shape
         k = self.weight.shape[-1]
         small = h * w <= 64 and k == 1 and stride == 1
@@ -138,15 +143,23 @@ class BNConv(Conv):
             wm = self.weight.reshape(self.weight.shape[0], c).to(self.dtype)
             return nhwc_to_nchw((xm @ wm.t()).reshape(r, h, w, -1))
         mode = int8_trunk_mode(self.path, k)
-        if mode == "sim":
-            raise NotImplementedError(
-                "I2VSGG_INT8_TRUNK=sim (the CPU fake-quant gate) is not "
-                "ported")
-        if mode == "1":
+        if mode in ("1", "sim"):
             w_q, w_s = weight_quant(self.weight)
             x_q, a_s = dynamic_act_quant(x)
-            return self._rescale(x_q, w_q, a_s, w_s, stride)
+            return self._rescale(
+                self._product(x_q, w_q, stride, mode == "sim"), a_s, w_s)
         return super().forward(x, stride)
+
+    def record_absmax(self, x):
+        """Fold ``max|x|`` (f32, on x's device, no sync) into the record, a
+        plain attribute: neither a parameter nor a buffer, so that no
+        state dict, checkpoint or weight cache (``prepared``) sees it. abs
+        and max are exact in every float type, so taking them before the
+        cast to f32 gives JAX's value without an f32 copy of the map."""
+        m = x.detach().abs().amax().float()
+        prev = self.__dict__.get("act_absmax")
+        self.__dict__["act_absmax"] = (m if prev is None
+                                       else torch.maximum(prev, m))
 
     def _int8_forward(self, x, stride: int, small: bool):
         """The hoisted int8 weight (``quantize_trunk_params``)."""
@@ -159,20 +172,51 @@ class BNConv(Conv):
                 self.dtype)
             xm = nchw_to_nhwc(x).reshape(r * h * w, c).to(self.dtype)
             return nhwc_to_nchw((xm @ wd.t()).reshape(r, h, w, -1))
-        if os.environ.get("I2VSGG_INT8_PREQ_SIM"):
-            raise NotImplementedError(
-                "I2VSGG_INT8_PREQ_SIM (the CPU fake-quant gate) is not "
-                "ported")
         a_s = getattr(self, "act_scale", None)
         if a_s is not None:
             x_q = static_act_quant(x, a_s)
         else:
             x_q, a_s = dynamic_act_quant(x)
-        return self._rescale(x_q, self.weight, a_s, w_s, stride)
+        sim = bool(os.environ.get("I2VSGG_INT8_PREQ_SIM"))
+        return self._rescale(self._product(x_q, self.weight, stride, sim),
+                             a_s, w_s)
 
-    def _rescale(self, x_q, w_q, a_s, w_s, stride: int):
-        y = int8_conv2d(x_q, w_q, stride, self.padding)
+    def _product(self, x_q, w_q, stride: int, sim: bool):
+        """The int32 conv of the int8 taps or, for the fake-quant modes, the
+        same taps convolved in f32: equal to it while every partial sum
+        stays below 2**24 (127 * 127 * K < 2**24 for K = kh * kw * C_in <=
+        1040), rounded above. TF32, which cuDNN may use for f32 convs,
+        keeps these taps exact (8 significant bits at most), so it needs no
+        switching off; the order of the sums is cuDNN's own."""
+        if sim:
+            return F.conv2d(x_q.float(), w_q.float(), None, stride,
+                            self.padding)
+        return int8_conv2d(x_q, w_q, stride, self.padding)
+
+    def _rescale(self, y, a_s, w_s):
         return (y.float() * (a_s * w_s)[:, None, None]).to(self.dtype)
+
+
+def act_absmax(model: nn.Module) -> dict:
+    """The ``I2VSGG_INT8_CALIB`` records of ``model``'s ``BNConv`` modules,
+    ``{path: max|x|}`` as Python floats, keyed by each module's name under
+    ``model`` with ``/`` for ``.`` (``trunk/layer3/block0/conv2``, the keys
+    ``quantize_trunk_params`` looks up): the twin of the JAX tool's
+    ``flatten_absmax``. Read to the host in one transfer."""
+    recs = [(name.replace(".", "/"), m.__dict__["act_absmax"])
+            for name, m in model.named_modules()
+            if isinstance(m, BNConv) and "act_absmax" in m.__dict__]
+    if not recs:
+        return {}
+    vals = torch.stack([v for _, v in recs]).cpu().tolist()
+    return {path: v for (path, _), v in zip(recs, vals)}
+
+
+def clear_absmax(model: nn.Module):
+    """Drop every ``BNConv`` record of ``model``."""
+    for m in model.modules():
+        if isinstance(m, BNConv):
+            m.__dict__.pop("act_absmax", None)
 
 
 def int8_trunk_mode(path: str, k: int) -> str:
@@ -350,7 +394,10 @@ class ResNetTrunk(nn.Module):
       planes-fed conv1 kernel;
     * ``I2VSGG_PALLAS_CONV1=1`` sends an image batch to the image-fed
       conv1 kernel;
-    * otherwise conv1 is the plain 7x7/2 pad-3 conv (cuDNN on the card);
+    * otherwise conv1 is the plain 7x7/2 pad-3 conv (cuDNN on the card).
+      JAX's ``I2VSGG_S2D=1`` runs this conv as a space-to-depth conv
+      (``Conv1S2D``), the same function; the port ignores the switch, as
+      the packed form was slower than cuDNN's direct conv on the H100;
     * on the kernel paths ``I2VSGG_CONV1_FUSED_POOL`` (default ``1``)
       selects the stem (conv + BN + ReLU + the caffe pool in the kernel's
       module) over the kernel conv followed by ``caffe_maxpool``.

@@ -78,6 +78,34 @@ def vrd_pooling_of(load_name: str, default: str) -> str:
     return default
 
 
+def apply_act_scales(det, args):
+    """``--act_scales``, the deployment form of the int8 trunk, on the
+    restored detector ``det``, as the JAX drivers apply it: the in-scope
+    kernels of ``--int8_trunk mxu:<scope>`` or ``sim:<scope>`` stored in
+    int8 with the file's static activation scales
+    (``quantize_trunk_params``), then ``I2VSGG_INT8_TRUNK`` removed, so
+    that no other conv quantizes on the fly. ``sim`` sets
+    ``I2VSGG_INT8_PREQ_SIM=1`` (the int8-stored convs in fake-quant);
+    ``mxu`` and a run without ``--act_scales`` remove it. (The JAX drivers
+    leave a set value in place on ``mxu``, so that a ``sim`` run followed by
+    an ``mxu`` run in one process would serve fake-quant; the port does not
+    copy that.)"""
+    from i2vsgg_tpu_torch.utils.params import (load_act_scales,
+                                               quantize_trunk_params)
+    os.environ.pop("I2VSGG_INT8_PREQ_SIM", None)
+    if not args.act_scales:
+        return
+    kind, _, scope = (args.int8_trunk or "off").partition(":")
+    if kind not in ("mxu", "sim"):
+        raise ValueError("--act_scales requires --int8_trunk mxu:<scope> "
+                         "or sim:<scope>")
+    quantize_trunk_params(det, scope, load_act_scales(args.act_scales))
+    if kind == "sim":
+        os.environ["I2VSGG_INT8_PREQ_SIM"] = "1"
+    os.environ.pop("I2VSGG_INT8_TRUNK", None)
+    print(f"static act scales: {args.act_scales} (scope {scope!r})")
+
+
 def build_trunk(net: str, dtype):
     """Stage B's own trunk for ``--net``."""
     from i2vsgg_tpu_torch.models.backbones import ResNetTrunk, VGG16Trunk

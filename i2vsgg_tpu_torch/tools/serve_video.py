@@ -17,11 +17,11 @@ The levers of the JAX driver: ``--bf16_weights`` (bf16 weight storage),
 (uint8 frames, dequantized on the device), ``--int8_fc6`` (the SGG head's
 fc6/fc7 in int8, quantized at load) and ``--int8_trunk mxu:<scope>
 --act_scales <file>`` (the scoped int8 trunk with static activation
-scales). ``--mesh N`` serves over N local devices in one process, as the
-JAX driver does: the models replicated once onto ``make_mesh(N)``, each
-batch's frames split over them (``serve.make_sharded_program``; ``--bs`` a
-multiple of N, a ragged tail padded and its padded rows dropped).
-``--int8_trunk sim:`` (the JAX CPU fake-quant gate) is refused.
+scales; ``sim:<scope>``, its fake-quant twin). ``--mesh N`` serves over N
+local devices in one process, as the JAX driver does: the models
+replicated once onto ``make_mesh(N)``, each batch's frames split over them
+(``serve.make_sharded_program``; ``--bs`` a multiple of N, a ragged tail
+padded and its padded rows dropped).
 
 Usage:
   python -m i2vsgg_tpu_torch.tools.serve_video --dataset MVidVRD \\
@@ -79,12 +79,11 @@ def build_serving_models(args, ns, cfg, imdb):
     from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
     from i2vsgg_tpu_torch.models.layers import init_weights, torch_dtype
     from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
-    from i2vsgg_tpu_torch.tools.common import ckpt_of, vrd_pooling_of
+    from i2vsgg_tpu_torch.tools.common import (apply_act_scales, ckpt_of,
+                                               vrd_pooling_of)
     from i2vsgg_tpu_torch.train.checkpoint import restore_intersection
     from i2vsgg_tpu_torch.utils.params import (bf16_storage_cast,
-                                               load_act_scales,
-                                               quantize_dense_params,
-                                               quantize_trunk_params)
+                                               quantize_dense_params)
 
     det = FasterRCNN_DA(num_classes=len(imdb.classes), cfg=cfg,
                         backbone=args.net,
@@ -97,18 +96,7 @@ def build_serving_models(args, ns, cfg, imdb):
         print(f"detector: {args.load_name}")
     if ns.bf16_weights:
         bf16_storage_cast(det)
-    if args.act_scales:
-        # the deployment form of the int8 trunk: in-scope kernels stored in
-        # int8 at load, with the calibrated static activation scales
-        kind, _, scope = (args.int8_trunk or "off").partition(":")
-        if kind != "mxu":
-            raise ValueError("--act_scales requires --int8_trunk "
-                             "mxu:<scope>")
-        quantize_trunk_params(det, scope, load_act_scales(args.act_scales))
-        # in-scope kernels are int8 now; drop the switch so that no other
-        # conv quantizes on the fly
-        os.environ.pop("I2VSGG_INT8_TRUNK", None)
-        print(f"static act scales: {args.act_scales} (scope {scope!r})")
+    apply_act_scales(det, args)
 
     # the head pools as its weights were trained (metadata of the SGG
     # checkpoint, like the reference's in-checkpoint pooling_mode)

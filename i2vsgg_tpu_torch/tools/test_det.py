@@ -64,12 +64,10 @@ def main(argv=None):
     from i2vsgg_tpu_torch.data.roidb import combined_roidb
     from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
     from i2vsgg_tpu_torch.models.layers import init_weights
-    from i2vsgg_tpu_torch.tools.common import (ckpt_of, config_from_args,
-                                               metadata_of)
+    from i2vsgg_tpu_torch.tools.common import (apply_act_scales, ckpt_of,
+                                               config_from_args, metadata_of)
     from i2vsgg_tpu_torch.train.checkpoint import restore_intersection
     from i2vsgg_tpu_torch.utils.device import resolve_device
-    from i2vsgg_tpu_torch.utils.params import (load_act_scales,
-                                               quantize_trunk_params)
 
     args = set_dataset_args(parse_args(argv), test=True)
     if args.mesh:
@@ -102,15 +100,7 @@ def main(argv=None):
     if ckpt is not None:
         restore_intersection(*ckpt, model)
         print(f"loaded {args.load_name}")
-    if args.act_scales:
-        # the static-activation-scale int8 trunk (see serve_video)
-        kind, _, scope = (args.int8_trunk or "off").partition(":")
-        if kind != "mxu":
-            raise ValueError("--act_scales requires --int8_trunk "
-                             "mxu:<scope>")
-        quantize_trunk_params(model, scope, load_act_scales(args.act_scales))
-        os.environ.pop("I2VSGG_INT8_TRUNK", None)
-        print(f"static act scales: {args.act_scales} (scope {scope!r})")
+    apply_act_scales(model, args)
     model.to(dev).eval()
 
     n = len(roidb)

@@ -18,6 +18,26 @@ read the other's cache. The serving levers run through both drivers too:
 ``serve_video --bf16_weights --int8_fc6`` and ``test_det --int8_trunk
 mxu:<scope> --act_scales <calibration>``.
 
+The int8 trunk's calibration and quality gate run on the same weights and
+datasets:
+
+* the whole res10 detector under ``I2VSGG_INT8_CALIB`` (f32) over two
+  batches of the MVidVRD test frames: the same keys as JAX's
+  ``flatten_absmax(intermediates)``, values within rtol 1e-5 (f32 convs sum
+  in another order in XLA and oneDNN); the record is no parameter or
+  buffer;
+* ``test_det --int8_trunk sim:<scope> --act_scales <file>`` of both
+  packages, with ``test_test_det_int8_trunk_matches_jax``'s bounds (scores
+  rtol 1e-4, APs equal, boxes within 0.25 px); then ``mxu`` in the same
+  process removes ``I2VSGG_INT8_PREQ_SIM``, which JAX leaves set;
+* ``calibrate_act_scales`` of both packages on one checkpoint and devkit
+  (``COMPUTE_DTYPE float32``): the same keys and ``n_images``, scales
+  within rtol 1e-5; the port refuses ``I2VSGG_PALLAS_BOTTLENECK=1``;
+* ``quant_trunk_ab`` of both: the same fp and int8 mAPs and ``delta`` (each
+  evaluation given ``--compute_dtype float32``, as the other driver tests
+  run); the port's ``--reuse_fp`` copies a matching fp arm and refuses a
+  rewritten checkpoint.
+
 The drivers' per-frame arrays are read where both packages hand them to
 ``detection_output`` (recorded, then passed on). Tolerances: detections'
 classes, validity and pairs exact; boxes rtol 1e-5, detection scores and
@@ -66,12 +86,19 @@ from i2vsgg_tpu_torch import serve
 from i2vsgg_tpu_torch.cli import args as port_args
 from i2vsgg_tpu_torch.data import image_io, pipeline, roidb
 from i2vsgg_tpu_torch.eval import voc_eval
+from i2vsgg_tpu_torch.models import backbones as bb
 from i2vsgg_tpu_torch.models import glove
+from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
 from i2vsgg_tpu_torch.models.layers import init_weights
 from i2vsgg_tpu_torch.models.sgg import VRDHead
+from i2vsgg_tpu_torch.tools import calibrate_act_scales, quant_trunk_ab
+from i2vsgg_tpu_torch.tools import test_det as port_test_det
 from i2vsgg_tpu_torch.train import checkpoint
+from i2vsgg_tpu_torch.utils.params import quantize_trunk_params
 from i2vsgg_tpu_torch.video import metrics as port_metrics
+from tools import calibrate_act_scales as jax_calibrate
 from tools import jax_to_torch_checkpoint
+from tools import quant_trunk_ab as jax_quant_trunk_ab
 from tools import serve_video as jax_serve_video
 from tools import test_det as jax_test_det
 from tools import test_sgg as jax_test_sgg
@@ -164,6 +191,8 @@ ARGVS = [
      "--int8_trunk", "mxu:layer3,@3x3", "--act_scales", "s.json"],
     ["--dataset", "MVidOR", "--int8_trunk", "--uint8_upload",
      "--cfg", "POOLING_MODE", "pool"],
+    ["--dataset", "MVG", "--int8_trunk", "sim"],
+    ["--int8_trunk", "sim:layer3", "--act_scales", "s.json"],
 ]
 
 
@@ -182,13 +211,6 @@ def test_parse_args_matches_jax(argv, monkeypatch):
     assert got.pop("device") == "cuda"
     assert got == exp
     assert env[0] == env[1]
-
-
-def test_set_dataset_args_refuses_the_sim_kind(monkeypatch):
-    monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
-    a = port_args.parse_args(["--int8_trunk", "sim:layer3"])
-    with pytest.raises(ValueError, match="not ported"):
-        port_args.set_dataset_args(a, test=True)
 
 
 # -- data --------------------------------------------------------------------
@@ -766,11 +788,9 @@ def test_test_sgg_on_jpeg_stills_matches_jax(data_roots, weights,
               [f"img{i:03d}" for i in range(8)])
 
 
-def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None,
-              dataset="MVidVRD"):
+def _det_runs(weights, roots, monkeypatch, extra, tag, dataset="MVidVRD"):
     """test_det of both packages on ``dataset``'s test split, each on its
-    own datasets: the same APs, the same detections per class and image
-    within ``tol`` (boxes within ``box_atol`` px where it is given)."""
+    own datasets -> (JAX's APs, the port's)."""
     from i2vsgg_tpu_torch.tools import test_det
     d = weights["dir"]
     args = _argv(dataset) + ["--ic", "--gc"] + extra
@@ -781,6 +801,15 @@ def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None,
     got = test_det.main(args + ["--save_dir", os.path.join(d, "dp" + tag),
                                 "--load_name", weights["det"][1],
                                 "--device", "cpu"])
+    return exp, got
+
+
+def _det_check(weights, exp, got, tag, tol, box_atol=None,
+               dataset="MVidVRD"):
+    """The runs of ``_det_runs``: the same APs, the same detections per
+    class and image within ``tol`` (boxes within ``box_atol`` px where it
+    is given) -> the port's detections."""
+    d = weights["dir"]
     assert got == exp and set(got) > {"mAP"}
     dets = [pickle.load(open(os.path.join(d, x + tag, "eval",
                                           f"{dataset}_test",
@@ -800,8 +829,25 @@ def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None,
     return dets[1]
 
 
-def test_test_det_matches_jax(weights, data_roots, monkeypatch):
-    _det_both(weights, data_roots, monkeypatch, [], "", 1e-4)
+def _det_both(weights, roots, monkeypatch, extra, tag, tol, box_atol=None,
+              dataset="MVidVRD"):
+    """``_det_runs``, then ``_det_check``."""
+    exp, got = _det_runs(weights, roots, monkeypatch, extra, tag, dataset)
+    return _det_check(weights, exp, got, tag, tol, box_atol, dataset)
+
+
+@pytest.fixture(scope="module")
+def plain_det(weights, data_roots):
+    """test_det of both packages on the MVidVRD test split without the
+    levers, run once for the tests that read it (in whatever process or
+    order they run) -> (JAX's APs, the port's)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("I2VSGG_INT8_TRUNK", raising=False)
+        return _det_runs(weights, data_roots, mp, [], "")
+
+
+def test_test_det_matches_jax(weights, plain_det):
+    _det_check(weights, *plain_det, "", 1e-4)
 
 
 def test_test_det_on_jpeg_stills_matches_jax(weights, data_roots,
@@ -811,7 +857,8 @@ def test_test_det_on_jpeg_stills_matches_jax(weights, data_roots,
               dataset="MVRD")
 
 
-def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch):
+def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch,
+                                         plain_det):
     """``--int8_trunk mxu:<scope> --act_scales <calibration>``: both drivers
     restore the checkpoint, store the scoped 3x3 convs of layer2-4 in int8
     with the calibration file's static activation scales, and drop the
@@ -832,7 +879,7 @@ def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch):
         n_int8.append(tuple(a[0].shape))
         return real(*a)
 
-    monkeypatch.setattr(port_bb, "int8_conv2d", counting)
+    monkeypatch.setattr(bb, "int8_conv2d", counting)
     monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
     got = _det_both(weights, data_roots, monkeypatch,
                     ["--int8_trunk", "mxu:" + scope, "--act_scales", calib],
@@ -846,3 +893,251 @@ def test_test_det_int8_trunk_matches_jax(weights, data_roots, monkeypatch):
         "rb"))
     assert any(a.shape != b.shape or not np.array_equal(a, b)
                for pa, pb in zip(got, plain) for a, b in zip(pa, pb))
+
+
+# -- the int8 trunk's calibration and quality gate ----------------------------
+
+CALIB = os.path.join(ROOT, "runs", "calib", "act_scales_res101.json")
+SCOPE = "layer2,layer3,layer4,@3x3"
+TINY_CFG = TINY[1:]                  # the --cfg pairs
+
+
+def _tiny_cfg(mod):
+    return mod.cfg_from_list(TINY_CFG + ["COMPUTE_DTYPE", "float32"],
+                             mod.Config())
+
+
+def test_detector_record_matches_jax(weights, data_roots, monkeypatch):
+    """The res10 detector (16 classes, ic+gc, f32) on the first two batches
+    of 4 MVidVRD test frames, each package on its own loader's batches
+    (bit-equal: the driver tests hold them): JAX's ``flatten_absmax`` of the
+    sown intermediates, maxed over the batches as its tool does, against the
+    port's record. (The calibration tools' test below runs the same
+    batches: JAX's eager ops then compile once.)"""
+    monkeypatch.setenv("I2VSGG_INT8_CALIB", "1")
+    batches = {}
+    for pkg, mod, rdb in (("jax", jax_pipeline, jax_roidb),
+                          ("port", None, None)):
+        monkeypatch.setenv("I2VSGG_DATA_ROOT", data_roots[pkg]["root"])
+        if pkg == "jax":
+            _, roidb, _, idx = rdb.combined_roidb(
+                "MVidVRD_test", training=False, use_flipped=False)
+            loader = mod.DetectionLoader(roidb, idx, _tiny_cfg(jax_config),
+                                         4, training=False)
+        else:
+            from i2vsgg_tpu_torch.data import pipeline, roidb as port_roidb
+            _, roidb, _, idx = port_roidb.combined_roidb(
+                "MVidVRD_test", training=False, use_flipped=False)
+            loader = pipeline.DetectionLoader(roidb, idx, _tiny_cfg(config),
+                                              4, training=False)
+        batches[pkg] = [(b["image"], b["im_info"]) for b in loader][:2]
+    assert len(batches["port"]) == 2
+    for (a, ia), (b, ib) in zip(batches["jax"], batches["port"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(ia, ib)
+
+    jm = JaxFasterRCNN(num_classes=16, cfg=_tiny_cfg(jax_config),
+                       backbone="res10", ic=True, gc=True)
+    params = jm.init({"params": jax.random.PRNGKey(0)},
+                     jnp.zeros((1, 128, 160, 3), jnp.float32),
+                     jnp.asarray([[128, 160, 1.0]], jnp.float32),
+                     mode="inference")["params"]
+    jdir = os.path.dirname(weights["det"][0])
+    params = jax_ckpt.restore_intersection(jdir, 1, params)
+    want: dict = {}
+    for img, info in batches["jax"]:
+        _, inter = jm.apply({"params": params}, jnp.asarray(img),
+                            jnp.asarray(info), mode="inference",
+                            mutable=["intermediates"])
+        for path, v in jax_calibrate.flatten_absmax(
+                inter["intermediates"]).items():
+            want[path] = max(want.get(path, 0.0), v)
+
+    model = FasterRCNN_DA(16, _tiny_cfg(config), "res10", ic=True, gc=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    checkpoint.restore_intersection(
+        os.path.dirname(weights["det"][1]), 1, model)
+    keys = set(model.state_dict())
+    for img, info in batches["port"]:
+        model.inference(torch.from_numpy(img), torch.from_numpy(info))
+    got = bb.act_absmax(model)
+    assert set(model.state_dict()) == keys
+    # res10: layer1-3 of the trunk and layer4 of the head, 4 convs each
+    assert set(got) == set(want) and len(got) == 16
+    assert sum(k.startswith("head/layer4/") for k in got) == 4
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+
+
+def test_test_det_sim_matches_jax_then_mxu_drops_preq_sim(weights,
+                                                          data_roots,
+                                                          monkeypatch):
+    """``test_det --int8_trunk sim:<scope> --act_scales <calibration>`` of
+    both packages: the scoped convs stored in int8 with the file's static
+    scales, convolved in fake-quant (``I2VSGG_INT8_PREQ_SIM``), held with
+    the int8 driver test's bounds; no int8 product runs. Then the port's
+    ``mxu`` run in the same process removes ``I2VSGG_INT8_PREQ_SIM`` and
+    runs its int8 products: JAX would leave it set and serve fake-quant."""
+    n_int8 = []
+    real = bb.int8_conv2d
+
+    def counting(*a):
+        n_int8.append(tuple(a[0].shape))
+        return real(*a)
+
+    monkeypatch.setattr(bb, "int8_conv2d", counting)
+    monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
+    monkeypatch.setenv("I2VSGG_INT8_PREQ_SIM", "")      # restored after
+    _det_both(weights, data_roots, monkeypatch,
+              ["--int8_trunk", "sim:" + SCOPE, "--act_scales", CALIB],
+              "_sim", 1e-4, box_atol=0.25)
+    assert os.environ["I2VSGG_INT8_PREQ_SIM"] == "1"
+    assert "I2VSGG_INT8_TRUNK" not in os.environ
+    assert n_int8 == []
+    port_test_det.main(_argv("MVidVRD") + [
+        "--ic", "--gc", "--int8_trunk", "mxu:" + SCOPE, "--act_scales",
+        CALIB, "--save_dir", os.path.join(weights["dir"], "dp_mxu"),
+        "--load_name", weights["det"][1], "--device", "cpu"])
+    assert "I2VSGG_INT8_PREQ_SIM" not in os.environ
+    # layer2's and layer3's 3x3 on the batch, layer4's on its rois: 6
+    # batches of 2 frames
+    assert len(n_int8) == 3 * 6
+
+
+def test_calibrate_act_scales_matches_jax(weights, data_roots, monkeypatch,
+                                          tmp_path):
+    """Both tools on the MVidVRD test split at --bs 4 with --n_images 5:
+    the count is checked before each batch, so two whole batches run and 8
+    images count."""
+    monkeypatch.setenv("I2VSGG_INT8_CALIB", "1")   # the JAX tool sets it
+    out = {}
+    for pkg, tool, ckpt in (("jax", jax_calibrate, weights["det"][0]),
+                            ("port", calibrate_act_scales,
+                             weights["det"][1])):
+        monkeypatch.setenv("I2VSGG_DATA_ROOT", data_roots[pkg]["root"])
+        path = str(tmp_path / f"{pkg}.json")
+        argv = ["--ckpt", ckpt, "--dataset", "MVidVRD", "--net", "res10",
+                "--n_images", "5", "--bs", "4", "--json", path,
+                "--cfg", "COMPUTE_DTYPE", "float32"] + TINY_CFG
+        tool.main(argv + (["--device", "cpu"] if pkg == "port" else []))
+        with open(path) as f:
+            out[pkg] = json.load(f)
+    got, want = out["port"], out["jax"]
+    assert got["n_images"] == want["n_images"] == 8
+    assert got["ckpt"] == weights["det"][1]
+    assert set(got["scales"]) == set(want["scales"])
+    assert len(got["scales"]) == 16
+    for k, v in want["scales"].items():
+        np.testing.assert_allclose(got["scales"][k], v, rtol=1e-5,
+                                   err_msg=k)
+    # the port's file drives quantize_trunk_params of either package
+    quantize_trunk_params(FasterRCNN_DA(16, _tiny_cfg(config), "res10",
+                                        ic=True, gc=True), SCOPE,
+                          got["scales"])
+
+
+def test_calibration_refuses_the_chain_switch(monkeypatch, tmp_path):
+    """Under the chain switch layer3's identity tail calls none of its
+    convs, so the calibration refuses before it reads anything."""
+    monkeypatch.setenv("I2VSGG_PALLAS_BOTTLENECK", "1")
+    with pytest.raises(ValueError, match="I2VSGG_PALLAS_BOTTLENECK"):
+        calibrate_act_scales.main(["--ckpt", str(tmp_path / "none" / "1"),
+                                   "--net", "res10", "--device", "cpu"])
+
+
+def _ab_argv(pkg, weights, roots, tmp, extra=()):
+    ckpt = weights["det"][0 if pkg == "jax" else 1]
+    return (["--out", str(tmp / f"out_{pkg}"), "--ckpt", ckpt,
+             "--data", roots[pkg]["root"], "--net", "res10", "--dataset",
+             "MVidVRD", "--rpn_topn", "16", "--pre_nms", "100",
+             "--max_det", "20", "--mode", "sim:" + SCOPE, "--act_scales",
+             CALIB, "--json", str(tmp / f"ab_{pkg}.json"), "--cfg"]
+            + TINY_CFG + list(extra)
+            + (["--device", "cpu"] if pkg == "port" else []))
+
+
+def test_quant_trunk_ab_matches_jax(weights, data_roots, monkeypatch,
+                                    tmp_path):
+    """Both tools on one checkpoint: the fp arm, then the int8 arm under
+    ``sim:<scope>`` with the calibration file; the same mAPs and delta.
+    Then the port's ``--reuse_fp`` of its own file copies the fp arm and
+    evaluates the int8 arm only."""
+    for pkg, mod in (("jax", jax_test_det), ("port", port_test_det)):
+        real = mod.main
+        monkeypatch.setattr(mod, "main", lambda argv, real=real: real(
+            list(argv) + ["--compute_dtype", "float32"]))
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", "")     # both tools set it
+    monkeypatch.setenv("I2VSGG_INT8_PREQ_SIM", "")  # JAX's leaves it set
+    monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
+    evals = []
+    real_port = port_test_det.main
+    monkeypatch.setattr(port_test_det, "main", lambda argv: evals.append(
+        argv) or real_port(argv))
+    want = jax_quant_trunk_ab.main(_ab_argv("jax", weights, data_roots,
+                                            tmp_path))
+    got = quant_trunk_ab.main(_ab_argv("port", weights, data_roots,
+                                       tmp_path))
+    assert len(evals) == 2
+    for k in ("mode", "net", "act_scales"):
+        assert got[k] == want[k]
+    for arm in ("fp", "int8"):
+        assert got[arm]["MVidVRD"]["mAP"] == want[arm]["MVidVRD"]["mAP"]
+    assert got["delta"] == want["delta"]
+    # random weights score an mAP of 0 here: the int8 arm's detections,
+    # which each tool's last evaluation left, are held too
+    dets = []
+    for pkg in ("jax", "port"):
+        [run] = os.listdir(tmp_path / f"out_{pkg}")
+        with open(tmp_path / f"out_{pkg}" / run / "eval" / "MVidVRD_test"
+                  / "detections.pkl", "rb") as f:
+            dets.append(pickle.load(f))
+    n = 0
+    for per_j, per_p in zip(*dets):
+        for a, b in zip(per_j, per_p):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(b[:, :4], a[:, :4], rtol=0, atol=0.25)
+            close(b[:, 4], a[:, 4], 1e-4)
+            n += len(a)
+    assert n > 0
+    with open(tmp_path / "ab_port.json") as f:
+        assert json.load(f)["delta"] == got["delta"]
+    again = quant_trunk_ab.main(_ab_argv(
+        "port", weights, data_roots, tmp_path,
+        ["--reuse_fp", str(tmp_path / "ab_port.json")]))
+    assert len(evals) == 3 and "--int8_trunk" in evals[-1]
+    assert again["fp"] == got["fp"]
+    assert again["fp_reused_from"] == str(tmp_path / "ab_port.json")
+    assert again["delta"] == got["delta"]
+
+
+def test_reuse_fp_refuses_a_rewritten_checkpoint(weights, tmp_path,
+                                                 monkeypatch):
+    """An fp arm recorded on a copy of the checkpoint; one file of the copy
+    rewritten (its size and mtime change): ``--reuse_fp`` refuses before
+    any evaluation. Another path, or a dataset the record lacks, is refused
+    too."""
+    src = os.path.dirname(weights["det"][1])
+    ck = tmp_path / "ck"
+    shutil.copytree(src, ck)
+    ckpt = str(ck / "1")
+    prev = {"ckpt": ckpt, "ckpt_fingerprint":
+            quant_trunk_ab.ckpt_fingerprint(ckpt),
+            "fp": {"MVidVRD": {"mAP": 0.5, "eval_s": 1.0}}}
+    rec = tmp_path / "prev.json"
+    rec.write_text(json.dumps(prev))
+    monkeypatch.setenv("I2VSGG_DATA_ROOT", "")      # the tool sets it
+    argv = ["--ckpt", ckpt, "--out", str(tmp_path / "o"), "--dataset",
+            "MVidVRD", "--net", "res10", "--reuse_fp", str(rec),
+            "--device", "cpu"]
+    meta = ck / "step_00000001" / "metadata.json"
+    meta.write_text(meta.read_text() + "\n")
+    with pytest.raises(ValueError, match="rewritten"):
+        quant_trunk_ab.main(argv)
+    prev["ckpt_fingerprint"] = quant_trunk_ab.ckpt_fingerprint(ckpt)
+    rec.write_text(json.dumps(prev))
+    with pytest.raises(ValueError, match="lacks datasets"):
+        quant_trunk_ab.main(argv + ["--dataset_t", "MVRD"])
+    prev["ckpt"] = str(tmp_path / "elsewhere" / "1")
+    rec.write_text(json.dumps(prev))
+    with pytest.raises(ValueError, match="not"):
+        quant_trunk_ab.main(argv)

@@ -85,8 +85,14 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "train.det_da", "utils.logging",
                      "tools.trainval_det_da", "train.sgg",
                      "tools.trainval_sgg", "data.jpeg", "utils.cuda_build",
-                     "parallel", "parallel.mesh", "runtime"):
+                     "parallel", "parallel.mesh", "runtime",
+                     "tools.calibrate_act_scales", "tools.quant_trunk_ab"):
             assert "i2vsgg_tpu_torch." + name in names, name
+        from i2vsgg_tpu_torch.tools import calibrate_act_scales
+        from i2vsgg_tpu_torch.tools import quant_trunk_ab
+        assert calibrate_act_scales.parse_args(
+            ["--ckpt", "c/1"]).device == "cuda"
+        assert quant_trunk_ab.parse_args(["--ckpt", "c/1"]).mode == "sim"
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
                              "TEST.RPN_POST_NMS_TOP_N", "16",

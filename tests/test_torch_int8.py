@@ -23,8 +23,14 @@ read at forward time. Checked here:
   ``conv1_bn_relu_int8_pallas(interpret=True)`` at the JAX test's shapes,
   and on non-integer inputs that take the clamp and the half-to-even tie;
 * the whole int8 frame program at res10 64x80 bf16 (bounds below);
-* ``ResNetStage`` refuses int8 weights under the chain switch, and the
-  CPU quality-gate and calibration modes raise.
+* the fake-quant modes (``sim[:scope]``, ``I2VSGG_INT8_PREQ_SIM``)
+  bit-equal to JAX's and to the port's int8 products, and the layer scope
+  of JAX's own test on the port;
+* ``BNConv``'s ``I2VSGG_INT8_CALIB`` record against JAX's ``sow`` on the
+  same inputs, bit for bit: f32 and bf16 inputs, int8-stored weights with
+  a dynamic and a static scale, a small-grid 1x1 (a ``head/...`` conv),
+  two calls (the record is their maximum);
+* ``ResNetStage`` refuses int8 weights under the chain switch.
 
 The whole program (2 frames of 64x80, res10 ic+gc, 4 classes, ``max_det``
 4, SGG head under ``align`` with int8 fc6/fc7, detector weights scaled as in
@@ -45,6 +51,7 @@ import pytest
 import torch
 from torch import nn
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 
@@ -239,29 +246,42 @@ def _wrapped(conv):
     return nn.ModuleDict({"block0": nn.ModuleDict({"conv": conv})})
 
 
-# case -> (kernel, stride, input (R, H, W, C), how the weight is held)
+# case -> (kernel, stride, input (R, H, W, C), how the weight is held, the
+# environment): float weights quantized on the fly under I2VSGG_INT8_TRUNK,
+# or int8-stored with a dynamic or a static activation scale; the sim modes
+# (``sim[:scope]`` on the fly, I2VSGG_INT8_PREQ_SIM on int8-stored weights)
+# convolve the same integer taps in f32, exactly here (K <= 216 < 1040)
+SIM = {"I2VSGG_INT8_TRUNK": "sim"}
+PREQ_SIM = {"I2VSGG_INT8_PREQ_SIM": "1"}
 BNCONV_CASES = {
-    "env1_3x3": (3, 1, (2, 9, 11, 24), "env"),
-    "env1_1x1_stride2": (1, 2, (2, 10, 13, 24), "env"),
-    "hoisted_dynamic": (3, 1, (2, 9, 11, 24), "dynamic"),
-    "hoisted_static_saturated": (3, 1, (2, 9, 11, 24), "static"),
-    "small_grid_guard": (1, 1, (6, 4, 4, 24), "dynamic"),
+    "env1_3x3": (3, 1, (2, 9, 11, 24), "float", {"I2VSGG_INT8_TRUNK": "1"}),
+    "env1_1x1_stride2": (1, 2, (2, 10, 13, 24), "float",
+                         {"I2VSGG_INT8_TRUNK": "1"}),
+    "hoisted_dynamic": (3, 1, (2, 9, 11, 24), "dynamic", {}),
+    "hoisted_static_saturated": (3, 1, (2, 9, 11, 24), "static", {}),
+    "small_grid_guard": (1, 1, (6, 4, 4, 24), "dynamic", {}),
+    "sim_3x3": (3, 1, (2, 9, 11, 24), "float", SIM),
+    "sim_1x1_stride2": (1, 2, (2, 10, 13, 24), "float", SIM),
+    "sim_scoped": (3, 1, (2, 9, 11, 24), "float",
+                   {"I2VSGG_INT8_TRUNK": "sim:@3x3"}),
+    "preq_sim_dynamic": (3, 1, (2, 9, 11, 24), "dynamic", PREQ_SIM),
+    "preq_sim_static_saturated": (3, 1, (2, 9, 11, 24), "static", PREQ_SIM),
+    "preq_sim_small_grid_guard": (1, 1, (6, 4, 4, 24), "dynamic", PREQ_SIM),
 }
 
 
-@pytest.mark.parametrize("case", list(BNCONV_CASES))
-def test_bnconv_int8_branches_bit_equal_to_jax(monkeypatch, case):
-    k, stride, shape, held = BNCONV_CASES[case]
-    rs = np.random.RandomState(3)
+def _bnconv_pair(k, stride, shape, held, seed=3):
+    """A JAX ``BNConv`` and the port's on its weights, held as ``held``
+    says in both (``quantize_trunk_params`` of each package), and the
+    bf16 input -> (jax module, its params, port module, x)."""
+    rs = np.random.RandomState(seed)
     x = jnp.asarray(rs.randn(*shape).astype(np.float32) * 3).astype(
         jnp.bfloat16)
     jm = jax_bb.BNConv(16, shape[-1], k, stride, dtype=jnp.bfloat16)
     params = np_tree(jm.init(jax.random.PRNGKey(0), x)["params"])
     conv = bb.BNConv(shape[-1], 16, k, stride, dtype=torch.bfloat16)
     conv.load_state_dict(params_from_jax(params))
-    if held == "env":
-        monkeypatch.setenv("I2VSGG_INT8_TRUNK", "1")
-    else:
+    if held != "float":
         a_s = None
         if held == "static":
             # a scale below max|x| / 127: the largest inputs saturate
@@ -276,11 +296,148 @@ def test_bnconv_int8_branches_bit_equal_to_jax(monkeypatch, case):
         if held == "static":
             xq = torch.round(T(x).float() / conv.act_scale)
             assert bool((xq.abs() > 127).any())
+    return jm, params, conv, x
+
+
+@pytest.mark.parametrize("case", list(BNCONV_CASES))
+def test_bnconv_int8_branches_bit_equal_to_jax(monkeypatch, case):
+    k, stride, shape, held, env = BNCONV_CASES[case]
+    jm, params, conv, x = _bnconv_pair(k, stride, shape, held)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     want = np.asarray(jm.apply({"params": params}, x), np.float32)
     with torch.no_grad():
         got = conv(bb.nhwc_to_nchw(T(x)))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(bb.nchw_to_nhwc(got).float().numpy(), want)
+
+
+class Twice(flax_nn.Module):
+    """One JAX ``BNConv`` called on two inputs: its sow reduces them."""
+    features: int
+    in_features: int
+    kernel: int
+    dtype: jnp.dtype
+
+    @flax_nn.compact
+    def __call__(self, a, b):
+        conv = jax_bb.BNConv(self.features, self.in_features, self.kernel,
+                             1, self.dtype, name="conv")
+        return conv(a), conv(b)
+
+
+# case -> (kernel, input (R, H, W, C), dtype, how the weight is held)
+RECORD_CASES = {
+    "f32": (3, (2, 9, 11, 24), "float32", "float"),
+    "bf16": (3, (2, 9, 11, 24), "bfloat16", "float"),
+    "int8_dynamic": (3, (2, 9, 11, 24), "bfloat16", "dynamic"),
+    "int8_static": (3, (2, 9, 11, 24), "bfloat16", "static"),
+    "small_grid_head_1x1": (1, (6, 4, 4, 24), "bfloat16", "float"),
+}
+
+
+@pytest.mark.parametrize("case", list(RECORD_CASES))
+def test_bnconv_record_bit_equal_to_jax(monkeypatch, case):
+    """Two calls of one conv (the second input larger in places): the
+    record equals JAX's reduced ``sow`` bit for bit, and each call's output
+    is the output without the switch."""
+    k, shape, dtype, held = RECORD_CASES[case]
+    monkeypatch.setenv("I2VSGG_INT8_CALIB", "1")
+    rs = np.random.RandomState(11)
+    jdt = jnp.dtype(dtype)
+    xs = [jnp.asarray(rs.randn(*shape).astype(np.float32) * s).astype(jdt)
+          for s in (3.0, 5.0)]
+    jm = Twice(16, shape[-1], k, jdt)
+    params = np_tree(jm.init(jax.random.PRNGKey(0), *xs)["params"])
+    conv = bb.BNConv(shape[-1], 16, k, 1, dtype=torch.float32
+                     if dtype == "float32" else torch.bfloat16)
+    conv.load_state_dict(params_from_jax(params["conv"]))
+    holder = _wrapped(conv)
+    if held != "float":
+        a_s = None
+        if held == "static":
+            a_s = float(jnp.max(jnp.abs(xs[0].astype(jnp.float32)))) / 200
+        params = {"conv": np_tree(jax_params.quantize_trunk_params(
+            {"block0": {"conv": params["conv"]}}, "", a_s)["block0"]["conv"])}
+        quantize_trunk_params(holder, "", a_s)
+        assert conv.weight.dtype == torch.int8
+    (ya, yb), inter = jm.apply({"params": params}, *xs,
+                               mutable=["intermediates"])
+    want = inter["intermediates"]["conv"]["act_absmax"]
+    want = np.float32(want[0] if isinstance(want, tuple) else want)
+    with torch.no_grad():
+        outs = [conv(bb.nhwc_to_nchw(T(x))) for x in xs]
+    rec = bb.act_absmax(holder)
+    assert list(rec) == ["block0/conv"]
+    assert np.float32(rec["block0/conv"]) == want
+    assert want == max(float(jnp.max(jnp.abs(x.astype(jnp.float32))))
+                       for x in xs)
+    assert "act_absmax" not in dict(conv.named_buffers())
+    monkeypatch.delenv("I2VSGG_INT8_CALIB")
+    with torch.no_grad():
+        for x, y in zip(xs, outs):
+            assert torch.equal(conv(bb.nhwc_to_nchw(T(x))), y)
+    bb.clear_absmax(holder)
+    assert bb.act_absmax(holder) == {}
+
+
+@pytest.mark.parametrize("held", ["float", "dynamic", "static"])
+def test_sim_modes_bit_equal_to_mxu(monkeypatch, held):
+    """The port's fake-quant modes against its int8 products on the same
+    taps (f32 sums of integers below 2**24 are exact): ``sim`` against
+    ``1`` on float weights, ``I2VSGG_INT8_PREQ_SIM`` against the int8
+    conv on int8-stored ones, in f32 and bf16 compute."""
+    _, _, conv, x = _bnconv_pair(3, 1, (2, 12, 14, 100), held, seed=7)
+    x = bb.nhwc_to_nchw(T(x))
+    env = ("I2VSGG_INT8_TRUNK" if held == "float" else
+           "I2VSGG_INT8_PREQ_SIM")
+    on = {"I2VSGG_INT8_TRUNK": ("1", "sim"),
+          "I2VSGG_INT8_PREQ_SIM": ("", "1")}[env]
+    for dtype in (torch.bfloat16, torch.float32):
+        conv.dtype = dtype
+        with torch.no_grad():
+            monkeypatch.setenv(env, on[0])
+            mxu = conv(x)
+            monkeypatch.setenv(env, on[1])
+            sim = conv(x)
+        assert sim.dtype == dtype
+        assert torch.equal(sim, mxu)
+
+
+def test_layer_scoped_sim_quantizes_only_matching_paths(monkeypatch):
+    """JAX's tests/test_int8_trunk.py layer-scoped case on the port's res50
+    trunk (f32): a scope no path matches is the float program bit for bit;
+    ``sim:layer2`` moves both outputs, ``sim:layer1`` moves them
+    differently; a scope of every stage equals the unscoped mode bit for
+    bit. The paths are the flax paths FasterRCNN_DA gives its convs."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(1, 64, 64, 3).astype(np.float32) * 20)
+    trunk = bb.ResNetTrunk(depth=50, dtype=torch.float32)
+    init_weights(trunk, torch.Generator().manual_seed(0))
+    for name, m in trunk.named_modules():
+        if isinstance(m, bb.BNConv):
+            m.path = name.replace(".", "/")
+
+    def run(mode):
+        if mode:
+            monkeypatch.setenv("I2VSGG_INT8_TRUNK", mode)
+        else:
+            monkeypatch.delenv("I2VSGG_INT8_TRUNK", raising=False)
+        with torch.no_grad():
+            return trunk(x)
+
+    y_fp, tap_fp = run("")
+    y_none, tap_none = run("sim:layer9")
+    assert torch.equal(y_none, y_fp) and torch.equal(tap_none, tap_fp)
+    y_l2, tap_l2 = run("sim:layer2")
+    assert not torch.equal(tap_l2, tap_fp)
+    assert not torch.equal(y_l2, y_fp)
+    _, tap_l1 = run("sim:layer1")
+    assert not torch.equal(tap_l1, tap_l2)
+    y_all, tap_all = run("sim:layer1,layer2,layer3")
+    y_sim, tap_sim = run("sim")
+    assert torch.equal(y_all, y_sim) and torch.equal(tap_all, tap_sim)
+    assert bool(torch.isfinite(y_sim).all())
 
 
 @pytest.mark.parametrize("hoisted", [True, False], ids=["hoisted",
@@ -486,19 +643,3 @@ def test_stage_refuses_int8_weights_under_the_chain(monkeypatch):
         stage(x)
     monkeypatch.delenv("I2VSGG_PALLAS_BOTTLENECK")
     assert stage(x).shape == (1, 1024, 4, 5)
-
-
-@pytest.mark.parametrize("env", [("I2VSGG_INT8_TRUNK", "sim"),
-                                 ("I2VSGG_INT8_TRUNK", "sim:layer3"),
-                                 ("I2VSGG_INT8_PREQ_SIM", "1"),
-                                 ("I2VSGG_INT8_CALIB", "1")],
-                         ids=["sim", "sim_scoped", "preq_sim", "calib"])
-def test_quality_gate_and_calibration_modes_raise(monkeypatch, env):
-    conv = bb.BNConv(8, 8, 3, 1, torch.float32)
-    conv.path = "trunk/layer3/block0/conv2"
-    init_weights(conv, torch.Generator().manual_seed(0))
-    if env[0] == "I2VSGG_INT8_PREQ_SIM":
-        quantize_trunk_params(_wrapped(conv), "", None)
-    monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError):
-        conv(torch.randn(1, 8, 9, 9))

@@ -29,6 +29,7 @@ from i2vsgg_tpu.ops.anchors import shifted_anchors as jax_shifted_anchors
 from i2vsgg_tpu import serve as jax_serve
 from i2vsgg_tpu_torch import serve
 from i2vsgg_tpu_torch import config as port_config
+from i2vsgg_tpu_torch.models import backbones as port_bb
 from i2vsgg_tpu_torch.models.faster_rcnn import FasterRCNN_DA
 from i2vsgg_tpu_torch.models.rpn import generate_proposals
 from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
@@ -131,6 +132,30 @@ def test_trunk_and_head_match_jax(models, rng):
         exp = head.apply({"params": p["head"]}, jnp.asarray(x),
                          first_stride=stride)
         close(models["det_t"].head(T(x), first_stride=stride), exp, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (60, 80), (61, 81)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_conv1_under_s2d_matches_jax(monkeypatch, hw):
+    """``I2VSGG_S2D=1``: JAX's space-to-depth conv1 (``Conv1S2D``; at the
+    odd 61x81 its direct fallback) against the port's direct conv1, which
+    ignores the switch: f32, atol 2e-5 as JAX's own test holds the two
+    forms. The port's stem is the same with the switch on and off."""
+    h, w = hw
+    x = np.random.RandomState(3).randn(2, h, w, 3).astype(np.float32)
+    m = jax_bb.Conv1S2D(dtype=jnp.float32)
+    params = m.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    trunk = port_bb.ResNetTrunk(depth=10, dtype=torch.float32)
+    trunk.conv1.load_state_dict(params_from_jax(
+        {k: np.asarray(v) for k, v in params["params"].items()}))
+    with torch.no_grad():
+        plain = trunk._stem(T(x))
+        monkeypatch.setenv("I2VSGG_S2D", "1")
+        want = np.asarray(m.apply(params, jnp.asarray(x)))
+        got = port_bb.nchw_to_nhwc(trunk.conv1(port_bb.nhwc_to_nchw(T(x))))
+        assert torch.equal(trunk._stem(T(x)), plain)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
 def test_rpn_proposals_match_jax(rng):
