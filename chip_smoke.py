@@ -181,7 +181,26 @@ class, with seeded random weights, along five paths:
   detections held to the first mxu run's (``SIM_TOL``), images/s of each
   run; 20c runs ``quant_trunk_ab`` (the fp arm and an mxu arm), again with
   ``--reuse_fp``, and on a rewritten copy of the checkpoint, which
-  ``--reuse_fp`` must refuse.
+  ``--reuse_fp`` must refuse;
+* phase 21, the eighteenth slice's paths, the serving gates on a model the
+  port trains, in a work directory of its own: 21a
+  ``tools/train_gate_arm.py`` writes its corpus (``tools/learnable_data.py``:
+  300 stills at 240x320, 48 of them trainval, and 20 videos of 24 frames,
+  PNG files, the stills under ``.jpg`` names) and trains the res101 arm
+  (profile parity240, f32, 288 steps from the port's init with bn3 zeroed;
+  every still padded into the loader's 608x608 canvas): the loss every 20
+  steps, host ms a step, B1 2 a step, peak memory, the last step's B1 calls
+  held to their plain version (rtol 1e-5) and timed; 21b ``capacity_ab
+  --ckpt`` on it at ``GATE_ROWS`` (test_det's B1, the last image's calls
+  held); 21c ``calibrate_act_scales`` and ``quant_trunk_ab --mode
+  mxu:<scope>`` with those scales on MVRD and MVidVRD; 21d
+  ``parity_run.train_ours_sgg`` at res101 for 672 steps (B2 once a step)
+  and ``quant_ab --stage_c`` (B2 once a scorer call), the last call of each
+  held (exact) and timed; each gate's verdict by ``bench.py``'s rules
+  (``gate_verdicts``: VOID below 0.15, PASS within 0.01), printed and in the
+  results JSON under ``gates``. A verdict never fails the phase; an arm
+  that did not learn (the mean loss of its last 20 steps not below its
+  first 20's, or the base capacity row at mAP 0) does.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -198,7 +217,8 @@ and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
 The lines before the last are the training, data-parallel, native-loader,
-JPEG, int8-gate and serving record (phase 14's and 15's steps; phase 17's; phase 18's
+JPEG, int8-gate, serving-gate and serving record (phase 14's and 15's steps;
+phase 17's; phase 21's gates; phase 18's
 and phase 16's host ms of the card's machine; ms per 4-frame request of
 each path served) and the
 kernels' JSON record (launches on the main path,
@@ -1633,9 +1653,9 @@ def recorded_detection_outputs():
 
 def driver_launches(counters, what: str, fn, expect: dict, n: int):
     """Run ``fn`` (one driver run) with the launch counters set to 0 just
-    before and read just after: they must be ``expect`` per request for
-    ``n`` requests, every RoI launch staged. Returns fn's result and the
-    counts."""
+    before and read just after: they must be ``expect`` per unit for ``n``
+    units (requests, steps, images), every RoI launch staged. Returns fn's
+    result and the counts."""
     counters.reset()
     ret = fn()
     torch.cuda.synchronize()
@@ -1648,8 +1668,8 @@ def driver_launches(counters, what: str, fn, expect: dict, n: int):
         if by_mode["staged"] != got[k]:
             raise AssertionError(f"{what}: {k} launches by mode {by_mode}: "
                                  "not all staged")
-    log(f"{what}: launches a request "
-        f"{ {k: v // n for k, v in got.items() if v} } ({n} requests)")
+    log(f"{what}: launches {n} x "
+        f"{ {k: v // n for k, v in got.items() if v} }")
     return ret, got
 
 
@@ -4223,6 +4243,398 @@ def int8_gate_on_card(counters, card: str, work: str, stage_a: str) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 21: the serving gates on a model the port trains
+# (``tools/train_gate_arm.py``, ``tools/capacity_ab.py``,
+# ``tools/calibrate_act_scales.py`` + ``tools/quant_trunk_ab.py``,
+# ``tools/parity_run.py::train_ours_sgg`` + ``tools/quant_ab.py``), in a
+# work directory of its own
+
+# 21a: train_gate_arm's defaults (res101, 288 steps; profile parity240)
+GATE_DEPTH = 101
+GATE_STEPS = 288
+# 21b: the rows bench.py's _gate_rpn_capacity and _gate_det8 read at the
+# bench's defaults (pre 1024, rpn 128) and at the round-5 capacity
+GATE_ROWS = "1024:128:16,512:128:8,1024:128:8"
+# 21c: calibrate_act_scales's defaults (64 test stills, batches of 4)
+GATE_CALIB = (64, 4)
+# 21d: the step of runs/quant_ab/quant_ab.json's Stage B checkpoint
+GATE_SGG_STEPS = 672
+# bench.py: an arm below _GATE_FLOOR voids its gate; a lever passes within
+# the tolerance of its arm; _RPN_ROWS, the capacity candidates smallest first
+GATE_FLOOR = 0.15
+GATE_TOL = 0.01
+GATE_RPN_ROWS = ((256, 32), (384, 48), (512, 64), (512, 128), (768, 128),
+                 (1024, 128))
+GATE_BASE = "pre1024_rpn128_det16"
+# the arm learned when its mean loss over the last LOSS_WINDOW steps is
+# below that over the first
+LOSS_WINDOW = 20
+
+
+def gate_verdicts(capacity: dict, trunk: dict, fc: dict) -> dict:
+    """Each serving gate's verdict on this phase's artifacts, by
+    ``bench.py``'s rules (``_gate_rpn_capacity`` and ``_gate_det8`` on
+    ``capacity``, capacity_ab's results with ``GATE_ROWS``;
+    ``_gate_int8trunk`` on ``trunk``, quant_trunk_ab's JSON; ``_gate_int8``
+    on ``fc``, quant_ab's): VOID when the float arm is below
+    ``GATE_FLOOR``, PASS when the lever is within ``GATE_TOL`` of it (for
+    the capacity, the smallest candidate row that is), else FAIL.
+    -> {gate: {"verdict", "why"}}."""
+    def verdict(base, ok, why):
+        if base < GATE_FLOOR:
+            return {"verdict": "VOID",
+                    "why": f"float arm {base:.4f} below {GATE_FLOOR}"}
+        return {"verdict": "PASS" if ok else "FAIL", "why": why}
+
+    base = capacity[GATE_BASE]["mAP"]
+    rows = [(k, capacity[k]["mAP"]) for k in (
+        f"pre{p}_rpn{n}_det8" for p, n in GATE_RPN_ROWS) if k in capacity]
+    passing = [(k, m) for k, m in rows if m >= base - GATE_TOL]
+    det8 = capacity["pre1024_rpn128_det8"]["mAP"]
+    fp = min(v["mAP"] for v in trunk["fp"].values())
+    d = fc["delta"]
+    return {
+        "rpn_capacity": verdict(base, bool(passing), "; ".join(
+            f"{k} {m:.4f}" for k, m in (passing[:1] or rows))
+            + f" vs {GATE_BASE} {base:.4f}"),
+        "det8": verdict(base, det8 >= base - GATE_TOL,
+                        f"det8 {det8:.4f} vs det16 {base:.4f}"),
+        "int8_trunk": verdict(fp, all(
+            v >= -GATE_TOL for v in trunk["delta"].values()), ", ".join(
+            f"d mAP[{k}] {v:+.4f}" for k, v in trunk["delta"].items())),
+        "int8_fc": verdict(
+            fc["fp32"]["pred_mAP"],
+            d["pred_mAP"] >= -GATE_TOL and d["top1_acc"] >= -GATE_TOL,
+            f"d pred_mAP {d['pred_mAP']:+.4f}, d top1 "
+            f"{d['top1_acc']:+.4f}")}
+
+
+@contextlib.contextmanager
+def last_calls(mod, op: str, keep: int):
+    """Within the block, each call of ``mod.<op>`` (a RoI op where a model
+    calls it) records its inputs; the deque yielded holds the last
+    ``keep`` as (features, rois, args, kwargs)."""
+    import collections
+    calls, fn = collections.deque(maxlen=keep), getattr(mod, op)
+
+    def call(features, rois, *a, **k):
+        calls.append((features.detach(), rois.detach(), a, k))
+        return fn(features, rois, *a, **k)
+
+    setattr(mod, op, call)
+    try:
+        yield calls
+    finally:
+        setattr(mod, op, fn)
+
+
+@contextlib.contextmanager
+def timed_steps(mod):
+    """Within the block, each call of ``mod.train_step`` appends (host
+    time at its start, its metrics) to the list yielded; the metrics stay
+    tensors, read after the run."""
+    real, steps = mod.train_step, []
+
+    def step(*a, **k):
+        t = time.perf_counter()
+        m = real(*a, **k)
+        steps.append((t, m))
+        return m
+
+    mod.train_step = step
+    try:
+        yield steps
+    finally:
+        mod.train_step = real
+
+
+def held_gate_sites(op: str, calls, names, what: str, card: str) -> list:
+    """The recorded RoI calls held to their plain versions and timed
+    (``held_roi_site``), each logged beside its bound."""
+    sites = []
+    for (fmap, rois, a, k), name in zip(calls, names):
+        w = f"{what} {op} {name} ({rois.shape[0]} rois)"
+        s = dict(held_roi_site(op, fmap, rois, a, k, w), site=name)
+        sites.append(s)
+        log(f"{w}: {list(fmap.shape)} {fmap.dtype}, kernel "
+            f"{s['ms'] * 1e3:.2f} us of device time, plain "
+            f"{s['plain_ms'] * 1e3:.2f} us, bound {s['bound_ms'] * 1e3:.3f} "
+            f"us ({s['bound_by']}) [{card}]")
+    return sites
+
+
+def split_size(data: str, ds: str, split: str = "test") -> int:
+    with open(os.path.join(data, ds, "ImageSets", "Main",
+                           split + ".txt")) as fh:
+        return len(fh.read().split())
+
+
+def gate_arm_on_card(counters, card: str, out: str) -> dict:
+    """21a: ``train_gate_arm.main`` (profile parity240, res101, f32, its
+    288 steps) on the corpus written under ``<out>/data``: the loss of
+    every step, host ms a step, B1 launches (2 a step, nothing else), peak
+    memory; the last step's two B1 calls held to their plain version (f32:
+    rtol 1e-5) and timed. Fails when the arm did not learn: the mean loss
+    of the last ``LOSS_WINDOW`` steps not below that of the first."""
+    from i2vsgg_tpu_torch.models import faster_rcnn
+    from i2vsgg_tpu_torch.tools import train_gate_arm
+    from i2vsgg_tpu_torch.train import det_da
+    data = os.path.join(out, "data")
+    t = time.time()
+    train_gate_arm.ensure_parity_data(data)
+    corpus_s = time.time() - t
+    log(f"21a: the corpus written in {corpus_s:.1f} s: "
+        f"{split_size(data, 'MVRD', 'trainval')} + "
+        f"{split_size(data, 'MVRD')} stills, "
+        f"{split_size(data, 'MVidVRD', 'trainval')} + "
+        f"{split_size(data, 'MVidVRD')} frames (trainval + test)")
+    steps = GATE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with timed_steps(det_da) as timed, last_calls(
+            faster_rcnn, "roi_align_avg", 2) as calls:
+        ckpt_dir, got = driver_launches(
+            counters, "21a", lambda: train_gate_arm.main(
+                ["--out", out, "--steps", str(steps), "--depth",
+                 str(GATE_DEPTH), "--device", "cuda"]),
+            dict(NO_LAUNCHES, roi_align=2), steps)
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for _, m in timed]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"21a: {len(losses)} steps, losses "
+                             f"{losses[:5]}...")
+    first = float(np.mean(losses[:LOSS_WINDOW]))
+    last = float(np.mean(losses[-LOSS_WINDOW:]))
+    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(timed, timed[1:])]
+    rec = {"corpus_s": corpus_s, "train_s": wall, "steps": steps,
+           "loss_every_20": losses[LOSS_WINDOW - 1::LOSS_WINDOW],
+           "loss_first_20": first, "loss_last_20": last,
+           "step_ms_median": float(np.median(step_ms)),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "roi_align_per_step": got["roi_align"] / steps,
+           "peak_bytes": peak,
+           "ckpt": os.path.join(ckpt_dir, str(steps))}
+    log(f"21a: {steps} steps in {wall:.1f} s, host ms a step median "
+        f"{rec['step_ms_median']:.1f} (mean {rec['step_ms_mean']:.1f}), B1 "
+        f"{rec['roi_align_per_step']:g} a step, peak {peak / 2 ** 30:.2f} "
+        f"GiB [{card}]")
+    log(f"21a: loss every 20 steps "
+        f"{[round(x, 4) for x in rec['loss_every_20']]}; mean of the first "
+        f"20 {first:.4f}, of the last 20 {last:.4f}")
+    if not last < first:
+        raise AssertionError(f"21a: the arm did not learn: mean loss of the "
+                             f"last 20 steps {last} >= first 20 {first}")
+    rec["sites"] = held_gate_sites("roi_align", calls, ("source", "target"),
+                                   "21a last step", card)
+    return rec
+
+
+def capacity_on_card(counters, card: str, out: str, ckpt: str,
+                     cfg: list) -> dict:
+    """21b: ``capacity_ab.main --ckpt`` on 21a's checkpoint, its corpus and
+    config, at ``GATE_ROWS``: B1 2 an image; the last image's two B1 calls
+    (the detector site at test_det's compute dtype) held and timed. Fails
+    when the base row's mAP is 0."""
+    from i2vsgg_tpu_torch.models import faster_rcnn
+    from i2vsgg_tpu_torch.tools import capacity_ab
+    data = os.path.join(out, "data")
+    n = split_size(data, "MVRD")
+    rows = GATE_ROWS.split(",")
+    t = time.time()
+    with last_calls(faster_rcnn, "roi_align_avg", 2) as calls:
+        results, _ = driver_launches(
+            counters, "21b", lambda: capacity_ab.main(
+                ["--ckpt", ckpt, "--data", data, "--net",
+                 f"res{GATE_DEPTH}", "--out",
+                 os.path.join(out, "capacity"), "--rows", GATE_ROWS,
+                 "--device", "cuda", "--cfg"] + cfg),
+            dict(NO_LAUNCHES, roi_align=2), n * len(rows))
+    wall = time.time() - t
+    log(f"21b: {len(rows)} rows over {n} MVRD test stills in {wall:.1f} s: "
+        + ", ".join(f"{k} mAP {v['mAP']:.4f} ({v['eval_s']} s)"
+                    for k, v in results.items()) + f" [{card}]")
+    if not results[GATE_BASE]["mAP"] > 0:
+        raise AssertionError(f"21b: the base row {GATE_BASE} scores mAP 0: "
+                             "the arm did not learn")
+    return {"results": results, "wall_s": wall, "test_stills": n,
+            "sites": held_gate_sites("roi_align", calls, ("det", "ic"),
+                                     "21b last image", card)}
+
+
+def trunk_gate_on_card(counters, card: str, out: str, ckpt: str,
+                       cfg: list) -> dict:
+    """21c: ``calibrate_act_scales`` on 21a's checkpoint (``GATE_CALIB``:
+    its defaults, 64 MVRD test stills in batches of 4), then
+    ``quant_trunk_ab --mode mxu:<INT8_SCOPE>`` with those scales on the
+    MVRD and MVidVRD test splits; B1 2 a batch, the int8 arm's 3x3 convs of
+    layer2-4 in int8 (``INT8_CONVS`` at res101) an image."""
+    from i2vsgg_tpu_torch.models.backbones import RESNET_STAGES
+    from i2vsgg_tpu_torch.tools import calibrate_act_scales, quant_trunk_ab
+    data = os.path.join(out, "data")
+    path = os.path.join(out, "act_scales.json")
+    base = ["--ckpt", ckpt, "--net", f"res{GATE_DEPTH}", "--data", data]
+    n_images, bs = GATE_CALIB
+    batches = -(-min(n_images, split_size(data, "MVRD")) // bs)
+    t = time.time()
+    scales, _ = driver_launches(
+        counters, "21c calibration", lambda: calibrate_act_scales.main(
+            base + ["--dataset", "MVRD", "--json", path, "--n_images",
+                    str(n_images), "--bs", str(bs), "--device", "cuda",
+                    "--cfg"] + cfg),
+        dict(NO_LAUNCHES, roi_align=2), batches)
+    calib_s = time.time() - t
+    n = split_size(data, "MVRD") + split_size(data, "MVidVRD")
+    # the 3x3s of layer2-4 (INT8_CONVS at res101), one pass an image
+    int8_convs = sum(RESNET_STAGES[GATE_DEPTH][1:])
+    t = time.time()
+    ab, _ = driver_launches(
+        counters, "21c quant_trunk_ab", lambda: quant_trunk_ab.main(
+            base + ["--out", os.path.join(out, "trunk_ab"), "--dataset",
+                    "MVRD", "--dataset_t", "MVidVRD", "--mode",
+                    f"mxu:{INT8_SCOPE}", "--act_scales", path, "--json",
+                    os.path.join(out, "quant_trunk_ab.json"), "--device",
+                    "cuda", "--cfg"] + cfg),
+        dict(NO_LAUNCHES, roi_align=2 * 2, int8_conv2d=int8_convs), n)
+    ab_s = time.time() - t
+    log(f"21c: {len(scales)} scales calibrated in {calib_s:.1f} s; "
+        f"quant_trunk_ab in {ab_s:.1f} s: "
+        + ", ".join(f"{ds} fp {ab['fp'][ds]['mAP']:.4f} int8 "
+                    f"{ab['int8'][ds]['mAP']:.4f} delta "
+                    f"{ab['delta'][ds]:+.4f}" for ds in ab["delta"])
+        + f" [{card}]")
+    return {"scales": len(scales), "calibrate_s": calib_s, "ab_s": ab_s,
+            "fp": ab["fp"], "int8": ab["int8"], "delta": ab["delta"]}
+
+
+def fc_gate_on_card(counters, card: str, out: str) -> dict:
+    """21d: ``parity_run.train_ours_sgg`` at res101 for ``GATE_SGG_STEPS``
+    steps (the head over the trunk of ``save_init``'s step-0 checkpoint,
+    f32, ``vrd_pooling=pool``: B2 once a step, nothing else), then
+    ``quant_ab --stage_c``: B2 once a scorer call, the int8 arm's fc6 and
+    fc7 one int8 GEMM each; the last training step's and the last scorer
+    call's B2 held (exact) and timed."""
+    from i2vsgg_tpu_torch.models import sgg as sgg_mod
+    from i2vsgg_tpu_torch.tools import parity_run, quant_ab
+    from i2vsgg_tpu_torch.train import sgg as sgg_train
+    data = os.path.join(out, "data")
+    t = time.time()
+    with timed_steps(sgg_train) as timed, last_calls(
+            sgg_mod, "roi_pool", 1) as train_call:
+        driver_launches(counters, "21d training",
+                        lambda: parity_run.train_ours_sgg(
+                            data, out, GATE_SGG_STEPS, device="cuda"),
+                        dict(NO_LAUNCHES, roi_pool=1), GATE_SGG_STEPS)
+    train_s = time.time() - t
+    losses = [float(m["loss"]) for _, m in timed]
+    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(timed, timed[1:])]
+    rec = {"train_s": train_s,
+           "loss_first_20": float(np.mean(losses[:LOSS_WINDOW])),
+           "loss_last_20": float(np.mean(losses[-LOSS_WINDOW:])),
+           "step_ms_median": float(np.median(step_ms))}
+    log(f"21d: {len(losses)} Stage B steps in {train_s:.1f} s (a "
+        f"checkpoint each epoch), host ms a step median "
+        f"{rec['step_ms_median']:.1f}; mean loss of "
+        f"the first 20 {rec['loss_first_20']:.4f}, of the last 20 "
+        f"{rec['loss_last_20']:.4f} [{card}]")
+    real, scored = parity_run.sgg_scorer, {"fp32": 0, "int8": 0}
+
+    def counted(model, device):
+        fn, arm = real(model, device), (
+            "int8" if model.vrd.int8_fc else "fp32")
+
+        def score(*a):
+            scored[arm] += 1
+            return fn(*a)
+        return score
+
+    parity_run.sgg_scorer = counted
+    t = time.time()
+    try:
+        with last_calls(sgg_mod, "roi_pool", 1) as score_call:
+            counters.reset()
+            res = quant_ab.main(["--out", out, "--depth", str(GATE_DEPTH),
+                                 "--stage_c", "--json",
+                                 os.path.join(out, "quant_ab.json")])
+            torch.cuda.synchronize()
+            got = counters.read()
+    finally:
+        parity_run.sgg_scorer = real
+    rec["quant_ab_s"] = time.time() - t
+    want = dict(NO_LAUNCHES, roi_pool=sum(scored.values()),
+                int8_linear=2 * scored["int8"])
+    if got != want or scored["fp32"] != scored["int8"]:
+        raise AssertionError(f"21d quant_ab: launches {got}, expected "
+                             f"{want} ({scored} scorer calls)")
+    rec.update(scorer_calls=scored, fp32=res["fp32"], int8=res["int8"],
+               delta=res["delta"])
+    log(f"21d: quant_ab --stage_c in {rec['quant_ab_s']:.1f} s "
+        f"({scored['fp32']} scorer calls an arm): fp32 top1 "
+        f"{res['fp32']['top1_acc']:.4f} pred_mAP "
+        f"{res['fp32']['pred_mAP']:.4f} R@50 {res['fp32']['R@50']:.4f}; "
+        f"int8 top1 {res['int8']['top1_acc']:.4f} pred_mAP "
+        f"{res['int8']['pred_mAP']:.4f} R@50 {res['int8']['R@50']:.4f}; "
+        f"delta pred_mAP {res['delta']['pred_mAP']:+.4f} top1 "
+        f"{res['delta']['top1_acc']:+.4f} R@50 {res['delta']['R@50']:+.4f} "
+        f"[{card}]")
+    rec["sites"] = (held_gate_sites("roi_pool", train_call, ("train",),
+                                    "21d last Stage B step", card)
+                    + held_gate_sites("roi_pool", score_call, ("scorer",),
+                                      "21d last scorer call", card))
+    return rec
+
+
+def serving_gates_on_card(counters, card: str) -> dict:
+    """Phase 21 (see the module docstring) in a work directory of its own,
+    removed afterwards; ``parity_run``'s recipe and the environment are
+    restored."""
+    from i2vsgg_tpu_torch.tools import parity_run
+    saved_hp = dict(parity_run.HP)
+    saved_cfg = list(parity_run.CFG_OVERRIDES)
+    saved_env = {k: os.environ.get(k) for k in (
+        "I2VSGG_DATA_ROOT", "I2VSGG_INT8_TRUNK", "I2VSGG_INT8_PREQ_SIM")}
+    work = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    out = os.path.join(work, "gate")
+    rec = {}
+    t0 = time.time()
+    try:
+        phase("21a train_gate_arm on the card: the parity corpus (300 stills "
+              "at 240x320, 20 videos x 24 frames) written by the port, res101 "
+              "f32 Stage A from the port's init with bn3 zeroed, 288 steps")
+        rec["21a arm"] = gate_arm_on_card(counters, card, out)
+        cfg = list(parity_run.CFG_OVERRIDES)
+        ckpt = rec["21a arm"]["ckpt"]
+        phase(f"21b capacity_ab --ckpt on 21a's checkpoint, rows {GATE_ROWS}")
+        rec["21b capacity"] = capacity_on_card(counters, card, out, ckpt, cfg)
+        phase(f"21c calibrate_act_scales, then quant_trunk_ab --mode "
+              f"mxu:{INT8_SCOPE} on MVRD and MVidVRD")
+        rec["21c int8 trunk"] = trunk_gate_on_card(counters, card, out, ckpt,
+                                                   cfg)
+        phase(f"21d train_ours_sgg at res101 ({GATE_SGG_STEPS} steps, pool: "
+              "B2) from the step-0 init, then quant_ab --stage_c")
+        parity_run.HP["depth"] = GATE_DEPTH
+        rec["21d int8 fc"] = fc_gate_on_card(counters, card, out)
+    finally:
+        parity_run.HP.clear()
+        parity_run.HP.update(saved_hp)
+        parity_run.CFG_OVERRIDES = saved_cfg
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    rec["gates"] = gate_verdicts(rec["21b capacity"]["results"],
+                                 rec["21c int8 trunk"], rec["21d int8 fc"])
+    rec["phase_s"] = time.time() - t0
+    for name, g in rec["gates"].items():
+        log(f"21 gate {name}: {g['verdict']} ({g['why']}) under bench.py's "
+            f"rules (floor {GATE_FLOOR}, tolerance {GATE_TOL})")
+    log(f"21: {rec['phase_s']:.1f} s [{card}]")
+    return rec
+
+
+# ----------------------------------------------------------------------------
 # ``--chain-depths``: how deep the chain kernel may let the tensor cores
 # accumulate (csrc/bottleneck.cu's kDepth), held as phase 3d holds it
 
@@ -5993,10 +6405,12 @@ def main() -> int:
         formats = decode_formats_on_card(counters, card, work13, drivers)
     finally:
         shutil.rmtree(work13, ignore_errors=True)
-    phase("21 results")
+    gates = serving_gates_on_card(counters, card)
+    phase("22 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
                       "data_parallel": dp, "native_io": native_io,
                       "decode_formats": formats, "int8_gate": int8_gate,
+                      "serving_gates": gates, "gates": gates["gates"],
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
@@ -6069,6 +6483,14 @@ def main() -> int:
             if key.startswith(name + " ")]
     kernels["conv1"]["phase17_planes"] = mesh_rec["host planes, align"][
         "conv1"]
+    # the kernels at phase 21's sites: B1 in the gate arm's Stage A steps
+    # and test_det's detector site, B2 at Stage B's and quant_ab's scorer
+    kernels["roi_align"]["phase21_launches_per_step"] = gates["21a arm"][
+        "roi_align_per_step"]
+    kernels["roi_align"]["phase21_sites"] = (gates["21a arm"]["sites"]
+                                             + gates["21b capacity"]["sites"])
+    kernels["roi_pool"]["phase21_launches_per_step"] = 1
+    kernels["roi_pool"]["phase21_sites"] = gates["21d int8 fc"]["sites"]
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -6103,7 +6525,9 @@ def main() -> int:
                                                 "phase15_launches_per_step",
                                                 "phase15_sites",
                                                 "phase17_sites",
-                                                "phase17_planes")
+                                                "phase17_planes",
+                                                "phase21_launches_per_step",
+                                                "phase21_sites")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -2,7 +2,9 @@
 import torch, numpy and the standard library only — no JAX, flax, optax,
 orbax, PyYAML, ninja, cv2, PIL, ml_dtypes, tensorboard, and nothing of the
 JAX package
-``i2vsgg_tpu`` (a machine with the card has none of them). Each case runs in
+``i2vsgg_tpu``, of the JAX drivers (the top-level ``tools``) or of the
+top-level ``tests``, whose generators the port's gate tools copy (a
+machine with the card has none of them). Each case runs in
 a fresh interpreter with a ``sys.meta_path`` finder that refuses those
 names."""
 
@@ -19,7 +21,8 @@ BLOCKER = textwrap.dedent("""
     import sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "ninja",
-               "cv2", "PIL", "ml_dtypes", "tensorboard", "i2vsgg_tpu"}
+               "cv2", "PIL", "ml_dtypes", "tensorboard", "i2vsgg_tpu",
+               "tools", "tests"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -86,13 +89,28 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "tools.trainval_det_da", "train.sgg",
                      "tools.trainval_sgg", "data.jpeg", "utils.cuda_build",
                      "parallel", "parallel.mesh", "runtime",
-                     "tools.calibrate_act_scales", "tools.quant_trunk_ab"):
+                     "tools.calibrate_act_scales", "tools.quant_trunk_ab",
+                     "tools.learnable_data", "tools.parity_run",
+                     "tools.train_gate_arm", "tools.capacity_ab",
+                     "tools.quant_ab"):
             assert "i2vsgg_tpu_torch." + name in names, name
         from i2vsgg_tpu_torch.tools import calibrate_act_scales
         from i2vsgg_tpu_torch.tools import quant_trunk_ab
         assert calibrate_act_scales.parse_args(
             ["--ckpt", "c/1"]).device == "cuda"
         assert quant_trunk_ab.parse_args(["--ckpt", "c/1"]).mode == "sim"
+        # the gate tools: the card by default, and outputs beside, never
+        # over, the JAX tools' committed files
+        from i2vsgg_tpu_torch.tools import (capacity_ab, learnable_data,
+                                            parity_run, quant_ab,
+                                            train_gate_arm)
+        for tool in (train_gate_arm, capacity_ab, quant_ab):
+            assert tool.parse_args([]).device == "cuda"
+        assert capacity_ab.parse_args([]).out == "runs/torch_capacity_ab"
+        assert (quant_ab.parse_args([]).json
+                == "runs/torch_quant_ab/quant_ab.json")
+        assert parity_run.HP["depth"] == 50
+        assert len(learnable_data.LEARNABLE_CLASSES) == 8
 
         cfg = cfg_from_list(["TEST.RPN_PRE_NMS_TOP_N", "100",
                              "TEST.RPN_POST_NMS_TOP_N", "16",
