@@ -106,10 +106,10 @@ class, with seeded random weights, along five paths:
   the host compiler, no kernel): 16a, run before phase 14 (whose driver
   reads JPEG stills), holds every committed fixture of
   ``tests/data/jpeg`` bit-equal to its golden (cv2's decode, written as
-  PNG; the progressive one too, read since the sixteenth slice), shows the
-  CMYK fixture raises ``UnsupportedImageError`` naming its mode, and
-  times the decode of the VRD-sized stills and a 360x640 frame beside the
-  PNG decode of the same pixels; 16b, after phase 15, times the loader on
+  PNG; the progressive one too, read since the sixteenth slice, and the
+  CMYK one, read since the nineteenth), and times the decode of the
+  VRD-sized stills and a 360x640 frame beside the PNG decode of the same
+  pixels; 16b, after phase 15, times the loader on
   14c's MVRD stills (decode + resize) and runs ``test_det`` on
   ``MVRD_test`` at full width from 14c's checkpoint;
 * phase 17, the fourteenth slice's paths, data parallelism
@@ -138,10 +138,10 @@ class, with seeded random weights, along five paths:
   beside the nvcc builds; no kernel), which ``DetectionLoader`` and the
   ``--host_planes`` packer use by default: 18a holds ``decode_image`` on
   every committed JPEG fixture and PNG golden to ``imread_bgr`` (EXIF
-  orientations left unapplied, as the JAX runtime leaves them) and the
-  refused fixtures refused; 18b runs ``load_batch`` on 13a's PNG frames and
-  14c's JPEG stills at scale 600 at 1 and 8 threads, each image's decode
-  equal to ``imread_bgr``'s (the Python path's own inflate for PNG), each
+  orientations left unapplied, as the JAX runtime leaves them); 18b runs
+  ``load_batch`` on 13a's PNG frames and 14c's JPEG stills at scale 600 at
+  1 and 8 threads, each image's decode equal to ``imread_bgr``'s (the
+  Python path's own inflate for PNG), each
   image bit-equal to ``runtime.preprocess_plain`` (the JAX runtime's
   arithmetic in numpy), its scale and size equal to the Python path's,
   host ms a frame beside the Python path's decode and resize; 18c holds
@@ -200,7 +200,26 @@ class, with seeded random weights, along five paths:
   (``gate_verdicts``: VOID below 0.15, PASS within 0.01), printed and in the
   results JSON under ``gates``. A verdict never fails the phase; an arm
   that did not learn (the mean loss of its last 20 steps not below its
-  first 20's, or the base capacity row at mAP 0) does.
+  first 20's, or the base capacity row at mAP 0) does;
+* phase 22, the nineteenth slice's paths, the last modules of the port,
+  run in phase 21's work directory before it goes: 22a holds every
+  fixture of ``tests/data/decode``'s later sets on both decoders
+  (``csrc/jpeg.cc``: arithmetic-coded SOF9/SOF10 with DAC conditioning,
+  CMYK and YCCK, lossless SOF3; each to its golden, cv2's decode; the
+  modes cv2 refuses raising ``UnsupportedImageError`` naming them) and the
+  four arithmetic-coded 360x640 frames to their baseline twins, and times
+  host ms a frame of arithmetic-coded against baseline JPEG, the decode
+  alone and ``load_batch`` at 1 and 8 threads, the kinds alternated; 22b
+  runs ``serve_video`` and ``test_det`` with 13b's checkpoints over two
+  devkits of the same pictures (arithmetic-coded and lossless JPEG frames,
+  the lossless ones written by ``lossless_frame``, against baseline JPEG
+  and 13a's PNGs): detections and ``rel_prob`` bit-equal; 22c runs
+  ``tools/stage_c_hard.py`` (ours arm, res101, JAX's hard video set, whose
+  147 GT it must count) and ``tools/stage_b_rescore.py::rescore`` (the
+  five transforms of the raw cosine scores) on 21d's Stage B head, B2 once
+  a scorer call, the last call held (exact) and timed; 22d runs
+  ``utils/vis.py::save_vis`` on a frame phase 5 served and reads back the
+  PNG it wrote.
 
 Each path's kernel launch counters are set to 0 just before it and read just
 after; every RoI kernel launch of a served path must be in the kernel's
@@ -217,8 +236,8 @@ and holds each as phase 3d does, on phase 3d's input and on the card tests'
 chain shapes (``chain_depths``).
 
 The lines before the last are the training, data-parallel, native-loader,
-JPEG, int8-gate, serving-gate and serving record (phase 14's and 15's steps;
-phase 17's; phase 21's gates; phase 18's
+JPEG, int8-gate, serving-gate, last-module and serving record (phase 14's
+and 15's steps; phase 17's; phase 21's gates; phase 22's; phase 18's
 and phase 16's host ms of the card's machine; ms per 4-frame request of
 each path served) and the
 kernels' JSON record (launches on the main path,
@@ -3014,10 +3033,11 @@ def jpeg_fixtures_on_host(card: str) -> dict:
     """16a: with the JPEG decoder (in the port's host library, built in
     phase 2 with the batch loader), hold every committed fixture of ``tests/data/jpeg`` bit-equal to its golden (the
     PNG of cv2.imread's output, read with the port's PNG decoder), show
-    that each refused fixture raises ``UnsupportedImageError`` naming its
-    mode, and time the decode of ``TIMED_JPEGS`` beside the PNG decode of
-    the same pixels (their goldens), each the median of ``DECODE_REPS``
-    calls. Host times of the machine of ``card``."""
+    that each refused fixture (none since the CMYK one is read) raises
+    ``UnsupportedImageError`` naming its mode, and time the decode of
+    ``TIMED_JPEGS`` beside the PNG decode of the same pixels (their
+    goldens), each the median of ``DECODE_REPS`` calls. Host times of the
+    machine of ``card``."""
     from i2vsgg_tpu_torch.data.image_io import (UnsupportedImageError,
                                                 imread_bgr)
     rec = {}
@@ -3631,6 +3651,8 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # 19a's timed kinds, in the order of each rep (reversed every other rep)
 FORMAT_KINDS = ("baseline", "progressive", "png8", "png16", "adam7")
+# the sets of tests/data/decode that phase 19 holds (phase 22 the others)
+FORMAT_SETS = ("jpeg", "prefix", "png", "frames")
 
 
 def decode_manifest() -> dict:
@@ -3666,8 +3688,58 @@ def png_frame(path: str, bgr: np.ndarray, depth: int = 8,
                  + chunk(b"IEND", b""))
 
 
+def host_times(kinds: dict, order: tuple) -> dict:
+    """Host ms a frame of each kind of ``kinds`` ({kind: paths}, frames of
+    one size): the decode alone (``runtime.decode_image``, median of
+    ``DECODE_REPS``; ``imread_bgr``, median of 3) and ``runtime.load_batch``
+    at the drivers' scale at 1 and 8 threads (median of ``LOADER_REPS``
+    batches), the kinds taken in ``order``, reversed every other rep."""
+    from i2vsgg_tpu_torch import runtime
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.data.pipeline import bucket_hw
+    h, w = imread_bgr(kinds["baseline"][0]).shape[:2]
+    scale = 600 / min(h, w)
+    pad = bucket_hw(int(round(h * scale)), int(round(w * scale)))
+    decode = {k: [] for k in kinds}
+    python = {k: [] for k in kinds}
+    batch = {(k, t): [] for k in kinds for t in (1, 8)}
+    for rep in range(max(DECODE_REPS, LOADER_REPS)):
+        in_order = order if rep % 2 == 0 else order[::-1]
+        for kind in in_order:
+            paths = kinds[kind]
+            if rep < DECODE_REPS:
+                for p in paths:
+                    t = time.perf_counter()
+                    runtime.decode_image(p)
+                    decode[kind].append(1e3 * (time.perf_counter() - t))
+            if rep < 3:
+                for p in paths:
+                    t = time.perf_counter()
+                    imread_bgr(p)
+                    python[kind].append(1e3 * (time.perf_counter() - t))
+            if rep < LOADER_REPS:
+                for n_threads in (1, 8):
+                    t = time.perf_counter()
+                    runtime.load_batch(paths, [False] * len(paths), MEANS,
+                                       600, *pad, n_threads=n_threads)
+                    batch[(kind, n_threads)].append(
+                        1e3 * (time.perf_counter() - t) / len(paths))
+    rec = {"frames_hw": [h, w], "pad": list(pad),
+           "bytes": {k: [os.path.getsize(p) for p in v]
+                     for k, v in kinds.items()}}
+    for kind in kinds:
+        rec[kind] = {
+            "decode_ms": {"median": float(np.median(decode[kind])),
+                          "min": min(decode[kind]), "max": max(decode[kind])},
+            "python_decode_ms": float(np.median(python[kind])),
+            "load_batch_ms_1": float(np.median(batch[(kind, 1)])),
+            "load_batch_ms_8": float(np.median(batch[(kind, 8)]))}
+    return rec
+
+
 def decode_formats_on_host(card: str, frames: list, work: str) -> dict:
-    """19a: every fixture of ``tests/data/decode`` through both decoders
+    """19a: every fixture of ``FORMAT_SETS`` (``tests/data/decode``'s sets
+    of the sixteenth slice) through both decoders
     (``image_io.imread_bgr``, the Python path; ``runtime.decode_image``,
     the native runtime): each held to its golden (cv2's decode, an 8-bit
     PNG), each progressive 360x640 frame to its baseline twin's decode.
@@ -3681,8 +3753,8 @@ def decode_formats_on_host(card: str, frames: list, work: str) -> dict:
     order. Returns the record and the paths of each kind."""
     from i2vsgg_tpu_torch import runtime
     from i2vsgg_tpu_torch.data.image_io import imread_bgr
-    from i2vsgg_tpu_torch.data.pipeline import bucket_hw
-    manifest = decode_manifest()
+    manifest = {k: v for k, v in decode_manifest().items()
+                if v["set"] in FORMAT_SETS}
     held, twins = {}, 0
     for name, entry in sorted(manifest.items()):
         path = os.path.join(DECODE_DIR, entry["file"])
@@ -3725,50 +3797,15 @@ def decode_formats_on_host(card: str, frames: list, work: str) -> dict:
                 raise AssertionError(f"19a {kind} frame {k}: decoded != "
                                      "the picture written")
             kinds[kind].append(path)
-    h, w = imread_bgr(kinds["baseline"][0]).shape[:2]
-    scale = 600 / min(h, w)
-    pad = bucket_hw(int(round(h * scale)), int(round(w * scale)))
-    decode = {k: [] for k in kinds}
-    python = {k: [] for k in kinds}
-    batch = {(k, t): [] for k in kinds for t in (1, 8)}
-    for rep in range(max(DECODE_REPS, LOADER_REPS)):
-        order = FORMAT_KINDS if rep % 2 == 0 else FORMAT_KINDS[::-1]
-        for kind in order:
-            paths = kinds[kind]
-            if rep < DECODE_REPS:
-                for p in paths:
-                    t = time.perf_counter()
-                    runtime.decode_image(p)
-                    decode[kind].append(1e3 * (time.perf_counter() - t))
-            if rep < 3:
-                for p in paths:
-                    t = time.perf_counter()
-                    imread_bgr(p)
-                    python[kind].append(1e3 * (time.perf_counter() - t))
-            if rep < LOADER_REPS:
-                for n_threads in (1, 8):
-                    t = time.perf_counter()
-                    runtime.load_batch(paths, [False] * len(paths), MEANS,
-                                       600, *pad, n_threads=n_threads)
-                    batch[(kind, n_threads)].append(
-                        1e3 * (time.perf_counter() - t) / len(paths))
-    rec = {"held": held, "frames_hw": [h, w], "pad": list(pad),
-           "bytes": {k: [os.path.getsize(p) for p in v]
-                     for k, v in kinds.items()}}
-    for kind in kinds:
-        rec[kind] = {
-            "decode_ms": {"median": float(np.median(decode[kind])),
-                          "min": min(decode[kind]), "max": max(decode[kind])},
-            "python_decode_ms": float(np.median(python[kind])),
-            "load_batch_ms_1": float(np.median(batch[(kind, 1)])),
-            "load_batch_ms_8": float(np.median(batch[(kind, 8)]))}
+    rec = dict({"held": held}, **host_times(kinds, FORMAT_KINDS))
     rel = {k: rec[k]["decode_ms"]["median"] / rec[base]["decode_ms"]["median"]
            for k, base in (("progressive", "baseline"), ("png16", "png8"),
                            ("adam7", "png8"))}
     rec["decode_ratio"] = rel
     log("19a host ms a 360x640 frame (native decode median of "
         f"{DECODE_REPS} / Python path median of 3 / load_batch at scale "
-        f"600 into {pad[0]}x{pad[1]} on 1 and 8 threads): " + "; ".join(
+        f"600 into {rec['pad'][0]}x{rec['pad'][1]} on 1 and 8 threads): "
+        + "; ".join(
             f"{k} {rec[k]['decode_ms']['median']:.2f} / "
             f"{rec[k]['python_decode_ms']:.2f} / "
             f"{rec[k]['load_batch_ms_1']:.2f}, "
@@ -3811,16 +3848,16 @@ def twin_devkits(src: str, kinds: dict, work: str) -> dict:
     return roots
 
 
-def decode_formats_through_drivers(counters, card: str, files: dict,
-                                   kinds: dict, work: str) -> dict:
-    """19b: ``serve_video`` (default: RoIAlignAvg at the detector, RoIPool
-    at the SGG site) and ``test_det`` with 13b's checkpoints over the two
-    ``twin_devkits``, launches counted as 13b counts them, with
+def drivers_over_twin_devkits(counters, card: str, files: dict, roots: dict,
+                              work: str, what: str = "19b") -> dict:
+    """19b (and 22b): ``serve_video`` (default: RoIAlignAvg at the
+    detector, RoIPool at the SGG site) and ``test_det`` with 13b's
+    checkpoints over two devkits of the same pictures (``roots``: "new
+    formats" and "twins"), launches counted as 13b counts them, with
     ``cudnn.deterministic`` set: each request's detections and
     ``rel_prob`` bit-equal between the devkits, and so the files the
     drivers write; the loaders' host ms beside."""
     from i2vsgg_tpu_torch.tools import serve_video, test_det
-    roots = twin_devkits(files["data"], kinds, work)
     b = FULL["frames"]
     n_req = 12 // b
     rec = {}
@@ -3831,10 +3868,10 @@ def decode_formats_through_drivers(counters, card: str, files: dict,
     try:
         for name, root in roots.items():
             os.environ["I2VSGG_DATA_ROOT"] = root
-            out = os.path.join(work, "out19_" + name.replace(" ", "_"))
+            out = os.path.join(work, f"out{what}_" + name.replace(" ", "_"))
             with timed_loaders() as loops, recorded_programs() as calls:
                 driver_launches(
-                    counters, f"19b serve_video ({name})",
+                    counters, f"{what} serve_video ({name})",
                     lambda: serve_video.main(DRIVER_FULL + [
                         "--load_name", files["det"], "--sgg_load_name",
                         files["sgg"], "--max_det", str(FULL["max_det"]),
@@ -3846,7 +3883,7 @@ def decode_formats_through_drivers(counters, card: str, files: dict,
                 outs[name + " json"] = json.load(fh)
             with timed_loaders() as det_loops:
                 aps, _ = driver_launches(
-                    counters, f"19b test_det ({name})",
+                    counters, f"{what} test_det ({name})",
                     lambda: test_det.main(DRIVER_FULL + [
                         "--load_name", files["det"], "--save_dir", out]),
                     dict(NO_LAUNCHES, roi_align=2), n_req)
@@ -3859,17 +3896,18 @@ def decode_formats_through_drivers(counters, card: str, files: dict,
                          "test_det_mAP": float(aps["mAP"])}
         new, twin = outs["new formats"], outs["twins"]
         if len(new) != n_req or len(twin) != n_req:
-            raise AssertionError(f"19b: {len(new)} and {len(twin)} requests")
+            raise AssertionError(f"{what}: {len(new)} and {len(twin)} "
+                                 "requests")
         for k, (a, c) in enumerate(zip(new, twin)):
-            same_outputs(a, c, f"19b serve_video request {k + 1}: new "
+            same_outputs(a, c, f"{what} serve_video request {k + 1}: new "
                          "formats against their twins")
         if outs["new formats json"] != outs["twins json"]:
-            raise AssertionError("19b: frame_detections.json differ")
+            raise AssertionError(f"{what}: frame_detections.json differ")
         cells = [(a, c) for ca, cc in zip(dets["new formats"], dets["twins"])
                  for a, c in zip(ca, cc)]
         if not all(a.shape == c.shape and np.array_equal(a, c)
                    for a, c in cells):
-            raise AssertionError("19b test_det: detections differ")
+            raise AssertionError(f"{what} test_det: detections differ")
         rec["bit_equal"] = {"requests": n_req, "detection_cells": len(cells)}
     finally:
         torch.backends.cudnn.deterministic = saved_det
@@ -3877,7 +3915,7 @@ def decode_formats_through_drivers(counters, card: str, files: dict,
             os.environ.pop("I2VSGG_DATA_ROOT", None)
         else:
             os.environ["I2VSGG_DATA_ROOT"] = saved_env
-    log(f"19b serve_video and test_det over the twin devkits: {n_req} "
+    log(f"{what} serve_video and test_det over the twin devkits: {n_req} "
         "requests' detections and rel_prob bit-equal, frame_detections.json "
         f"equal, {len(cells)} test_det detection cells equal; loader waits "
         "ms a request " + "; ".join(
@@ -3905,8 +3943,9 @@ def decode_formats_on_card(counters, card: str, work: str,
     phase("19b serve_video (default: B1, B2) and test_det over twin "
           "devkits, the new formats against baseline JPEG and 8-bit PNG: "
           "detections and rel_prob bit-equal")
-    rec["19b drivers"] = decode_formats_through_drivers(counters, card, files,
-                                                        kinds, work)
+    rec["19b drivers"] = drivers_over_twin_devkits(
+        counters, card, files, twin_devkits(files["data"], kinds, work),
+        work)
     return rec
 
 
@@ -4584,10 +4623,11 @@ def fc_gate_on_card(counters, card: str, out: str) -> dict:
     return rec
 
 
-def serving_gates_on_card(counters, card: str) -> dict:
+def serving_gates_on_card(counters, card: str, after=None) -> dict:
     """Phase 21 (see the module docstring) in a work directory of its own,
     removed afterwards; ``parity_run``'s recipe and the environment are
-    restored."""
+    restored. ``after(out)``, where given, runs after 21d on the phase's
+    directory ``out`` before it goes (phase 22)."""
     from i2vsgg_tpu_torch.tools import parity_run
     saved_hp = dict(parity_run.HP)
     saved_cfg = list(parity_run.CFG_OVERRIDES)
@@ -4614,6 +4654,9 @@ def serving_gates_on_card(counters, card: str) -> dict:
               "B2) from the step-0 init, then quant_ab --stage_c")
         parity_run.HP["depth"] = GATE_DEPTH
         rec["21d int8 fc"] = fc_gate_on_card(counters, card, out)
+        rec["phase_s"] = time.time() - t0
+        if after is not None:
+            after(out)
     finally:
         parity_run.HP.clear()
         parity_run.HP.update(saved_hp)
@@ -4626,11 +4669,317 @@ def serving_gates_on_card(counters, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     rec["gates"] = gate_verdicts(rec["21b capacity"]["results"],
                                  rec["21c int8 trunk"], rec["21d int8 fc"])
-    rec["phase_s"] = time.time() - t0
     for name, g in rec["gates"].items():
         log(f"21 gate {name}: {g['verdict']} ({g['why']}) under bench.py's "
             f"rules (floor {GATE_FLOOR}, tolerance {GATE_TOL})")
     log(f"21: {rec['phase_s']:.1f} s [{card}]")
+    return rec
+
+
+# ----------------------------------------------------------------------------
+# phase 22: the last modules of the port: the decoder's arithmetic-coded,
+# four-component and lossless JPEG (``csrc/jpeg.cc``) in both loaders and
+# through the drivers, ``tools/stage_c_hard.py`` and
+# ``tools/stage_b_rescore.py`` on phase 21d's Stage B head, and
+# ``utils/vis.py`` on a frame phase 5 served; run in phase 21's work
+# directory before it goes, with phase 13's devkit and checkpoints
+
+# the sets of tests/data/decode that phase 22 holds
+LAST_SETS = ("arith", "four", "lossless", "refused", "arith_frames")
+# 22a's timed kinds, in the order of each rep (reversed every other rep)
+ARITH_KINDS = ("baseline", "arithmetic")
+# the one Huffman table of the lossless frames (tests/
+# make_decode_fixtures.py's LOSSLESS_BITS): symbols 0-16
+LOSSLESS_BITS = (0, 1, 5) + (1,) * 11 + (0, 0)
+# 22c: the GT count of the committed JAX run's hard test set
+# (runs/parity_r4c/stage_c_hard.json: the default 24 videos, 6 of them
+# test videos), which the port's generator writes bit for bit
+HARD_GT = 147
+
+
+def lossless_frame(path: str, bgr: np.ndarray):
+    """``bgr`` (H, W, 3) uint8 as a lossless JPEG (SOF3, 8 bits) as cv2
+    reads it: R, G and B stored as they are in one interleaved scan,
+    predictor 1 (the left sample; the first column from the sample above,
+    the first sample from 128), one DHT of ``LOSSLESS_BITS``, no JFIF
+    marker; the entropy-coded bits built with numpy."""
+    import struct
+    x = bgr[..., ::-1].astype(np.int32)
+    h, w = x.shape[:2]
+    pred = np.empty_like(x)
+    pred[:, 1:] = x[:, :-1]
+    pred[1:, 0] = x[:-1, 0]
+    pred[0, 0] = 128
+    diff = (x - pred).reshape(-1)
+    cat = np.zeros(diff.shape, np.int64)
+    mag = np.abs(diff)
+    for k in range(1, 10):
+        cat[mag >= 1 << (k - 1)] = k
+    extra = np.where(diff >= 0, diff, diff + (1 << cat) - 1)
+    codes, lens, code = np.zeros(17, np.int64), np.zeros(17, np.int64), 0
+    sym = 0
+    for length, count in enumerate(LOSSLESS_BITS, 1):
+        for _ in range(count):
+            codes[sym], lens[sym] = code, length
+            code, sym = code + 1, sym + 1
+        code <<= 1
+    total = lens[cat] + cat
+    value = (codes[cat] << cat) | extra
+    shift = total[:, None] - 1 - np.arange(int(total.max()))
+    bits = ((value[:, None] >> np.maximum(shift, 0)) & 1).astype(bool)
+    bits = bits[shift >= 0]
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, bool)])
+    data = np.packbits(bits)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0)
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    with open(path, "wb") as fh:
+        fh.write(b"\xff\xd8"
+                 + seg(0xC3, struct.pack(">BHHB", 8, h, w, 3)
+                       + bytes([1, 0x11, 0, 2, 0x11, 0, 3, 0x11, 0]))
+                 + seg(0xC4, bytes((0,) + LOSSLESS_BITS + tuple(range(17))))
+                 + seg(0xDA, bytes([3, 1, 0, 2, 0, 3, 0, 1, 0, 0]))
+                 + data.tobytes() + b"\xff\xd9")
+
+
+def last_decode_on_host(card: str) -> tuple:
+    """22a: every fixture of ``LAST_SETS`` through both decoders
+    (``image_io.imread_bgr``, ``runtime.decode_image``): each held to its
+    golden (cv2's decode) or, an arithmetic-coded frame, to its baseline
+    twin's decode; each refused one raises ``UnsupportedImageError`` naming
+    its mode on both. Then host ms a 360x640 frame of the four committed
+    baseline frames against their arithmetic-coded twins (``host_times``,
+    the kinds alternated). Returns the record and the paths of each
+    kind."""
+    from i2vsgg_tpu_torch import runtime
+    from i2vsgg_tpu_torch.data.image_io import (UnsupportedImageError,
+                                                imread_bgr)
+    manifest = {k: v for k, v in decode_manifest().items()
+                if v["set"] in LAST_SETS}
+    held, refused = {}, []
+    kinds = {"baseline": [], "arithmetic": []}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(DECODE_DIR, entry["file"])
+        if "mode" in entry:
+            for what, read in (("imread_bgr", imread_bgr),
+                               ("decode_image", runtime.decode_image)):
+                try:
+                    read(path)
+                except UnsupportedImageError as e:
+                    if entry["mode"] not in str(e):
+                        raise AssertionError(f"22a {name}: {what} refused "
+                                             f"it as {e}")
+                    continue
+                raise AssertionError(f"22a {name}: {what} decoded a "
+                                     f"{entry['mode']} file")
+            refused.append(name)
+            continue
+        want = imread_bgr(os.path.join(DECODE_DIR, entry.get("golden")
+                                       or entry["twin"]))
+        for what, got in (("imread_bgr", imread_bgr(path)),
+                          ("decode_image", runtime.decode_image(path))):
+            if list(got.shape) != entry["shape"] or \
+                    not np.array_equal(got, want):
+                raise AssertionError(f"22a {name}: {what} != its golden or "
+                                     "twin")
+        held[entry["set"]] = held.get(entry["set"], 0) + 1
+        if "twin" in entry:
+            kinds["arithmetic"].append(path)
+            kinds["baseline"].append(os.path.join(DECODE_DIR,
+                                                  entry["twin"]))
+    if len(kinds["arithmetic"]) != 4:
+        raise AssertionError(f"22a: {len(kinds['arithmetic'])} arithmetic-"
+                             "coded frames, not 4")
+    log(f"22a: {sum(held.values())} fixtures held on both paths "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(held.items()))}), "
+        f"{len(refused)} refused naming their modes on both")
+    rec = dict({"held": held, "refused": refused},
+               **host_times(kinds, ARITH_KINDS))
+    rec["decode_ratio"] = (rec["arithmetic"]["decode_ms"]["median"]
+                           / rec["baseline"]["decode_ms"]["median"])
+    log("22a host ms a 360x640 frame (native decode median of "
+        f"{DECODE_REPS} / Python path median of 3 / load_batch at scale "
+        f"600 on 1 and 8 threads): " + "; ".join(
+            f"{k} {rec[k]['decode_ms']['median']:.2f} / "
+            f"{rec[k]['python_decode_ms']:.2f} / "
+            f"{rec[k]['load_batch_ms_1']:.2f}, "
+            f"{rec[k]['load_batch_ms_8']:.2f}" for k in kinds)
+        + f"; arithmetic {rec['decode_ratio']:.2f}x baseline [host CPU of "
+        f"the machine of {card}, {os.cpu_count()} CPUs]")
+    return rec, kinds
+
+
+def last_devkits(src: str, kinds: dict, work: str) -> dict:
+    """22b's two MVidVRD devkits, copies of 13a's (``src``) as
+    ``twin_devkits`` makes them: in "new formats" the first four frames are
+    the committed arithmetic-coded frames and the other eight lossless
+    JPEG copies of 13a's PNG frames (``lossless_frame``); in "twins" the
+    baseline frames and 13a's PNGs."""
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    roots = {}
+    for name in ("new formats", "twins"):
+        root = os.path.join(work, "data22_" + name.replace(" ", "_"))
+        shutil.copytree(os.path.join(src, "MVidVRD"),
+                        os.path.join(root, "MVidVRD"),
+                        ignore=shutil.ignore_patterns("cache"))
+        roots[name] = root
+    images = os.path.join("MVidVRD", "JPEGImages")
+    names = sorted(os.listdir(os.path.join(src, images)))
+    for k, name in enumerate(names):
+        new = os.path.join(roots["new formats"], images, name)
+        twin = os.path.join(roots["twins"], images, name)
+        if k < 4:
+            shutil.copyfile(kinds["arithmetic"][k], new)
+            shutil.copyfile(kinds["baseline"][k], twin)
+            continue
+        bgr = imread_bgr(twin)
+        lossless_frame(new, bgr)
+        if not np.array_equal(imread_bgr(new), bgr):
+            raise AssertionError(f"22b: the lossless copy of {name} "
+                                 "decodes to another picture")
+    return roots
+
+
+def eval_tools_on_card(counters, card: str, out: str, work: str,
+                       device: str = "cuda") -> dict:
+    """22c: ``stage_c_hard`` (ours arm, the default 24 hard videos, 6 of
+    them test videos, as the committed JAX run) and ``stage_b_rescore.
+    rescore`` on 21d's Stage B head (``out``'s session 951, res101): B2
+    once a scorer call and nothing else; the last ``stage_c_hard`` scorer
+    call's B2 held to its plain version (exact) and timed."""
+    from i2vsgg_tpu_torch.models import sgg as sgg_mod
+    from i2vsgg_tpu_torch.tools import parity_run, stage_b_rescore
+    from i2vsgg_tpu_torch.tools import stage_c_hard
+    from i2vsgg_tpu_torch.train.checkpoint import latest_step
+    ckpt_dir = os.path.join(out, f"res{GATE_DEPTH}", "MVRD_SGG",
+                            "session_951")
+    step = latest_step(ckpt_dir)
+    real, scored = parity_run.sgg_scorer, {"n": 0}
+
+    def counted(model, device, raw=False):
+        fn = real(model, device, raw)
+
+        def score(*a):
+            scored["n"] += 1
+            return fn(*a)
+        return score
+
+    def run(what, fn):
+        scored["n"] = 0
+        counters.reset()
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        got, n = counters.read(), scored["n"]
+        if got != dict(NO_LAUNCHES, roi_pool=n) or not n:
+            raise AssertionError(f"22c {what}: launches {got} in {n} scorer "
+                                 "calls")
+        return res, n, time.time() - t
+
+    parity_run.sgg_scorer = counted
+    try:
+        with last_calls(sgg_mod, "roi_pool", 1) as hard_call:
+            hard, n_hard, hard_s = run("stage_c_hard", lambda: (
+                stage_c_hard.main(["--out", out, "--hard_out",
+                                   os.path.join(work, "hard"), "--ours_ckpt",
+                                   f"{ckpt_dir}/{step}", "--depth",
+                                   str(GATE_DEPTH), "--device", device])))
+        variants, n_b, rescore_s = run("stage_b_rescore", lambda: (
+            stage_b_rescore.rescore(ckpt_dir, os.path.join(out, "data"),
+                                    device)))
+    finally:
+        parity_run.sgg_scorer = real
+    if hard["n_gt_hard"] != HARD_GT or hard["n_videos"] != 6:
+        raise AssertionError(f"22c: a hard test set of {hard['n_videos']} "
+                             f"videos and {hard['n_gt_hard']} GT, not JAX's "
+                             f"6 and {HARD_GT}")
+    m = hard["ours_hard"]
+    log(f"22c stage_c_hard in {hard_s:.1f} s ({n_hard} scorer calls, the "
+        f"hard set written): {hard['n_videos']} test videos, "
+        f"{hard['n_gt_hard']} GT; rel_mAP {m['rel_mAP']:.4f} R@50 "
+        f"{m['R@50']:.4f} R@100 {m['R@100']:.4f} P@1/5/10 {m['P@1']:.4f} / "
+        f"{m['P@5']:.4f} / {m['P@10']:.4f} [{card}]")
+    log(f"22c stage_b_rescore.rescore in {rescore_s:.1f} s ({n_b} scorer "
+        "calls): " + "; ".join(
+            f"{k} top1 {v['top1_acc']:.4f} pred_mAP {v['pred_mAP']:.4f}"
+            for k, v in variants.items()) + f" [{card}]")
+    return {"ckpt": f"{ckpt_dir}/{step}", "stage_c_hard": hard,
+            "stage_c_hard_s": hard_s, "scorer_calls": n_hard,
+            "rescore": variants, "rescore_s": rescore_s,
+            "rescore_scorer_calls": n_b,
+            "sites": held_gate_sites("roi_pool", hard_call, ("scorer",),
+                                     "22c last stage_c_hard scorer call",
+                                     card)}
+
+
+def vis_on_card(card: str, served: dict, work: str) -> dict:
+    """22d: ``utils/vis.py::save_vis`` on the first frame of phase 5's last
+    request with that frame's valid detections, every score drawn: the PNG
+    it wrote reads back as the drawing, boxes and labels on the frame."""
+    from i2vsgg_tpu_torch.data.image_io import imread_bgr
+    from i2vsgg_tpu_torch.utils import vis
+    frame = served["frame"]
+    n_cls = FULL["num_classes"]
+    classes = ["__background__"] + [f"class{j}" for j in range(1, n_cls)]
+    per = [None] + [
+        np.concatenate([served["boxes"][served["classes"] == j],
+                        served["scores"][served["classes"] == j, None]], 1)
+        for j in range(1, n_cls)]
+    path = os.path.join(work, "vis.png")
+    t = time.time()
+    vis.save_vis(frame, per, classes, path, thresh=0.0)
+    save_s = time.time() - t
+    back = imread_bgr(path)
+    want = frame
+    for j in range(1, n_cls):
+        if len(per[j]):
+            want = vis.vis_detections(want, classes[j], per[j], 0.0)[..., ::-1]
+    drawn = int((back != frame).any(-1).sum())
+    if back.shape != frame.shape or not np.array_equal(back, want) \
+            or not drawn:
+        raise AssertionError(f"22d: the PNG save_vis wrote ({back.shape}) "
+                             "is not its drawing, or nothing was drawn")
+    boxes = int(sum(len(d) for d in per[1:]))
+    log(f"22d save_vis: {boxes} boxes on a {frame.shape[0]}x"
+        f"{frame.shape[1]} frame, {drawn} pixels drawn, {save_s * 1e3:.1f} ms "
+        f"to draw and write {os.path.getsize(path)} bytes, read back equal "
+        f"[host CPU of the machine of {card}]")
+    return {"boxes": boxes, "pixels_drawn": drawn, "save_ms": 1e3 * save_s,
+            "png_bytes": os.path.getsize(path)}
+
+
+def last_modules_on_card(counters, card: str, drivers: dict, work13: str,
+                         out: str, served: dict) -> dict:
+    """Phase 22 (see the module docstring): 22a and 22b on phase 13's
+    devkit and checkpoints (``work13``), 22c on phase 21d's head (``out``,
+    phase 21's work directory), 22d on phase 5's frame."""
+    t0 = time.time()
+    work = os.path.join(out, "phase22")
+    os.makedirs(work)
+    phase("22a the decoder's last modes: every arithmetic-coded, CMYK/YCCK, "
+          "lossless and refused fixture of tests/data/decode through both "
+          "decoders; host ms a frame of arithmetic-coded against baseline "
+          "JPEG, on 1 and 8 threads")
+    rec = {}
+    rec["22a host"], kinds = last_decode_on_host(card)
+    phase("22b serve_video (default: B1, B2) and test_det over twin "
+          "devkits, arithmetic-coded and lossless JPEG against baseline JPEG "
+          "and PNG: detections and rel_prob bit-equal")
+    files = drivers["files"]
+    rec["22b drivers"] = drivers_over_twin_devkits(
+        counters, card, files, last_devkits(files["data"], kinds, work13),
+        work13, "22b")
+    phase("22c stage_c_hard (ours arm, res101, the hard video set) and "
+          "stage_b_rescore's five transforms on 21d's Stage B head: B2 once "
+          "a scorer call")
+    rec["22c eval tools"] = eval_tools_on_card(counters, card, out, work)
+    phase("22d utils/vis.py: save_vis on a frame phase 5 served, the PNG "
+          "read back")
+    rec["22d vis"] = vis_on_card(card, served, work)
+    rec["phase_s"] = time.time() - t0
+    log(f"22: {rec['phase_s']:.1f} s [{card}]")
     return rec
 
 
@@ -5791,6 +6140,15 @@ def main() -> int:
     kernels["roi_pool"]["launches"] = counters.read()["roi_pool"]
     for out in outs:
         check_outputs(out, FULL)
+    # the first frame of the last request and its detections, which phase
+    # 22d draws
+    valid = outs[-1]["det_valid"][0].cpu().numpy().astype(bool)
+    served = {"frame": np.clip(np.rint(
+        requests[-1][0][0] + np.asarray(cfg.PIXEL_MEANS, np.float32)), 0,
+        255).astype(np.uint8)}
+    served.update({k: outs[-1][k][0].float().cpu().numpy()[valid]
+                   for k in ("boxes", "scores")})
+    served["classes"] = outs[-1]["classes"][0].cpu().numpy()[valid]
     ms = {"f32_images_pool": steady_ms(times)}
     log(f"steady: {ms['f32_images_pool']:.2f} ms/request, "
         f"{1e3 * b / ms['f32_images_pool']:.2f} frames/s [{card}]; valid "
@@ -6403,14 +6761,19 @@ def main() -> int:
         native_io = native_loader_on_card(counters, card, work13, drivers,
                                           runtime_build)
         formats = decode_formats_on_card(counters, card, work13, drivers)
+        last = {}
+        gates = serving_gates_on_card(
+            counters, card, after=lambda out: last.update(
+                last_modules_on_card(counters, card, drivers, work13, out,
+                                     served)))
     finally:
         shutil.rmtree(work13, ignore_errors=True)
-    gates = serving_gates_on_card(counters, card)
-    phase("22 results")
+    phase("23 results")
     print(json.dumps({"training": training, "stage_b": stage_b,
                       "data_parallel": dp, "native_io": native_io,
                       "decode_formats": formats, "int8_gate": int8_gate,
                       "serving_gates": gates, "gates": gates["gates"],
+                      "last_modules": last,
                       "jpeg": jpeg_rec, "serving": {
         "ms_per_request": ms, "frames_per_request": b,
         "video_relations": len(rels), "relation_tuples": n_tuples,
@@ -6491,6 +6854,11 @@ def main() -> int:
                                              + gates["21b capacity"]["sites"])
     kernels["roi_pool"]["phase21_launches_per_step"] = 1
     kernels["roi_pool"]["phase21_sites"] = gates["21d int8 fc"]["sites"]
+    # B2 at phase 22c's scorer (stage_c_hard's), once a scorer call
+    kernels["roi_pool"]["phase22_launches"] = (
+        last["22c eval tools"]["scorer_calls"]
+        + last["22c eval tools"]["rescore_scorer_calls"])
+    kernels["roi_pool"]["phase22_sites"] = last["22c eval tools"]["sites"]
     for name in ("roi_pool", "roi_align"):
         kernels[name]["phase12_sites"] = [
             dict(t, path=path, site=key.split()[1])
@@ -6527,7 +6895,9 @@ def main() -> int:
                                                 "phase17_sites",
                                                 "phase17_planes",
                                                 "phase21_launches_per_step",
-                                                "phase21_sites")
+                                                "phase21_sites",
+                                                "phase22_launches",
+                                                "phase22_sites")
                         if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(name_power or f"{kind}, power limit not read", flush=True)

@@ -1,35 +1,45 @@
 // JPEG decoder of the port, bit-equal to libjpeg-turbo's default decode as
 // cv2.imread(path, cv2.IMREAD_COLOR) runs it: Huffman entropy decoding
-// (jdhuff.c, and jdphuff.c for progressive files), the integer "islow" IDCT
-// (jidctint.c), "fancy" chroma upsampling (jdsample.c, with jdmainct.c's
-// edge rows) and the fixed-point YCbCr to BGR conversion (jdcolor.c).
-// Host-only C++17 with a plain C API, loaded with ctypes by
-// i2vsgg_tpu_torch/data/jpeg.py:
+// (jdhuff.c, and jdphuff.c for progressive files), arithmetic decoding
+// (jdarith.c), the integer "islow" IDCT (jidctint.c), "fancy" chroma
+// upsampling (jdsample.c, with jdmainct.c's edge rows), the fixed-point
+// YCbCr to BGR conversion (jdcolor.c), OpenCV's CMYK to BGR conversion, and
+// lossless decoding (jdlhuff.c, jdlossls.c). Host-only C++17 with a plain C
+// API, loaded with ctypes by i2vsgg_tpu_torch/data/jpeg.py:
 //
 //   int i2v_jpeg_info(data, n, &h, &w, &ncomp, err, errlen)
 //   int i2v_jpeg_decode(data, n, out, capacity, err, errlen)
 //
 // Each returns 0, or an error code with a message in err: 1 a mode this
-// decoder does not read (lossless, hierarchical, arithmetic coding, 12-bit
-// samples, four components), 2 a corrupt or truncated file, 3 a bad
+// decoder does not read (hierarchical, lossless arithmetic, 12-bit samples,
+// lossless JPEG that cv2 refuses), 2 a corrupt or truncated file, 3 a bad
 // argument. `out` receives BGR uint8 (h, w, 3). The decoder keeps no state
 // between calls, never longjmps and bounds-checks every read of the input.
 // Where libjpeg-turbo warns and fills a corrupt stream with grey, or warns
 // of a bogus progression and decodes on, this decoder refuses the file.
 //
-// Read: Huffman-coded DCT JPEG with 8-bit samples, sequential (SOF0, SOF1)
-// or progressive (SOF2); one component (grey, replicated to B, G and R) or
-// three (YCbCr, or RGB where an Adobe APP14 transform of 0 or the component
-// ids 'R', 'G', 'B' say so, as jdapimin.c decides); any integral sampling
+// Read: DCT JPEG with 8-bit samples, Huffman-coded or arithmetic-coded,
+// sequential (SOF0, SOF1, SOF9) or progressive (SOF2, SOF10); one component
+// (grey, replicated to B, G and R), three (YCbCr, or RGB where an Adobe
+// APP14 transform of 0 or the component ids 'R', 'G', 'B' say so, as
+// jdapimin.c decides) or four (CMYK, or YCCK where an Adobe transform other
+// than 0 says so, converted to CMYK by jdcolor.c's ycck_cmyk_convert, then
+// to BGR as OpenCV's icvCvt_CMYK2BGR_8u_C4C3R does); any integral sampling
 // (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...); DRI/RSTn restart intervals; 8-
 // and 16-bit quantization tables; scans without DHT take the standard
-// tables of Annex K (jstdhuff.c). A sequential file whose one scan holds
-// every component is decoded block by block into the planes. Every other
-// file (progressive, or colour components in separate scans) goes through
-// a whole-image buffer of coefficients, as jdcoefct.c keeps it, filled scan
-// by scan to EOI and transformed once at the end; where a progressive scan
-// script stops short, the coefficients it left unknown are estimated by
-// libjpeg-turbo 3.1's block smoothing (jdcoefct.c's decompress_smooth_data).
+// tables of Annex K (jstdhuff.c); DAC conditioning (L, U and Kx) for the
+// arithmetic coder, statistics reset at each scan and restart. A sequential
+// file whose one scan holds every component is decoded block by block into
+// the planes. Every other file (progressive, or colour components in
+// separate scans) goes through a whole-image buffer of coefficients, as
+// jdcoefct.c keeps it, filled scan by scan to EOI and transformed once at
+// the end; where a progressive scan script stops short, the coefficients it
+// left unknown are estimated by libjpeg-turbo 3.1's block smoothing
+// (jdcoefct.c's decompress_smooth_data). Lossless JPEG (SOF3) as cv2 reads
+// it: 8-bit samples, three components of 1x1 sampling in one interleaved
+// scan or in several, predictors 1-7, a point transform, restart intervals
+// of whole rows; the samples come out as stored, the third component in B
+// and the first in R, with no colour conversion.
 
 #include <algorithm>
 #include <cstdint>
@@ -100,10 +110,62 @@ const uint8_t kValAcChr[162] = {
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// jaricom.c's jpeg_aritab, T.81's Table D.2: each state's Qe, its next
+// state after an LPS and after an MPS, and whether an LPS switches the MPS;
+// packed as jdarith.c reads them: (Qe << 16) | (next MPS << 8) | (switch
+// << 7) | next LPS. The last state is the fixed probability 0.5 of sign and
+// refinement bits.
+constexpr int32_t V(int qe, int nl, int nm, int sw) {
+  return (qe << 16) | (nm << 8) | (sw << 7) | nl;
+}
+const int32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 14, 2, 0), V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0), V(0x03d8, 20, 5, 0), V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0), V(0x006f, 28, 8, 0), V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0), V(0x000d, 35, 11, 0), V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0), V(0x0001, 12, 13, 0), V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0), V(0x2cf2, 38, 17, 0), V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0), V(0x1182, 42, 20, 0), V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0), V(0x072f, 46, 23, 0), V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0), V(0x0303, 51, 26, 0), V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0), V(0x0144, 56, 29, 0), V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0), V(0x008a, 60, 32, 0), V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0), V(0x003b, 32, 35, 0), V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 64, 38, 0), V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0), V(0x261f, 68, 41, 0), V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0), V(0x1518, 72, 44, 0), V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0), V(0x0bfb, 75, 47, 0), V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0), V(0x0706, 79, 50, 0), V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0), V(0x040f, 50, 53, 0), V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0), V(0x025c, 53, 56, 0), V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0), V(0x0160, 56, 59, 0), V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0), V(0x00cb, 59, 62, 0), V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0), V(0x5b12, 65, 65, 1), V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0), V(0x37d8, 82, 68, 0), V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0), V(0x2379, 86, 71, 0), V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0), V(0x174e, 72, 74, 0), V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0), V(0x0f6b, 74, 77, 0), V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0), V(0x0a40, 77, 48, 0), V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0), V(0x438e, 89, 83, 0), V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0), V(0x2eae, 92, 86, 0), V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0), V(0x5570, 88, 89, 1), V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0), V(0x3e22, 97, 92, 0), V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0), V(0x2e17, 93, 86, 0), V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0),
+};
+constexpr int kFixedBin = 113;
+
 constexpr int kMaxDimension = 65500;          // JPEG_MAX_DIMENSION
 constexpr int kMaxBlocksInMcu = 10;           // D_MAX_BLOCKS_IN_MCU
 constexpr int kLookBits = 9;                  // Huffman lookahead
 constexpr int kMaxScans = 1000;               // scans of one image
+constexpr int kArithTables = 16;              // NUM_ARITH_TBLS
+constexpr int kMaxComponents = 4;
 
 struct HuffTable {
   bool defined = false;
@@ -133,6 +195,8 @@ struct Component {
   // a multi-scan file's coefficients: (rows / 8) x (stride / 8) blocks of
   // 64 in natural order, the MCU-padded whole image (jdcoefct.c)
   std::vector<int16_t> coef;
+  // a lossless file's samples as undifferenced, (dh, dw), modulo 2^16
+  std::vector<uint16_t> samples;
   int16_t* block(int bx, int by) {
     return coef.data() + (static_cast<size_t>(by) * (stride / 8) + bx) * 64;
   }
@@ -143,21 +207,30 @@ struct Image {
   int width = 0, height = 0, precision = 0;
   int ncomp = 0, hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;                     // MCUs of an interleaved scan
-  Component comp[3];
+  Component comp[kMaxComponents];
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
   bool rgb = false;                           // three components, not YCbCr
-  bool progressive = false;                   // SOF2
+  bool ycck = false;                          // four components, not CMYK
+  bool progressive = false;                   // SOF2, SOF10
+  bool arith = false;                         // SOF9, SOF10
+  bool lossless = false;                      // SOF3
 };
 
 struct State {
-  State(const uint8_t* data, size_t size) : d(data), n(size) {}
+  State(const uint8_t* data, size_t size) : d(data), n(size) {
+    std::fill(dac_l, dac_l + kArithTables, 0);
+    std::fill(dac_u, dac_u + kArithTables, 1);
+    std::fill(dac_k, dac_k + kArithTables, 5);
+  }
   const uint8_t* d;
   size_t n;
   size_t pos = 0;
   uint16_t qt[4][64] = {};
   bool qt_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
+  // DAC conditioning of each arithmetic table (jdapimin.c's defaults)
+  uint8_t dac_l[kArithTables], dac_u[kArithTables], dac_k[kArithTables];
   int restart_interval = 0;
   Image im;
   bool frame = false;
@@ -245,6 +318,26 @@ void read_dht(State& s) {
   }
 }
 
+// DAC, as jdmarker.c's get_dac reads it: (Tc << 4 | Tb, value) pairs
+void read_dac(State& s) {
+  size_t p, end;
+  segment(s, &p, &end);
+  if ((end - p) % 2) corrupt("DAC segment of an odd length");
+  for (; p < end; p += 2) {
+    int index = s.d[p], v = s.d[p + 1];
+    if (index >= 2 * kArithTables)
+      corrupt("arithmetic conditioning table index " + std::to_string(index));
+    if (index >= kArithTables) {
+      s.dac_k[index - kArithTables] = static_cast<uint8_t>(v);
+    } else {
+      s.dac_l[index] = static_cast<uint8_t>(v & 15);
+      s.dac_u[index] = static_cast<uint8_t>(v >> 4);
+      if (s.dac_l[index] > s.dac_u[index])
+        corrupt("arithmetic DC conditioning with L above U");
+    }
+  }
+}
+
 void read_dri(State& s) {
   size_t p, end;
   segment(s, &p, &end);
@@ -281,26 +374,38 @@ void read_sof(State& s, int marker) {
   im.height = (s.d[p + 1] << 8) | s.d[p + 2];
   im.width = (s.d[p + 3] << 8) | s.d[p + 4];
   im.ncomp = s.d[p + 5];
-  im.progressive = marker == 0xC2;
-  if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
-    fail(kUnsupported, "lossless JPEG (SOF" + std::to_string(marker - 0xC0) +
-                           "); the decoder reads sequential DCT JPEG only");
-  if (marker >= 0xC8)
-    fail(kUnsupported, "arithmetic-coded JPEG (SOF" +
-                           std::to_string(marker - 0xC0) +
-                           "); the decoder reads Huffman coding only");
-  if (marker == 0xC5 || marker == 0xC6)
-    fail(kUnsupported, "hierarchical (differential) JPEG (SOF" +
-                           std::to_string(marker - 0xC0) + ")");
-  if (im.precision != 8)
-    fail(kUnsupported, std::to_string(im.precision) +
-                           "-bit samples; the decoder reads 8-bit JPEG only");
-  if (im.ncomp == 4)
-    fail(kUnsupported, "four components (CMYK or YCCK); the decoder reads "
-                       "grey and three-component JPEG only");
-  if (im.ncomp != 1 && im.ncomp != 3)
-    fail(kUnsupported, std::to_string(im.ncomp) + " components; the decoder "
-                       "reads grey and three-component JPEG only");
+  const std::string sof = "(SOF" + std::to_string(marker - 0xC0) + ")";
+  if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker >= 0xCD)
+    fail(kUnsupported, "hierarchical (differential) JPEG " + sof +
+                           "; libjpeg-turbo reads no hierarchical file");
+  if (marker == 0xCB)
+    fail(kUnsupported, "lossless arithmetic-coded JPEG " + sof +
+                           "; libjpeg-turbo reads lossless JPEG with "
+                           "Huffman coding only");
+  im.progressive = marker == 0xC2 || marker == 0xCA;
+  im.arith = marker >= 0xC8;
+  im.lossless = marker == 0xC3;
+  if (im.lossless) {
+    // what cv2.imread(IMREAD_COLOR) reads of lossless JPEG
+    if (im.precision != 8)
+      fail(kUnsupported, std::to_string(im.precision) + "-bit lossless JPEG " +
+                             sof + "; cv2 reads 8-bit lossless JPEG only");
+    if (im.ncomp == 1)
+      fail(kUnsupported, "one-component (grey) lossless JPEG " + sof +
+                             "; cv2 refuses it under IMREAD_COLOR");
+    if (im.ncomp != 3)
+      fail(kUnsupported, std::to_string(im.ncomp) + "-component lossless "
+                         "JPEG " + sof + "; the decoder reads three "
+                         "components");
+  } else {
+    if (im.precision != 8)
+      fail(kUnsupported, std::to_string(im.precision) +
+                             "-bit samples; the decoder reads 8-bit JPEG "
+                             "only");
+    if (im.ncomp != 1 && im.ncomp != 3 && im.ncomp != 4)
+      fail(kUnsupported, std::to_string(im.ncomp) + " components; the "
+                         "decoder reads one, three or four");
+  }
   if (end - p != static_cast<size_t>(6 + 3 * im.ncomp))
     corrupt("start-of-frame segment of the wrong length");
   if (im.width <= 0 || im.height <= 0)
@@ -322,6 +427,9 @@ void read_sof(State& s, int marker) {
     if (k.h > im.hmax) im.hmax = k.h;
     if (k.v > im.vmax) im.vmax = k.v;
   }
+  if (im.lossless && (im.hmax > 1 || im.vmax > 1))
+    fail(kUnsupported, "subsampled lossless JPEG " + sof + "; the decoder "
+                       "reads lossless components of 1x1 sampling only");
   im.mcux = div_up(im.width, 8L * im.hmax);
   im.mcuy = div_up(im.height, 8L * im.vmax);
   for (int c = 0; c < im.ncomp; c++) {
@@ -337,24 +445,41 @@ void read_sof(State& s, int marker) {
       fail(kUnsupported, "fractional sampling ratios (component " +
                              std::to_string(c) + ")");
   }
+  s.frame = true;
+}
+
+// the colour space, as libjpeg-turbo 3.1's default_decompress_parms decides
+// it from the markers before the first scan: three components are YCbCr
+// after a JFIF marker, RGB after an Adobe transform of 0 and YCbCr after
+// any other, and without either RGB where the ids are 'R', 'G', 'B' or the
+// file is lossless; four are YCCK after an Adobe transform other than 0,
+// else CMYK. cv2 reads no lossless file in YCbCr.
+void colour_space(State& s) {
+  Image& im = s.im;
   if (im.ncomp == 3) {
-    // jdapimin.c's default_decompress_parms
     if (im.jfif) {
       im.rgb = false;
     } else if (im.adobe) {
       im.rgb = im.adobe_transform == 0;
     } else {
-      im.rgb = im.comp[0].id == 'R' && im.comp[1].id == 'G' &&
-               im.comp[2].id == 'B';
+      im.rgb = im.lossless || (im.comp[0].id == 'R' && im.comp[1].id == 'G' &&
+                               im.comp[2].id == 'B');
     }
+    if (im.lossless && !im.rgb)
+      fail(kUnsupported, std::string("lossless JPEG in YCbCr (") +
+                             (im.jfif ? "a JFIF marker" : "an Adobe transform "
+                                        "other than 0") +
+                             "); cv2 refuses it under IMREAD_COLOR");
   }
-  s.frame = true;
+  if (im.ncomp == 4) im.ycck = im.adobe && im.adobe_transform != 0;
 }
 
 // ----------------------------------------------------------------------------
 // entropy decoding
 
-void derive(const HuffTable& t, bool dc, Decoder* out) {
+// max_dc: the largest DC symbol, 15 (a DCT coefficient's category) or 16
+// (a lossless difference of 32768); -1 for an AC table, which takes any
+void derive(const HuffTable& t, int max_dc, Decoder* out) {
   // jdhuff.c's jpeg_make_d_derived_tbl
   uint8_t size[257];
   uint32_t code_of[256];
@@ -400,9 +525,11 @@ void derive(const HuffTable& t, bool dc, Decoder* out) {
         out->look[lo + k] = static_cast<uint16_t>((l << 8) | t.vals[p]);
     }
   }
-  if (dc)
+  if (max_dc >= 0)
     for (int i = 0; i < nsym; i++)
-      if (t.vals[i] > 15) corrupt("bad Huffman table (DC symbol above 15)");
+      if (t.vals[i] > max_dc)
+        corrupt("bad Huffman table (DC symbol above " +
+                std::to_string(max_dc) + ")");
 }
 
 // Bits of the entropy-coded segment, byte stuffing removed. At a marker or
@@ -632,6 +759,10 @@ struct ScanComponent {
   Component* k;
   Decoder dc, ac;
   uint32_t pred = 0;                          // libjpeg's int last_dc_val
+  // arithmetic coding: the component's tables, their DAC conditioning, and
+  // jdarith.c's dc_context (the DC statistics bin the next block starts at)
+  int dc_tbl = 0, ac_tbl = 0, dc_l = 0, dc_u = 1, ac_k = 5;
+  int context = 0;
 };
 
 // a sequential block's coefficients into coef (natural order); as jdhuff.c,
@@ -670,11 +801,249 @@ void decode_block(Bits& b, ScanComponent& sc, int bx, int by) {
 
 struct Scan {
   int ns = 0;
-  ScanComponent sc[4];
+  ScanComponent sc[kMaxComponents];
   size_t data = 0;                            // first byte of entropy data
   int ss = 0, se = 63, ah = 0, al = 0;        // spectral band, approximation
   uint32_t eobrun = 0;                        // progressive AC: blocks of EOB
+  bool arith = false;
+  bool need_dc = true, need_ac = true;        // the tables the scan reads
+  // arithmetic coding: each table's statistics bins (jdarith.c's dc_stats
+  // and ac_stats), zeroed at the scan's start and at each restart, and the
+  // bin of fixed probability 0.5
+  uint8_t dc_stats[kArithTables][64];
+  uint8_t ac_stats[kArithTables][256];
+  uint8_t fixed_bin = kFixedBin;
 };
+
+// the state a restart interval starts from: DC predictions and the EOB run
+// reset (jdhuff.c's process_restart), and for arithmetic coding the
+// statistics of the tables the scan reads and the DC contexts (jdarith.c's)
+void reset_statistics(Scan& scan) {
+  scan.eobrun = 0;
+  for (int i = 0; i < scan.ns; i++) {
+    ScanComponent& sc = scan.sc[i];
+    sc.pred = 0;
+    sc.context = 0;
+    if (!scan.arith) continue;
+    if (scan.need_dc) std::memset(scan.dc_stats[sc.dc_tbl], 0, 64);
+    if (scan.need_ac) std::memset(scan.ac_stats[sc.ac_tbl], 0, 256);
+  }
+}
+
+// ----------------------------------------------------------------------------
+// arithmetic decoding (jdarith.c)
+
+// the QM-coder over the entropy-coded segment: jdarith.c's C and A
+// registers and bit counter, bytes read as arith_decode needs them, FF 00
+// unstuffed. At a marker it reads zero bytes, as T.81 has the decoder do
+// (the encoder drops the zero bytes that end its flush); where the data
+// ends first, libjpeg warns of a premature end, and this decoder refuses.
+struct Arith {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  int64_t c = 0;                              // base of the interval + bits
+  int64_t a = 0;                              // size of the interval
+  int ct = -16;                               // bits left in c; -16: start
+  bool stopped = false;                       // at a marker: zeros from here
+
+  int byte() {
+    if (stopped) return 0;
+    if (pos >= n)
+      corrupt("arithmetic-coded data ends before the image does "
+              "(truncated JPEG)");
+    if (d[pos] != 0xFF) return d[pos++];
+    size_t q = pos + 1;
+    while (q < n && d[q] == 0xFF) q++;        // FF FF ... 00 is one FF byte
+    if (q >= n)
+      corrupt("arithmetic-coded data ends before the image does "
+              "(truncated JPEG)");
+    if (d[q] == 0) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    stopped = true;                           // pos stays on the marker
+    return 0;
+  }
+
+  // one binary decision with the statistics bin st: jdarith.c's
+  // arith_decode (renormalization per T.81 D.2.6, then D.2.4 and D.2.5)
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the 2 first bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    const uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      // conditional LPS exchange
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      // conditional MPS exchange
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // start over at a byte boundary at `at` (after a restart marker)
+  void reset(size_t at) {
+    pos = at;
+    c = a = 0;
+    ct = -16;
+    stopped = false;
+  }
+};
+
+// a nonzero value (T.81 F.21-F.24) after its sign: its magnitude category
+// m, doubled at each 1 decided from bin x on (F.23), then the bits below
+// its top one, each decided in the bin 14 past the last category bin
+// (F.24); jdarith.c's arithmetic, which refuses a category past 2^15
+int arith_value(Arith& e, uint8_t* st, int m, uint8_t* x, int sign) {
+  if (x) {
+    st = x;
+    while (e.decode(st)) {
+      if ((m <<= 1) == 0x8000)
+        corrupt("arithmetic-coded magnitude overflow (corrupt JPEG data)");
+      st += 1;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (e.decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+// a DC difference (F.19), the component's context updated as the DAC's L
+// and U condition it (F.1.4.4.1.2)
+int arith_dc_diff(Arith& e, Scan& scan, ScanComponent& sc) {
+  uint8_t* stats = scan.dc_stats[sc.dc_tbl];
+  uint8_t* st = stats + sc.context;
+  if (e.decode(st) == 0) {
+    sc.context = 0;
+    return 0;
+  }
+  const int sign = e.decode(st + 1);
+  st += 2 + sign;
+  int m = e.decode(st);
+  uint8_t* x = stats + 20;                    // X1
+  if (m) {
+    while (e.decode(x)) {
+      if ((m <<= 1) == 0x8000)
+        corrupt("arithmetic-coded magnitude overflow (corrupt JPEG data)");
+      x += 1;
+    }
+    st = x;
+  }
+  if (m < static_cast<int>((1L << sc.dc_l) >> 1))
+    sc.context = 0;                           // zero difference category
+  else if (m > static_cast<int>((1L << sc.dc_u) >> 1))
+    sc.context = 12 + sign * 4;               // large
+  else
+    sc.context = 4 + sign * 4;                // small
+  return arith_value(e, st, m, nullptr, sign);
+}
+
+// the AC coefficients ss..se of a block (F.20), each shifted up by al
+void arith_ac_first(Arith& e, Scan& scan, ScanComponent& sc, int ss, int se,
+                    int al, int16_t* coef) {
+  uint8_t* stats = scan.ac_stats[sc.ac_tbl];
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (e.decode(st)) break;                  // EOB
+    while (e.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se)
+        corrupt("arithmetic-coded AC coefficients run past the band "
+                "(corrupt JPEG data)");
+    }
+    const int sign = e.decode(&scan.fixed_bin);
+    st += 2;
+    int m = e.decode(st);
+    uint8_t* x = nullptr;
+    if (m && e.decode(st)) {
+      m <<= 1;
+      x = stats + (k <= sc.ac_k ? 189 : 217);  // X2, by the DAC's Kx
+    }
+    const int v = arith_value(e, st, m, x, sign);
+    coef[kNaturalOrder[k]] =
+        static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+}
+
+// a refinement scan's band ss..se of a block (G.1.3.3): a correction bit
+// for each coefficient already nonzero, the new ones +-2^al
+void arith_ac_refine(Arith& e, Scan& scan, ScanComponent& sc, int16_t* coef) {
+  uint8_t* stats = scan.ac_stats[sc.ac_tbl];
+  const int p1 = 1 << scan.al, m1 = -p1;
+  int kex = scan.se;                          // the last nonzero before
+  for (; kex > 0; kex--)
+    if (coef[kNaturalOrder[kex]]) break;
+  for (int k = scan.ss; k <= scan.se; k++) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (k > kex && e.decode(st)) break;       // EOB
+    for (;;) {
+      int16_t* c = coef + kNaturalOrder[k];
+      if (*c) {
+        if (e.decode(st + 2))
+          *c = static_cast<int16_t>(*c < 0 ? *c + m1 : *c + p1);
+        break;
+      }
+      if (e.decode(st + 1)) {
+        *c = static_cast<int16_t>(e.decode(&scan.fixed_bin) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > scan.se)
+        corrupt("arithmetic-coded AC coefficients run past the band "
+                "(corrupt JPEG data)");
+    }
+  }
+}
+
+// a sequential block (jdarith.c's decode_mcu): the DC value, the AC
+// coefficients 1-63
+void arith_sequential(Arith& e, Scan& scan, ScanComponent& sc,
+                      int16_t* coef) {
+  sc.pred += static_cast<uint32_t>(arith_dc_diff(e, scan, sc));
+  coef[0] = static_cast<int16_t>(sc.pred);
+  arith_ac_first(e, scan, sc, 1, 63, 0, coef);
+}
+
+void arith_dc_first(Arith& e, Scan& scan, ScanComponent& sc, int16_t* coef) {
+  sc.pred += static_cast<uint32_t>(arith_dc_diff(e, scan, sc));
+  coef[0] = static_cast<int16_t>(sc.pred << scan.al);
+}
+
+void arith_dc_refine(Arith& e, Scan& scan, int16_t* coef) {
+  if (e.decode(&scan.fixed_bin))
+    coef[0] = static_cast<int16_t>(coef[0] | (1 << scan.al));
+}
+
 
 // jdphuff.c's four progressive scans, on one block's coefficients
 
@@ -765,8 +1134,10 @@ void decode_ac_refine(Bits& b, Scan& scan, const Decoder& ac, int16_t* coef) {
   }
 }
 
-void build_table(const HuffTable* tables, int index, bool dc,
+// max_dc as derive takes it: -1 builds an AC table
+void build_table(const HuffTable* tables, int index, int max_dc,
                  Decoder* out) {
+  const bool dc = max_dc >= 0;
   if (index >= 4) corrupt("Huffman table index out of 0-3");
   const HuffTable* t = &tables[index];
   HuffTable std_table;
@@ -784,7 +1155,7 @@ void build_table(const HuffTable* tables, int index, bool dc,
     std::memcpy(std_table.vals, vals, count);
     t = &std_table;
   }
-  derive(*t, dc, out);
+  derive(*t, max_dc, out);
 }
 
 std::string progression(const Scan& scan) {
@@ -827,7 +1198,7 @@ void read_sos(State& s, Scan* scan) {
     corrupt("bad scan header");
   Image& im = s.im;
   scan->ns = ns;
-  scan->eobrun = 0;
+  scan->arith = im.arith;
   const uint8_t* band = s.d + p + 1 + 2 * ns;
   scan->ss = band[0];
   scan->se = band[1];
@@ -842,22 +1213,44 @@ void read_sos(State& s, Scan* scan) {
     if (!k) corrupt("scan names a component the frame does not have");
     for (int o = 0; o < i; o++)
       if (scan->sc[o].k == k) corrupt("scan names a component twice");
+    // T.81 B.2.3, which libjpeg-turbo holds lossless scans to
+    if (im.lossless && i > 0 && k < scan->sc[i - 1].k)
+      corrupt("components of a lossless scan out of the frame's order");
     scan->sc[i].k = k;
-    scan->sc[i].pred = 0;
     blocks += ns > 1 ? k->h * k->v : 1;
   }
   if (blocks > kMaxBlocksInMcu) corrupt("more than 10 blocks in an MCU");
   // a sequential scan decodes whatever Ss, Se, Ah/Al say, as libjpeg does
   // (with a warning); a progressive one is checked, and builds only the
-  // tables it reads
+  // tables it reads; a lossless one reads its predictor from Ss and its
+  // point transform from Al (jdlossls.c's start_pass_lossless checks them)
   if (im.progressive) check_progression(*scan);
-  const bool need_dc = !im.progressive || (scan->ss == 0 && scan->ah == 0);
-  const bool need_ac = !im.progressive || scan->ss > 0;
+  if (im.lossless &&
+      (scan->ss < 1 || scan->ss > 7 || scan->se != 0 || scan->ah != 0 ||
+       scan->al >= im.precision))
+    corrupt("bad lossless scan parameters (predictor " +
+            std::to_string(scan->ss) + ", Se=" + std::to_string(scan->se) +
+            " Ah=" + std::to_string(scan->ah) +
+            " Al=" + std::to_string(scan->al) + ")");
+  scan->need_dc = !im.progressive || (scan->ss == 0 && scan->ah == 0);
+  scan->need_ac = !im.lossless && (!im.progressive || scan->ss > 0);
   for (int i = 0; i < ns; i++) {
     int tables = s.d[p + 2 + 2 * i];
-    if (need_dc) build_table(s.dc, tables >> 4, true, &scan->sc[i].dc);
-    if (need_ac) build_table(s.ac, tables & 15, false, &scan->sc[i].ac);
+    ScanComponent& sc = scan->sc[i];
+    if (im.arith) {
+      // jdarith.c's statistics tables 0-15, conditioned by the DAC
+      sc.dc_tbl = tables >> 4;
+      sc.ac_tbl = tables & 15;
+      sc.dc_l = s.dac_l[sc.dc_tbl];
+      sc.dc_u = s.dac_u[sc.dc_tbl];
+      sc.ac_k = s.dac_k[sc.ac_tbl];
+      continue;
+    }
+    if (scan->need_dc)
+      build_table(s.dc, tables >> 4, im.lossless ? 16 : 15, &sc.dc);
+    if (scan->need_ac) build_table(s.ac, tables & 15, -1, &sc.ac);
   }
+  reset_statistics(*scan);
   scan->data = s.pos;
 }
 
@@ -883,10 +1276,22 @@ size_t entropy_end(const State& s, size_t from) {
 // scans from the first on code every block of every component, so the data
 // from there to its end must hold a bit for each, whichever components the
 // first scan holds. (A file too short for a component it never codes is
-// refused; libjpeg would leave that component grey.)
+// refused; libjpeg would leave that component grey.) A lossless sample
+// costs at least a bit. Arithmetic-coded data has no such bound: the coder
+// reads zeros at a marker, and a scan of zeros decodes to a picture.
 void check_plausible(const State& s, const Scan& scan) {
   const Image& im = s.im;
+  if (im.arith) return;
   uint64_t blocks = 0, all = 0;
+  if (im.lossless) {
+    const uint64_t pixels = static_cast<uint64_t>(im.width) * im.height;
+    if (static_cast<uint64_t>(scan.ns) * pixels >
+            8 * static_cast<uint64_t>(entropy_end(s, scan.data) - scan.data) ||
+        im.ncomp * pixels > 8 * static_cast<uint64_t>(s.n - scan.data))
+      corrupt("the entropy-coded data is too short for the image size "
+              "(truncated JPEG)");
+    return;
+  }
   for (int i = 0; i < scan.ns; i++) {
     const Component& k = *scan.sc[i].k;
     blocks += scan.ns > 1 ? static_cast<uint64_t>(im.mcux) * im.mcuy * k.h * k.v
@@ -914,11 +1319,12 @@ void latch_tables(State& s, const Scan& scan) {
   }
 }
 
-// the scan's MCUs in order, restart intervals handled (jdhuff.c's
-// process_restart: the buffered bits dropped, RSTn read, the DC
-// predictions and the EOB run reset); block(sc, bx, by) decodes one block
-template <typename F>
-void for_each_block(State& s, Scan& scan, Bits& b, F&& block) {
+// the scan's MCUs in order, restart intervals handled (jdhuff.c's and
+// jdarith.c's process_restart: the buffered bits dropped, RSTn read, the DC
+// predictions, the EOB run and the arithmetic statistics reset); b is the
+// scan's Bits or Arith; block(sc, bx, by) decodes one block
+template <typename R, typename F>
+void for_each_block(State& s, Scan& scan, R& b, F&& block) {
   Image& im = s.im;
   long mcus_x, mcus_y;
   if (scan.ns > 1) {
@@ -938,8 +1344,7 @@ void for_each_block(State& s, Scan& scan, Bits& b, F&& block) {
           corrupt("restart marker missing or out of order");
         next_rst = (next_rst + 1) & 7;
         b.reset(at);
-        for (int i = 0; i < scan.ns; i++) scan.sc[i].pred = 0;
-        scan.eobrun = 0;
+        reset_statistics(scan);
       }
       if (scan.ns == 1) {
         block(scan.sc[0], static_cast<int>(mx), static_cast<int>(my));
@@ -966,15 +1371,60 @@ void decode_scan(State& s, Scan& scan) {
     Component& k = *scan.sc[i].k;
     k.plane.assign(static_cast<size_t>(k.stride) * k.rows, 0);
   }
-  Bits b{s.d, s.n, scan.data};
-  for_each_block(s, scan, b, [&](ScanComponent& sc, int bx, int by) {
-    decode_block(b, sc, bx, by);
+  if (!s.im.arith) {
+    Bits b{s.d, s.n, scan.data};
+    for_each_block(s, scan, b, [&](ScanComponent& sc, int bx, int by) {
+      decode_block(b, sc, bx, by);
+    });
+    return;
+  }
+  Arith e{s.d, s.n, scan.data};
+  for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+    int16_t coef[64] = {};
+    arith_sequential(e, scan, sc, coef);
+    Component& c = *sc.k;
+    idct_islow(coef, c.qt,
+               c.plane.data() + static_cast<size_t>(by) * 8 * c.stride +
+                   bx * 8,
+               c.stride);
   });
+}
+
+// one arithmetic-coded scan of a multi-scan file into the coefficient
+// buffer (jdarith.c's decode_mcu and its four progressive scans)
+void decode_arith_coefficients(State& s, Scan& scan) {
+  Arith e{s.d, s.n, scan.data};
+  if (!s.im.progressive) {
+    for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+      arith_sequential(e, scan, sc, sc.k->block(bx, by));
+    });
+  } else if (scan.ss == 0 && scan.ah == 0) {
+    for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+      arith_dc_first(e, scan, sc, sc.k->block(bx, by));
+    });
+  } else if (scan.ss == 0) {
+    for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+      arith_dc_refine(e, scan, sc.k->block(bx, by));
+    });
+  } else if (scan.ah == 0) {
+    for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+      arith_ac_first(e, scan, sc, scan.ss, scan.se, scan.al,
+                     sc.k->block(bx, by));
+    });
+  } else {
+    for_each_block(s, scan, e, [&](ScanComponent& sc, int bx, int by) {
+      arith_ac_refine(e, scan, sc, sc.k->block(bx, by));
+    });
+  }
 }
 
 // one scan of a multi-scan file into the coefficient buffer
 void decode_scan_coefficients(State& s, Scan& scan) {
   latch_tables(s, scan);
+  if (s.im.arith) {
+    decode_arith_coefficients(s, scan);
+    return;
+  }
   Bits b{s.d, s.n, scan.data};
   if (!s.im.progressive) {
     for_each_block(s, scan, b, [&](ScanComponent& sc, int bx, int by) {
@@ -997,6 +1447,100 @@ void decode_scan_coefficients(State& s, Scan& scan) {
       decode_ac_refine(b, scan, sc.ac, sc.k->block(bx, by));
     });
   }
+}
+
+// ----------------------------------------------------------------------------
+// lossless JPEG (jdlhuff.c, jdlossls.c, jddiffct.c of libjpeg-turbo 3.1)
+
+// T.81 Table H.1's predictors of a sample from Ra (left), Rb (above) and Rc
+// (above left), as jdlossls.c computes them
+inline int predict(int psv, int ra, int rb, int rc) {
+  switch (psv) {
+    case 1: return ra;
+    case 2: return rb;
+    case 3: return rc;
+    case 4: return ra + rb - rc;
+    case 5: return ra + ((rb - rc) >> 1);
+    case 6: return rb + ((ra - rc) >> 1);
+    default: return (ra + rb) >> 1;
+  }
+}
+
+// one lossless scan into its components' planes: each row's differences
+// decoded MCU by MCU (a sample of each component of the scan; 32768 for
+// the symbol 16), then undifferenced component by component, modulo 2^16
+// (jdlossls.c): the first row of the scan and of each restart interval
+// from 2^(P - Pt - 1) and then its left sample, every other row's first
+// sample from the one above and the rest by the scan's predictor; each
+// sample then shifted up by the point transform into 8 bits. A restart
+// interval must hold whole rows, as jddiffct.c requires.
+void decode_lossless_scan(State& s, Scan& scan) {
+  Image& im = s.im;
+  const int w = im.width, h = im.height, ns = scan.ns;
+  long rows_per_restart = 0;
+  if (s.restart_interval) {
+    if (s.restart_interval % w)
+      corrupt("restart interval of " + std::to_string(s.restart_interval) +
+              " MCUs, not a whole number of rows of " + std::to_string(w) +
+              " (lossless JPEG)");
+    rows_per_restart = s.restart_interval / w;
+  }
+  std::vector<int> diff(static_cast<size_t>(ns) * w);
+  std::vector<uint16_t> rows(2 * static_cast<size_t>(ns) * w);
+  for (int i = 0; i < ns; i++) {
+    Component& k = *scan.sc[i].k;
+    if (k.plane.empty()) k.plane.assign(static_cast<size_t>(w) * h, 0);
+  }
+  const int psv = scan.ss, pt = scan.al;
+  const int initial = 1 << (im.precision - pt - 1);
+  Bits b{s.d, s.n, scan.data};
+  int next_rst = 0;
+  bool first = true;
+  for (int y = 0; y < h; y++) {
+    if (rows_per_restart && y > 0 && y % rows_per_restart == 0) {
+      size_t at = b.pos;
+      if (next_marker(s.d, s.n, &at) != 0xD0 + next_rst)
+        corrupt("restart marker missing or out of order");
+      next_rst = (next_rst + 1) & 7;
+      b.reset(at);
+      first = true;
+    }
+    for (int x = 0; x < w; x++)
+      for (int i = 0; i < ns; i++) {
+        int sym = decode_symbol(b, scan.sc[i].dc);
+        diff[static_cast<size_t>(i) * w + x] =
+            sym == 16 ? 32768 : (sym ? extend(b.get(sym), sym) : 0);
+      }
+    for (int i = 0; i < ns; i++) {
+      const int* d = diff.data() + static_cast<size_t>(i) * w;
+      uint16_t* cur = rows.data() + (2 * static_cast<size_t>(i) + (y & 1)) * w;
+      const uint16_t* prev =
+          rows.data() + (2 * static_cast<size_t>(i) + ((y + 1) & 1)) * w;
+      int ra;
+      if (first) {
+        ra = (d[0] + initial) & 0xFFFF;
+        cur[0] = static_cast<uint16_t>(ra);
+        for (int x = 1; x < w; x++) {
+          ra = (d[x] + ra) & 0xFFFF;
+          cur[x] = static_cast<uint16_t>(ra);
+        }
+      } else {
+        int rb = prev[0];
+        ra = (d[0] + rb) & 0xFFFF;
+        cur[0] = static_cast<uint16_t>(ra);
+        for (int x = 1; x < w; x++) {
+          int rc = rb;
+          rb = prev[x];
+          ra = (d[x] + predict(psv, ra, rb, rc)) & 0xFFFF;
+          cur[x] = static_cast<uint16_t>(ra);
+        }
+      }
+      uint8_t* out = scan.sc[i].k->plane.data() + static_cast<size_t>(y) * w;
+      for (int x = 0; x < w; x++) out[x] = static_cast<uint8_t>(cur[x] << pt);
+    }
+    first = false;
+  }
+  s.pos = b.pos;
 }
 
 // ----------------------------------------------------------------------------
@@ -1257,8 +1801,26 @@ void upsample_row(const Image& im, const Component& k, int y, uint8_t* row) {
   for (int x = 0; x < w; x++) row[x] = in[x / hx];
 }
 
+// a lossless file's planes into BGR, as cv2 gives them: the components as
+// stored, the first in R and the third in B (a plane exists once a scan
+// has coded its component)
+void convert_lossless(const Image& im, uint8_t* out) {
+  const size_t n = static_cast<size_t>(im.width) * im.height;
+  for (int c = 0; c < 3; c++) {
+    if (im.comp[c].plane.empty())
+      corrupt("lossless JPEG ends before a scan codes component " +
+              std::to_string(c));
+    const uint8_t* in = im.comp[c].plane.data();
+    for (size_t i = 0; i < n; i++) out[3 * i + 2 - c] = in[i];
+  }
+}
+
 void convert(const Image& im, uint8_t* out) {
   const int w = im.width;
+  if (im.lossless) {
+    convert_lossless(im, out);
+    return;
+  }
   if (im.ncomp == 1) {
     for (int y = 0; y < im.height; y++) {
       const uint8_t* in = im.comp[0].plane.data() +
@@ -1287,15 +1849,35 @@ void convert(const Image& im, uint8_t* out) {
   auto clamp = [](int v) {
     return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
   };
-  std::vector<uint8_t> rows(3 * (static_cast<size_t>(w) + 16));
+  std::vector<uint8_t> rows(4 * (static_cast<size_t>(w) + 16));
   uint8_t* r0 = rows.data();
   uint8_t* r1 = r0 + w + 16;
   uint8_t* r2 = r1 + w + 16;
+  uint8_t* r3 = r2 + w + 16;
   for (int y = 0; y < im.height; y++) {
     upsample_row(im, im.comp[0], y, r0);
     upsample_row(im, im.comp[1], y, r1);
     upsample_row(im, im.comp[2], y, r2);
     uint8_t* o = out + static_cast<size_t>(y) * w * 3;
+    if (im.ncomp == 4) {
+      upsample_row(im, im.comp[3], y, r3);
+      for (int x = 0; x < w; x++) {
+        int c = r0[x], m = r1[x], ye = r2[x];
+        const int k = r3[x];
+        if (im.ycck) {                        // jdcolor.c's ycck_cmyk_convert
+          const int yy = c, cb = m, cr = ye;
+          c = clamp(255 - (yy + cr_r[cr]));
+          m = clamp(255 - (yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >>
+                                                 kScale)));
+          ye = clamp(255 - (yy + cb_b[cb]));
+        }
+        // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+        o[3 * x + 2] = static_cast<uint8_t>(k - ((255 - c) * k >> 8));
+        o[3 * x + 1] = static_cast<uint8_t>(k - ((255 - m) * k >> 8));
+        o[3 * x] = static_cast<uint8_t>(k - ((255 - ye) * k >> 8));
+      }
+      continue;
+    }
     if (im.rgb) {
       for (int x = 0; x < w; x++) {
         o[3 * x] = r2[x];
@@ -1325,12 +1907,11 @@ int read_markers(State& s) {
     if (m < 0 || m == 0xDA || m == 0xD9) return m;
     if (m == 0xC4) {
       read_dht(s);
+    } else if (m == 0xCC) {
+      read_dac(s);
     } else if (m == 0xC8 || m == 0xDE || m == 0xDF) {
       fail(kUnsupported, "hierarchical or extension JPEG (marker " +
                              std::to_string(m) + ")");
-    } else if (m == 0xCC) {
-      size_t a, b;
-      segment(s, &a, &b);                     // DAC: arithmetic conditioning
     } else if (m >= 0xC0 && m <= 0xCF) {
       read_sof(s, m);
     } else if (m == 0xDB) {
@@ -1362,6 +1943,8 @@ void read_headers(State& s, Scan* scan) {
   int m = read_markers(s);
   if (m < 0) corrupt("JPEG data ends before its first scan");
   if (m == 0xD9) corrupt("JPEG ends (EOI) before its first scan");
+  if (!s.frame) corrupt("scan before the start-of-frame marker");
+  colour_space(s);
   read_sos(s, scan);
   check_plausible(s, *scan);
 }
@@ -1375,6 +1958,18 @@ void read_headers(State& s, Scan* scan) {
 // them slower; the 8-core host of an NVIDIA H100 machine).
 void decode(State& s, Scan& scan, uint8_t* out) {
   Image& im = s.im;
+  if (im.lossless) {
+    // the scans into the planes, to EOI or the end of the data
+    for (int scans = 1;; scans++) {
+      if (scans > kMaxScans)
+        corrupt("more than " + std::to_string(kMaxScans) + " scans");
+      decode_lossless_scan(s, scan);
+      if (read_markers(s) != 0xDA) break;
+      read_sos(s, &scan);
+    }
+    convert(im, out);
+    return;
+  }
   if (!im.progressive && scan.ns == im.ncomp) {
     decode_scan(s, scan);
     // another scan is an error as in libjpeg (JERR_EOI_EXPECTED)

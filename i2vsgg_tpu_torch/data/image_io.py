@@ -14,12 +14,14 @@ Read: PNG of every colour type at every bit depth the specification defines
 16), non-interlaced or Adam7-interlaced, with any of the five row filters,
 as the JAX runtime's libpng transforms leave it (16 bits cut to the high
 byte, grey below 8 bits scaled to 0-255, alpha and tRNS dropped); and
-Huffman-coded JPEG, sequential or progressive, 8-bit, grey or three
-components, any integral chroma sampling, with or without restart
-intervals, the components in one scan or in several. Lossless,
-hierarchical or arithmetic-coded JPEG, 12-bit or CMYK JPEG, and every
-other format raise ``UnsupportedImageError`` naming what is missing; it
-never falls through to a wrong image. ``image_size`` reads the size from
+JPEG with 8-bit samples, Huffman- or arithmetic-coded, sequential or
+progressive, grey, three or four components (CMYK, YCCK), any integral
+chroma sampling, with or without restart intervals, the components in one
+scan or in several, and 8-bit three-component lossless JPEG as cv2 reads
+it. Hierarchical JPEG, lossless arithmetic-coded JPEG, 12-bit samples, the
+lossless files cv2 refuses, and every other format raise
+``UnsupportedImageError`` naming what is missing; it never falls through to
+a wrong image. ``image_size`` reads the size from
 the header of a PNG or a JPEG (as the loader's roidb needs: a JPEG's stored
 size, before any EXIF rotation, as PIL reports it to the JAX package's
 roidb), and ``write_png`` writes an 8-bit RGB PNG with one row filter

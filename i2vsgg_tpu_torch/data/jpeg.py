@@ -7,12 +7,17 @@ decodes while the main thread launches kernels.
 ``decode_jpeg`` returns what ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns
 for the files it reads, byte for byte: BGR uint8 (H, W, 3), grey replicated,
 and the APP1 EXIF orientation (2-8) applied with numpy flips and transposes,
-as cv2 applies it. It reads Huffman-coded JPEG with 8-bit samples,
-sequential or progressive, one or three components, any integral chroma
-sampling, restart intervals, and colour components in one scan or in
-several; a progressive file whose scan script stops short is finished by
-libjpeg-turbo 3.1's block smoothing, as cv2 finishes it. Lossless,
-hierarchical and arithmetic-coded files, 12-bit samples and CMYK/YCCK raise
+as cv2 applies it. It reads JPEG with 8-bit samples, Huffman- or
+arithmetic-coded (DAC conditioning included), sequential or progressive,
+one, three or four components (CMYK, and YCCK converted to CMYK, then to
+BGR as OpenCV converts them), any integral chroma sampling, restart
+intervals, and colour components in one scan or in several; a progressive
+file whose scan script stops short is finished by libjpeg-turbo 3.1's block
+smoothing, as cv2 finishes it. It reads lossless JPEG (SOF3) as cv2 reads
+it: 8 bits, three components stored as RGB, predictors 1-7, a point
+transform, restart intervals of whole rows. Hierarchical files (SOF5-7,
+SOF13-15), lossless arithmetic coding (SOF11), 12-bit samples and the
+lossless files cv2 refuses (one component, 12 or 16 bits, YCbCr) raise
 ``UnsupportedImageError`` naming the mode; truncated or corrupt data, and a
 scan script libjpeg would only warn of, raise ``ValueError`` (where
 libjpeg-turbo would warn and fill with grey). There is no fallback: a

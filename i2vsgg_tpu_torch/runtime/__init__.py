@@ -14,10 +14,12 @@ tests/test_torch_runtime.py:
 * PNG is decoded by the runtime's own inflate and row filters (the card's
   machine has no libpng or zlib headers), at every bit depth and Adam7 as
   libpng's transforms leave it; JPEG by ``csrc/jpeg.cc`` (sequential and
-  progressive Huffman). What that decoder refuses (lossless, hierarchical,
-  arithmetic-coded, 12-bit and CMYK JPEG) raises
-  ``UnsupportedImageError``, where the JAX runtime's libjpeg-turbo 2.1
-  decodes arithmetic-coded files. Where a progressive file's scan script
+  progressive, Huffman- and arithmetic-coded; CMYK and YCCK, which the JAX
+  runtime's libjpeg cannot give as RGB, converted as cv2 converts them;
+  lossless as cv2 reads it, which the JAX runtime's libjpeg-turbo 2.1 does
+  not read). What that decoder refuses (hierarchical, lossless arithmetic,
+  12-bit, and the lossless files cv2 refuses) raises
+  ``UnsupportedImageError``. Where a progressive file's scan script
   stops short, ``csrc/jpeg.cc`` smooths the blocks as cv2's libjpeg-turbo
   3.1 does, which departs from the JAX runtime's 2.1 by a few grey levels
   (ROADMAP C). A JPEG's EXIF orientation is not applied, as libjpeg does

@@ -210,11 +210,12 @@ def train_ours_sgg(data_root, out_dir, steps, seed=0, device="cuda"):
     return _ours_sgg_score_fn(ckpt_dir, device=device)
 
 
-def sgg_scorer(model, device):
+def sgg_scorer(model, device, raw=False):
     """The per-frame predicate scorer of an ``SGGModel`` with a trunk:
     ``score_fn(index, im, scale, boxes, pairs)`` -> (P, N_REL) softmax
-    scores as numpy, computed at the fixed shapes of the JAX scorer (8
-    boxes, 56 pairs; the rest padded)."""
+    scores as numpy (with ``raw``, the cosine logits before the softmax, as
+    ``stage_b_rescore`` transforms them on the host), computed at the fixed
+    shapes of the JAX scorer (8 boxes, 56 pairs; the rest padded)."""
     from i2vsgg_tpu_torch.utils.device import resolve_device
     GB, PB = 8, 56
     device = resolve_device(device)
@@ -240,15 +241,16 @@ def sgg_scorer(model, device):
                     t([float(h), float(w), 1.0], torch.float32), t(bx),
                     t(np.zeros((GB,), np.int64)), t(ix1), t(ix2),
                     t(np.arange(PB) < p), prd)
-        return torch.softmax(out["scores"], -1).cpu().numpy()[:p]
+        s = out["scores"] if raw else torch.softmax(out["scores"], -1)
+        return s.cpu().numpy()[:p]
 
     return score_fn
 
 
-def _ours_sgg_score_fn(ckpt_dir, device="cuda"):
+def _ours_sgg_score_fn(ckpt_dir, device="cuda", raw=False):
     """The scorer of the newest checkpoint in ``ckpt_dir``: an ``SGGModel``
     with an f32 trunk at ``HP["depth"]`` and the default head, restored
-    with ``restore_intersection``."""
+    with ``restore_intersection``; ``raw`` as ``sgg_scorer`` takes it."""
     from i2vsgg_tpu_torch.models.backbones import ResNetTrunk
     from i2vsgg_tpu_torch.models.layers import init_weights
     from i2vsgg_tpu_torch.models.sgg import SGGModel, VRDHead
@@ -258,7 +260,7 @@ def _ours_sgg_score_fn(ckpt_dir, device="cuda"):
                                                   dtype=torch.float32))
     init_weights(model, torch.Generator().manual_seed(0))
     restore_intersection(ckpt_dir, latest_step(ckpt_dir), model)
-    return sgg_scorer(model, device)
+    return sgg_scorer(model, device, raw)
 
 
 def eval_video_rel(score_fn, data_root, split="test"):

@@ -4,9 +4,12 @@ writers the decode tests share.
     python tests/make_decode_fixtures.py
 
 A script, not a test module: it needs cv2 and PIL, which the machine with
-the card lacks, so the files that ``chip_smoke.py`` phase 19 decodes there
-come from the repo. Every picture is drawn from a seeded numpy generator.
-Each file but the four frame pairs is written beside its golden:
+the card lacks, so the files that ``chip_smoke.py`` phases 19 and 22 decode
+there come from the repo; and ``gcc`` with the system's libjpeg
+(libjpeg-turbo) headers, for the writer of the arithmetic-coded and
+four-component files (``libjpeg_encode``, ``libjpeg_transcode``). Every
+picture is drawn from a seeded numpy generator. Each file but the frames
+and the refused files is written beside its golden:
 ``cv2.imread(path, cv2.IMREAD_COLOR)`` of the file, written with the port's
 ``write_png`` as an 8-bit PNG. ``MANIFEST.json`` lists each file with its
 set:
@@ -26,10 +29,23 @@ set:
 * ``frames``: four 360x640 video frames, each in baseline and progressive
   form, of the same picture at the same quality (``twin`` names the
   baseline file; no golden, which would not fit: a progressive frame is
-  held to its twin's decode).
+  held to its twin's decode);
+* ``arith``: arithmetic-coded files that libjpeg writes, sequential (SOF9)
+  and progressive (SOF10): 4:4:4, 4:2:2, 4:2:0, grey and RGB, restart
+  intervals, DAC conditioning other than the defaults;
+* ``four``: CMYK and YCCK files (Adobe transforms 0 and 2), Huffman- and
+  arithmetic-coded, progressive, subsampled, with a restart interval;
+* ``lossless``: 8-bit three-component lossless files (SOF3,
+  ``jpeg_lossless``, a Python encoder on ``_Bits``): each predictor, point
+  transforms, restart intervals, components in separate scans;
+* ``refused``: the files cv2 refuses under ``IMREAD_COLOR`` (no golden;
+  ``mode`` names what the port's refusal says): grey, 12- and 16-bit and
+  YCbCr lossless files, SOF11, SOF7 and SOF5;
+* ``arith_frames``: the four baseline frames transcoded to arithmetic
+  coding (``twin`` names the baseline file, whose pixels they hold).
 
-Rerunning it rewrites the directory; with the same cv2 and PIL it writes
-the same bytes.
+Rerunning it rewrites the directory; with the same cv2, PIL and libjpeg it
+writes the same bytes.
 """
 
 from __future__ import annotations
@@ -325,6 +341,243 @@ def jpeg_separate_scans(im: np.ndarray, quality: int = 75,
     return bytes(out + b"\xff\xd9")
 
 
+# -- libjpeg's encoder: arithmetic coding, CMYK and YCCK -------------------------
+
+# a small writer compiled against the system's libjpeg (libjpeg-turbo) at
+# run time: it encodes raw samples with the options it is given, or
+# transcodes a JPEG's coefficients as ``jpegtran -arithmetic`` does
+JWRITE_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+
+static int encode(int argc, char **argv) {
+  /* encode in.raw out.jpg w h channels in_space jpeg_space quality arith
+     progressive restart dc_l dc_u ac_k h0 v0 [h1 v1 ...] */
+  int w = atoi(argv[4]), h = atoi(argv[5]), ch = atoi(argv[6]);
+  int n = 16;
+  size_t size = (size_t)w * h * ch;
+  unsigned char *px = malloc(size);
+  FILE *in = fopen(argv[2], "rb");
+  if (!in || fread(px, 1, size, in) != size) return 2;
+  fclose(in);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr err;
+  c.err = jpeg_std_error(&err);
+  jpeg_create_compress(&c);
+  FILE *out = fopen(argv[3], "wb");
+  jpeg_stdio_dest(&c, out);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = ch;
+  c.in_color_space = (J_COLOR_SPACE)atoi(argv[7]);
+  jpeg_set_defaults(&c);
+  jpeg_set_colorspace(&c, (J_COLOR_SPACE)atoi(argv[8]));
+  jpeg_set_quality(&c, atoi(argv[9]), TRUE);
+  c.arith_code = atoi(argv[10]);
+  c.restart_interval = atoi(argv[12]);
+  for (int i = 0; i < n; i++) {
+    c.arith_dc_L[i] = atoi(argv[13]);
+    c.arith_dc_U[i] = atoi(argv[14]);
+    c.arith_ac_K[i] = atoi(argv[15]);
+  }
+  for (int i = 0; i < c.num_components && 17 + 2 * i < argc; i++) {
+    c.comp_info[i].h_samp_factor = atoi(argv[16 + 2 * i]);
+    c.comp_info[i].v_samp_factor = atoi(argv[17 + 2 * i]);
+  }
+  if (atoi(argv[11])) jpeg_simple_progression(&c);
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = px + (size_t)c.next_scanline * w * ch;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(out);
+  free(px);
+  return 0;
+}
+
+static int transcode(char **argv) {
+  /* transcode in.jpg out.jpg arith progressive */
+  struct jpeg_decompress_struct d;
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr derr, cerr;
+  d.err = jpeg_std_error(&derr);
+  jpeg_create_decompress(&d);
+  FILE *in = fopen(argv[2], "rb");
+  if (!in) return 2;
+  jpeg_stdio_src(&d, in);
+  jpeg_read_header(&d, TRUE);
+  jvirt_barray_ptr *coef = jpeg_read_coefficients(&d);
+  c.err = jpeg_std_error(&cerr);
+  jpeg_create_compress(&c);
+  FILE *out = fopen(argv[3], "wb");
+  jpeg_stdio_dest(&c, out);
+  jpeg_copy_critical_parameters(&d, &c);
+  c.arith_code = atoi(argv[4]);
+  c.optimize_coding = FALSE;
+  if (atoi(argv[5])) jpeg_simple_progression(&c);
+  jpeg_write_coefficients(&c, coef);
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  jpeg_finish_decompress(&d);
+  jpeg_destroy_decompress(&d);
+  fclose(in);
+  fclose(out);
+  return 0;
+}
+
+int main(int argc, char **argv) {
+  if (argc > 5 && argv[1][0] == 't') return transcode(argv);
+  if (argc > 17) return encode(argc, argv);
+  return 1;
+}
+"""
+# libjpeg's J_COLOR_SPACE values
+JCS = {"grey": 1, "rgb": 2, "ycc": 3, "cmyk": 4, "ycck": 5}
+_JWRITE = {}
+
+
+def jwrite() -> str:
+    """The writer, built once a process with ``gcc`` and ``-ljpeg`` in a
+    temporary directory."""
+    if "exe" not in _JWRITE:
+        import subprocess
+        import tempfile
+        d = tempfile.mkdtemp(prefix="jwrite_")
+        src, exe = os.path.join(d, "jwrite.c"), os.path.join(d, "jwrite")
+        with open(src, "w") as fh:
+            fh.write(JWRITE_C)
+        subprocess.run(["gcc", "-O1", "-o", exe, src, "-ljpeg"], check=True)
+        _JWRITE["exe"] = exe
+    return _JWRITE["exe"]
+
+
+def libjpeg_encode(samples: np.ndarray, space: str = "ycc",
+                   quality: int = 75, arith: bool = True,
+                   progressive: bool = False, restart: int = 0,
+                   dac=(0, 1, 5), sampling=None) -> bytes:
+    """libjpeg's JPEG of ``samples`` (h, w) grey, (h, w, 3) RGB or
+    (h, w, 4) CMYK: arithmetic-coded where ``arith`` (SOF9, SOF10 with
+    ``progressive``: ``jpeg_simple_progression``'s script), the JPEG colour
+    space ``space`` (grey, ycc, rgb; cmyk or ycck for four channels, with
+    Adobe's APP14 transform 0 or 2), a restart interval of ``restart`` MCUs,
+    DAC conditioning (L, U, Kx) for every table, and (h, v) sampling
+    factors for each component."""
+    import subprocess
+    import tempfile
+    h, w = samples.shape[:2]
+    ch = 1 if samples.ndim == 2 else samples.shape[2]
+    in_space = {1: "grey", 3: "rgb", 4: "cmyk"}[ch]
+    with tempfile.TemporaryDirectory() as d:
+        raw, out = os.path.join(d, "in.raw"), os.path.join(d, "out.jpg")
+        with open(raw, "wb") as fh:
+            fh.write(np.ascontiguousarray(samples, np.uint8).tobytes())
+        args = [jwrite(), "encode", raw, out, w, h, ch, JCS[in_space],
+                JCS[space], quality, int(arith), int(progressive), restart,
+                *dac]
+        for hv in sampling or ((1, 1),) * ch:
+            args += list(hv)
+        subprocess.run([str(a) for a in args], check=True)
+        with open(out, "rb") as fh:
+            return fh.read()
+
+
+def libjpeg_transcode(data: bytes, arith: bool = True,
+                      progressive: bool = False) -> bytes:
+    """``data``'s DCT coefficients written again by libjpeg
+    (``jpeg_read_coefficients``, ``jpeg_write_coefficients``), arithmetic-
+    coded where ``arith``: the same quantized picture in another coding."""
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "in.jpg"), os.path.join(d, "out.jpg")
+        with open(src, "wb") as fh:
+            fh.write(data)
+        subprocess.run([jwrite(), "transcode", src, out, str(int(arith)),
+                        str(int(progressive))], check=True)
+        with open(out, "rb") as fh:
+            return fh.read()
+
+
+# -- lossless JPEG ---------------------------------------------------------------
+
+# the one Huffman table of the lossless files: symbols 0-16 (a difference's
+# category, 16 for 32768), one code of 2 bits, five of 3, one each of 4-14
+LOSSLESS_BITS = [0, 1, 5] + [1] * 11 + [0, 0]
+LOSSLESS_VALS = list(range(17))
+
+
+def _predict(psv: int, ra: int, rb: int, rc: int) -> int:
+    return {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv]
+
+
+def jpeg_lossless(samples: np.ndarray, predictor: int = 1, pt: int = 0,
+                  restart_rows: int = 0, scans=None, precision: int = 8,
+                  marker: int = 0xC3, ids=(1, 2, 3), adobe=None,
+                  jfif: bool = False) -> bytes:
+    """A lossless JPEG (SOF3, or ``marker``) of ``samples`` (h, w, n)
+    stored as they are, at ``precision`` bits, as neither cv2 nor PIL
+    writes one: predictor ``predictor`` (1-7), point transform ``pt``, a
+    restart interval of ``restart_rows`` whole rows, the components in the
+    scans ``scans`` (component indices; a scan of more than one is
+    interleaved), one DHT. The component ids ``ids``, a JFIF APP0 where
+    ``jfif`` and an Adobe APP14 with the transform ``adobe``."""
+    h, w, n = samples.shape
+    scans = scans or (tuple(range(n)),)
+    x = samples.astype(np.int64) >> pt
+    codes = _codes(LOSSLESS_BITS, LOSSLESS_VALS)
+
+    def seg(m: int, body: bytes) -> bytes:
+        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
+
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        out += seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    out += seg(marker, struct.pack(">BHHB", precision, h, w, n) + b"".join(
+        bytes([ids[i], 0x11, 0]) for i in range(n)))
+    out += seg(0xC4, bytes([0x00] + LOSSLESS_BITS + LOSSLESS_VALS))
+    if restart_rows:
+        out += seg(0xDD, struct.pack(">H", restart_rows * w))
+    initial = 1 << (precision - pt - 1)
+    for scan in scans:
+        out += seg(0xDA, bytes([len(scan)]) + b"".join(
+            bytes([ids[i], 0x00]) for i in scan)
+                   + bytes([predictor, 0, pt]))
+        bits, rst = _Bits(), 0
+        for y in range(h):
+            if restart_rows and y and y % restart_rows == 0:
+                bits.flush()
+                out += bits.out + bytes([0xFF, 0xD0 + rst])
+                bits, rst = _Bits(), (rst + 1) % 8
+            first = restart_rows and y % restart_rows == 0 or y == 0
+            for xx in range(w):
+                for i in scan:
+                    v = int(x[y, xx, i])
+                    if first:
+                        pred = initial if xx == 0 else int(x[y, xx - 1, i])
+                    elif xx == 0:
+                        pred = int(x[y - 1, 0, i])
+                    else:
+                        pred = _predict(predictor, int(x[y, xx - 1, i]),
+                                        int(x[y - 1, xx, i]),
+                                        int(x[y - 1, xx - 1, i]))
+                    diff = (v - pred) & 0xFFFF
+                    diff = diff - 65536 if diff >= 32768 else diff
+                    cat = 16 if diff == -32768 else abs(diff).bit_length()
+                    bits.put(*codes[cat])
+                    if 0 < cat < 16:
+                        bits.put(diff if diff >= 0 else diff + (1 << cat) - 1,
+                                 cat)
+        bits.flush()
+        out += bits.out
+    return bytes(out + b"\xff\xd9")
+
+
 # -- PNG -----------------------------------------------------------------------
 
 def _paeth(a, b, c):
@@ -483,25 +736,152 @@ def frame_files() -> dict:
     return files
 
 
+def arith_files() -> dict:
+    """Arithmetic-coded files that libjpeg writes (SOF9, SOF10 with its
+    simple progression): 4:4:4, 4:2:2, 4:2:0 and grey, restart intervals,
+    and DAC conditioning other than the defaults (L 0, U 1, Kx 5)."""
+    s420 = ((2, 2), (1, 1), (1, 1))
+    s422 = ((2, 1), (1, 1), (1, 1))
+    s444 = ((1, 1),) * 3
+
+    def rgb(h, w, seed):
+        return scene(h, w, seed)[..., ::-1]
+
+    return {
+        "arith_seq_s420_q75_37x53": libjpeg_encode(rgb(37, 53, 70),
+                                                   sampling=s420),
+        "arith_seq_s444_q90_29x45": libjpeg_encode(rgb(29, 45, 71), "ycc",
+                                                   90, sampling=s444),
+        "arith_seq_s422_rst2_41x59": libjpeg_encode(
+            rgb(41, 59, 72), "ycc", 80, restart=2, sampling=s422),
+        "arith_seq_grey_q85_33x47": libjpeg_encode(scene(33, 47, 73)[..., 1],
+                                                   "grey", 85),
+        "arith_seq_dac_s420_45x61": libjpeg_encode(
+            rgb(45, 61, 74), "ycc", 70, dac=(2, 6, 12), sampling=s420),
+        "arith_prog_s420_q75_37x53": libjpeg_encode(
+            rgb(37, 53, 75), progressive=True, sampling=s420),
+        "arith_prog_s444_rst1_29x45": libjpeg_encode(
+            rgb(29, 45, 76), "ycc", 85, progressive=True, restart=1,
+            sampling=s444),
+        "arith_prog_grey_q60_31x43": libjpeg_encode(
+            scene(31, 43, 77)[..., 1], "grey", 60, progressive=True),
+        "arith_prog_dac_s420_rst3_45x61": libjpeg_encode(
+            rgb(45, 61, 78), "ycc", 75, progressive=True, restart=3,
+            dac=(1, 9, 40), sampling=s420),
+        "arith_seq_rgb_q80_23x31": libjpeg_encode(rgb(23, 31, 79), "rgb",
+                                                  80, sampling=s444),
+    }
+
+
+def four_component_files() -> dict:
+    """CMYK (Adobe transform 0) and YCCK (transform 2) files that libjpeg
+    writes from seeded CMYK samples, Huffman- and arithmetic-coded, with
+    the K plane at full resolution and the colour planes subsampled in
+    some."""
+    rs = np.random.RandomState(80)
+
+    def cmyk(h, w, seed):
+        k = rs.randint(0, 256, (h, w, 1)).astype(np.uint8)
+        return np.concatenate([scene(h, w, seed), k], -1)
+
+    s420 = ((2, 2), (1, 1), (1, 1), (2, 2))
+    return {
+        "cmyk_huff_q90_29x45": libjpeg_encode(cmyk(29, 45, 81), "cmyk", 90,
+                                              arith=False),
+        "ycck_huff_s420_q75_37x53": libjpeg_encode(
+            cmyk(37, 53, 82), "ycck", 75, arith=False, sampling=s420),
+        "cmyk_arith_prog_q80_31x43": libjpeg_encode(
+            cmyk(31, 43, 83), "cmyk", 80, progressive=True),
+        "ycck_arith_s420_rst2_41x59": libjpeg_encode(
+            cmyk(41, 59, 84), "ycck", 85, restart=2, sampling=s420),
+    }
+
+
+def lossless_files() -> dict:
+    """8-bit three-component lossless files (``jpeg_lossless``): each
+    predictor, point transforms, restart intervals, components in separate
+    scans, the ids 'R', 'G', 'B' and an Adobe transform of 0."""
+    files = {f"lossless_p{p}_23x31": jpeg_lossless(scene(23, 31, 90 + p), p)
+             for p in range(1, 8)}
+    files.update({
+        "lossless_p4_pt2_19x27": jpeg_lossless(scene(19, 27, 98), 4, pt=2),
+        "lossless_p7_pt5_rst3_17x21": jpeg_lossless(scene(17, 21, 99), 7,
+                                                    pt=5, restart_rows=3),
+        "lossless_p1_rst1_13x9": jpeg_lossless(scene(13, 9, 100), 1,
+                                               restart_rows=1),
+        "lossless_p6_scans_21x25": jpeg_lossless(
+            scene(21, 25, 101), 6, scans=((2,), (0,), (1,))),
+        "lossless_p5_scans_rst2_15x19": jpeg_lossless(
+            scene(15, 19, 102), 5, restart_rows=2, scans=((1,), (0, 2))),
+        "lossless_p2_rgb_adobe0_11x17": jpeg_lossless(
+            scene(11, 17, 103), 2, ids=(82, 71, 66), adobe=0),
+    })
+    return files
+
+
+def refused_files() -> dict:
+    """The modes cv2 refuses under ``IMREAD_COLOR`` (``mode``: what the
+    port's refusal names): lossless with one component, at 12 and 16 bits,
+    in YCbCr (a JFIF marker), lossless arithmetic (SOF11), and hierarchical
+    files (SOF5, SOF7, the last a lossless file's bytes under SOF7)."""
+    im = scene(11, 13, 110)
+    deep = im.astype(np.uint16)
+    return {
+        "lossless_grey_11x13": (jpeg_lossless(im[..., :1]), "grey"),
+        "lossless_12bit_11x13": (jpeg_lossless(deep * 16, precision=12),
+                                 "12-bit lossless"),
+        "lossless_16bit_11x13": (jpeg_lossless(deep * 257, precision=16),
+                                 "16-bit lossless"),
+        "lossless_jfif_11x13": (jpeg_lossless(im, jfif=True), "YCbCr"),
+        "sof11_11x13": (jpeg_lossless(im, marker=0xCB),
+                        "lossless arithmetic"),
+        "sof7_11x13": (jpeg_lossless(im, marker=0xC7), "hierarchical"),
+        "sof5_11x13": (jpeg_lossless(im, marker=0xC5), "hierarchical"),
+    }
+
+
+def arith_frame_files() -> dict:
+    """The four 360x640 frames' baseline files transcoded to arithmetic
+    coding (SOF9): the same coefficients, so the same pixels."""
+    files = {}
+    for i in range(4):
+        with open(os.path.join(OUT, f"frame{i}_360x640.jpg"), "rb") as fh:
+            files[f"frame{i}_360x640_arith"] = libjpeg_transcode(fh.read())
+    return files
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     from i2vsgg_tpu_torch.data.image_io import write_png
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
     manifest = {}
-    for kind, files in (("jpeg", jpeg_files()), ("prefix", prefix_files()),
-                        ("png", png_files()), ("frames", frame_files())):
-        for name, data in files.items():
+    for kind, make in (("jpeg", jpeg_files), ("prefix", prefix_files),
+                       ("png", png_files), ("frames", frame_files),
+                       ("arith", arith_files), ("four", four_component_files),
+                       ("lossless", lossless_files),
+                       ("refused", refused_files),
+                       ("arith_frames", arith_frame_files)):
+        for name, data in make().items():
+            mode = None
+            if kind == "refused":
+                data, mode = data
             ext = ".png" if data.startswith(PNG_SIGNATURE) else ".jpg"
             path = os.path.join(OUT, name + ext)
             with open(path, "wb") as fh:
                 fh.write(data)
             decoded = cv2.imread(path, cv2.IMREAD_COLOR)
+            if mode is not None:
+                assert decoded is None, name          # cv2 refuses it
+                manifest[name] = {"set": kind, "file": name + ext,
+                                  "mode": mode}
+                continue
             entry = {"set": kind, "file": name + ext,
                      "shape": list(decoded.shape)}
-            if kind == "frames":
-                if name.endswith("_progressive"):
-                    entry["twin"] = name[:-len("_progressive")] + ".jpg"
+            if kind in ("frames", "arith_frames"):
+                for suffix in ("_progressive", "_arith"):
+                    if name.endswith(suffix):
+                        entry["twin"] = name[:-len(suffix)] + ".jpg"
             else:
                 entry["golden"] = name + ".golden.png"
                 write_png(os.path.join(OUT, entry["golden"]), decoded, 2)

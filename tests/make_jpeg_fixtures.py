@@ -13,10 +13,9 @@ the port's ``write_png``. ``MANIFEST.json`` lists each file with its set:
   grey, odd sizes down to 1x1, qualities 50-100, a restart interval,
   optimized Huffman tables, a file without DHT (the standard tables),
   16-bit quantization tables (SOF1), a PIL-written file, an Adobe RGB file,
-  EXIF orientations 1-8, and a progressive file (its entry keeps the
-  ``mode`` the decoder refused it for before it read progressive JPEG);
-* ``refused``: a CMYK file, with the mode the decoder must name (no
-  golden);
+  EXIF orientations 1-8, a progressive file and a CMYK file (PIL; each
+  entry keeps the ``mode`` the decoder refused it for before it read the
+  mode);
 * ``realistic``: two VRD-sized stills (1024x768 and 768x1024, 4:2:0 at
   quality 90) and two 360x640 video frames.
 
@@ -128,8 +127,8 @@ def coverage() -> dict:
 
 
 def refused() -> dict:
-    """{name: (data, mode)}: the modes refused, and the progressive file,
-    refused once and now read (``PORTED``)."""
+    """{name: (data, mode)}: the progressive and the CMYK file, refused
+    once and now read (``PORTED``)."""
     im = scene(37, 53, 40)
     cmyk = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(im[..., ::-1])).convert(
@@ -139,7 +138,7 @@ def refused() -> dict:
             "cmyk_37x53": (cmyk.getvalue(), "four components")}
 
 
-PORTED = {"progressive_37x53"}
+PORTED = {"progressive_37x53", "cmyk_37x53"}
 
 
 def realistic() -> dict:

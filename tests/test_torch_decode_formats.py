@@ -206,7 +206,7 @@ def _refusals():
     base = JPEG_CASES["cv2_s420_37x53"]()
     sof = base.index(b"\xff\xc2")
     return {
-        "arithmetic": (_patched(base, sof + 1, 0xCA), "arithmetic"),
+        "arithmetic": (_patched(base, sof + 1, 0xCB), "lossless arithmetic"),
         "lossless": (_patched(base, sof + 1, 0xC3), "lossless"),
         "hierarchical": (_patched(base, sof + 1, 0xC6), "hierarchical"),
         "12bit": (_patched(base, sof + 4, 12), "12-bit"),
@@ -216,9 +216,11 @@ def _refusals():
 @pytest.mark.parametrize("mode", ["arithmetic", "lossless", "hierarchical",
                                   "12bit"])
 def test_progressive_headers_of_refused_modes_raise(mode, tmp_path):
-    """A progressive file with its SOF2 patched to SOF10 (arithmetic), SOF3
-    (lossless) or SOF6 (hierarchical), or its precision to 12: each way in
-    raises ``UnsupportedImageError`` naming the mode."""
+    """A progressive file with its SOF2 patched to SOF11 (lossless
+    arithmetic), SOF3 (lossless, here subsampled) or SOF6 (hierarchical),
+    or its precision to 12: each way in raises ``UnsupportedImageError``
+    naming the mode (``test_torch_decode_modes.py`` reads the arithmetic,
+    lossless and four-component files)."""
     data, what = _refusals()[mode]
     path = write(tmp_path, mode + ".jpg", data)
     for read in (image_io.imread_bgr, runtime.decode_image,
@@ -557,8 +559,13 @@ def test_a_header_the_stream_cannot_fill_raises(tmp_path):
 
 # -- the committed fixtures -----------------------------------------------------
 
-WITH_GOLDEN = sorted(k for k, v in MANIFEST.items() if "golden" in v)
-TWINS = sorted(k for k, v in MANIFEST.items() if "twin" in v)
+# this file's sets of the fixtures (``test_torch_decode_modes.py`` holds the
+# rest)
+SETS = {"jpeg", "prefix", "png", "frames"}
+WITH_GOLDEN = sorted(k for k, v in MANIFEST.items()
+                     if "golden" in v and v["set"] in SETS)
+TWINS = sorted(k for k, v in MANIFEST.items()
+               if "twin" in v and v["set"] in SETS)
 
 
 @pytest.mark.parametrize("name", WITH_GOLDEN)
@@ -585,7 +592,8 @@ def test_decode_fixtures_cover_the_sets_and_fit():
     """Every set is there, every PNG pair new in this decoder has a file,
     and the directory stays under 512 KiB."""
     sets = {v["set"] for v in MANIFEST.values()}
-    assert sets == {"jpeg", "prefix", "png", "frames"}
+    assert sets == SETS | {"arith", "four", "lossless", "refused",
+                           "arith_frames"}
     pairs = {tuple(int(x[1:]) for x in k.split("_")[1:3])
              for k in MANIFEST if k.startswith("png_")}
     assert pairs == {(c, d) for c, ds in mk.PNG_DEPTHS.items() for d in ds

@@ -323,8 +323,8 @@ def test_undecodable_images_raise(tmp_path, data_root):
     """A baseline JPEG (the fixture's MVRD stills) decodes as cv2 decodes
     it, and so do a progressive JPEG and 16-bit and Adam7-interlaced PNG,
     which the port refused before it read them; a non-interlaced stream
-    labelled Adam7 is corrupt (``ValueError``); an arithmetic-coded JPEG and
-    other formats raise ``UnsupportedImageError``."""
+    labelled Adam7 is corrupt (``ValueError``); a lossless arithmetic-coded
+    JPEG and other formats raise ``UnsupportedImageError``."""
     jpg = os.path.join(data_root["root"], "MVRD", "JPEGImages",
                        "img000.jpg")
     with Image.open(jpg) as im:
@@ -355,7 +355,7 @@ def test_undecodable_images_raise(tmp_path, data_root):
         image_io.imread_bgr(pint)
     assert not isinstance(e.value, image_io.UnsupportedImageError)
     arith = str(tmp_path / "arithmetic.jpg")
-    open(arith, "wb").write(sof9(open(jpg, "rb").read()))
+    open(arith, "wb").write(sof11(open(jpg, "rb").read()))
     with pytest.raises(image_io.UnsupportedImageError, match="arithmetic"):
         image_io.imread_bgr(arith)
     bmp = str(tmp_path / "x.bmp")
@@ -481,21 +481,22 @@ def test_training_loader_native_matches_jax_on_jpeg_stills(data_root,
     _same_batches(got, exp, "image", exact=True)
 
 
-def sof9(data: bytes) -> bytes:
-    """A baseline JPEG with its SOF0 marker made SOF9 (arithmetic coding),
-    a mode the port still refuses."""
+def sof11(data: bytes) -> bytes:
+    """A baseline JPEG with its SOF0 marker made SOF11 (lossless
+    arithmetic coding), a mode the port still refuses."""
     out = bytearray(data)
-    out[data.index(b"\xff\xc0") + 1] = 0xC9
+    out[data.index(b"\xff\xc0") + 1] = 0xCB
     return bytes(out)
 
 
 def test_loader_raises_on_an_undecodable_image(tmp_path, monkeypatch):
     """The loader's prefetch thread re-raises a decode error in the
-    consumer: here an arithmetic-coded JPEG among the MVRD stills."""
+    consumer: here a lossless arithmetic-coded JPEG among the MVRD
+    stills."""
     root = make_fixture_root(str(tmp_path), n_rel=N_REL)["root"]
     jpg = os.path.join(root, "MVRD", "JPEGImages", "img001.jpg")
     data = open(jpg, "rb").read()
-    open(jpg, "wb").write(sof9(data))
+    open(jpg, "wb").write(sof11(data))
     monkeypatch.setenv("I2VSGG_DATA_ROOT", root)
     _, rdb, _, idx = roidb.combined_roidb("MVRD_test", training=False,
                                           use_flipped=False)

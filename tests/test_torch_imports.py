@@ -92,7 +92,8 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
                      "tools.calibrate_act_scales", "tools.quant_trunk_ab",
                      "tools.learnable_data", "tools.parity_run",
                      "tools.train_gate_arm", "tools.capacity_ab",
-                     "tools.quant_ab"):
+                     "tools.quant_ab", "tools.stage_c_hard",
+                     "tools.stage_b_rescore", "utils.vis"):
             assert "i2vsgg_tpu_torch." + name in names, name
         from i2vsgg_tpu_torch.tools import calibrate_act_scales
         from i2vsgg_tpu_torch.tools import quant_trunk_ab
@@ -130,6 +131,45 @@ def test_port_imports_nothing_of_jax_yaml_or_the_jax_package():
         print("modules", len(names))
     """)
     assert "modules" in out
+
+
+def test_last_modules_without_the_blocked_names(tmp_path):
+    """``tools/stage_c_hard.py``, ``tools/stage_b_rescore.py`` and
+    ``utils/vis.py`` with cv2, PIL, jax and yaml refused, as the card's
+    machine runs them: the tools default to the card and refuse the
+    reference arm; ``save_vis`` draws and writes a PNG that the port's
+    decoder reads back as the drawing."""
+    out = run_isolated(f"""
+        import numpy as np
+
+        from i2vsgg_tpu_torch.data import image_io
+        from i2vsgg_tpu_torch.tools import stage_b_rescore, stage_c_hard
+        from i2vsgg_tpu_torch.utils import vis
+
+        for tool, argv in ((stage_c_hard, ["--ours_ckpt", "c/1"]),
+                           (stage_b_rescore, [])):
+            args = tool.parse_args(argv)
+            assert args.device == "cuda" and args.arms == "ours", args
+            try:
+                tool.main(argv + ["--arms", "ref", "--device", "cpu"])
+            except ValueError as e:
+                assert "/root/reference" in str(e)
+            else:
+                raise SystemExit("the reference arm ran")
+        im = np.zeros((24, 40, 3), np.uint8)
+        dets = [None, np.asarray([[2.5, 14.0, 30.2, 22.9, 0.9],
+                                  [1, 1, 3, 3, 0.1]], np.float32)]
+        path = "{tmp_path}/vis.png"
+        vis.save_vis(im, dets, ["bg", "cat"], path)
+        got = image_io.imread_bgr(path)
+        want = vis.vis_detections(im, "cat", dets[1], 0.5)[..., ::-1]
+        assert np.array_equal(got, want)
+        assert (got[14, 2:31] == (0, 0, 204)).all()     # the top edge
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("drawn", int((got != 0).any(-1).sum()))
+    """)
+    assert "drawn" in out
 
 
 def test_mesh_without_a_launcher_or_a_card():
@@ -576,7 +616,8 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
     and yaml refused; the decoder builds with the host compiler and holds
     every committed fixture to its golden (read by the port's PNG decoder),
     refusing the refused ones, as ``chip_smoke.py`` does on the card's
-    machine: 28 held since the progressive fixture is read."""
+    machine: 29 held since the progressive and the CMYK fixture are
+    read."""
     out = run_isolated("""
         import json
         import os
@@ -607,15 +648,16 @@ def test_jpeg_decoder_builds_and_decodes_without_the_blocked_names():
         assert not bad, bad
         print("held", held)
     """)
-    assert "held 28" in out
+    assert "held 29" in out
 
 
 def test_decode_formats_without_the_blocked_names():
     """With cv2, PIL, jax and yaml refused, both decoders hold every
     fixture of ``tests/data/decode`` (progressive, separate-scan and
-    cut-short JPEG; PNG at each depth and Adam7) to its golden and each
-    progressive 360x640 frame to its baseline twin, as ``chip_smoke.py``
-    phase 19 does on the card's machine."""
+    cut-short JPEG; PNG at each depth and Adam7; arithmetic-coded, CMYK,
+    YCCK and lossless JPEG) to its golden and each progressive and
+    arithmetic-coded 360x640 frame to its baseline twin, as
+    ``chip_smoke.py`` phases 19 and 22 do on the card's machine."""
     out = run_isolated("""
         import json
         import os
@@ -641,7 +683,7 @@ def test_decode_formats_without_the_blocked_names():
         assert not bad, bad
         print("held", held)
     """)
-    assert "held 35" in out
+    assert "held 66" in out
 
 
 def test_native_runtime_builds_and_loads_without_the_blocked_names(tmp_path):

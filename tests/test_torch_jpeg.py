@@ -9,11 +9,12 @@ against ``cv2.imread(path, cv2.IMREAD_COLOR)`` on the CPU, byte for byte.
 * The committed fixtures of ``tests/data/jpeg`` (``make_jpeg_fixtures.py``):
   each golden equals cv2 here, and the port equals each golden.
 * The refused modes raise ``UnsupportedImageError`` naming the mode:
-  arithmetic coding, lossless, 12-bit samples (each made by patching a
-  baseline file's header), CMYK (PIL). The two modes refused before the
-  port read them, progressive (written by cv2) and colour components in
-  separate scans (``make_decode_fixtures.jpeg_separate_scans``), decode as
-  cv2 decodes them (more in ``test_torch_decode_formats.py``).
+  lossless arithmetic coding (SOF11), subsampled lossless, 12-bit samples
+  (each made by patching a baseline file's header). The modes refused
+  before the port read them, progressive (written by cv2), colour
+  components in separate scans (``make_decode_fixtures.
+  jpeg_separate_scans``) and CMYK (PIL), decode as cv2 decodes them (more
+  in ``test_torch_decode_formats.py`` and ``test_torch_decode_modes.py``).
 * Truncated files raise ``ValueError`` and seeded byte mutations decode or
   raise it, in a subprocess, so that a crash fails the test and not the
   worker.
@@ -182,7 +183,7 @@ def test_committed_fixture_equals_its_golden(name):
 
 def test_committed_fixtures_cover_the_sets():
     sets = {v["set"] for v in MANIFEST.values()}
-    assert sets == {"coverage", "refused", "realistic"}
+    assert sets == {"coverage", "realistic"}
     assert {MANIFEST[k]["mode"] for k in REFUSED} == {"progressive",
                                                       "four components"}
     shapes = {tuple(v["shape"]) for v in MANIFEST.values()
@@ -247,10 +248,10 @@ def _separate_scans(tmp_path):
 # refused before it read it, which now decodes as cv2 decodes it)
 REFUSALS = {
     "progressive": (_progressive, None),
-    "arithmetic": (_patched_sof(marker=0xC9), "arithmetic"),
-    "lossless": (_patched_sof(marker=0xC3), "lossless"),
+    "arithmetic": (_patched_sof(marker=0xCB), "lossless arithmetic"),
+    "lossless": (_patched_sof(marker=0xC3), "subsampled lossless"),
     "12bit": (_patched_sof(precision=12), "12-bit"),
-    "cmyk": (_cmyk, "four components"),
+    "cmyk": (_cmyk, None),
     "separate_scans": (_separate_scans, None),
 }
 

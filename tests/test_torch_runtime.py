@@ -6,7 +6,8 @@ the port's Python path, on the CPU:
 * ``decode_image``: bit-equal to JAX's on every committed JPEG fixture that
   both decode, EXIF orientations 2-8 and a progressive file included
   (neither runtime applies the orientation; applied afterwards, the port's
-  ``imread_bgr``); CMYK fails in both.
+  ``imread_bgr``); CMYK fails in JAX's (libjpeg asked for RGB) and equals
+  its golden in the port's.
 * PNG: colour types 0, 2, 3, 4 and 6, written by cv2, by PIL and by
   ``write_png`` with each row filter, at zlib levels 0, 1, 6 and 9, at 1x1
   and odd widths: bit-equal to JAX's decode and to ``data/image_io.py``'s
@@ -176,8 +177,17 @@ def test_png_goldens_of_the_jpeg_fixtures():
 def test_jpeg_decode_equals_jax(name):
     """Bit-equal to JAX's runtime on what both decode, EXIF orientations
     unapplied in both (applied afterwards: the port's ``imread_bgr``), the
-    progressive fixture included; CMYK fails in both."""
+    progressive fixture included; CMYK fails in JAX's (libjpeg cannot give
+    it as RGB) and equals its golden (cv2's decode) in the port's."""
     path = os.path.join(FIXTURES, name + ".jpg")
+    if MANIFEST[name].get("mode") == "four components":
+        with pytest.raises(Exception):
+            jax_runtime.decode_image(path)
+        np.testing.assert_array_equal(
+            runtime.decode_image(path),
+            image_io.imread_bgr(os.path.join(FIXTURES,
+                                             MANIFEST[name]["golden"])))
+        return
     if MANIFEST[name]["set"] == "refused":
         mode = MANIFEST[name]["mode"]
         with pytest.raises(UNSUPPORTED, match=mode) as e:
